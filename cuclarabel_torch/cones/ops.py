@@ -1,0 +1,531 @@
+"""Batched cone operations on flat (B, m) tensors: zero, nonnegative and
+second-order cones.
+
+The counterpart of `cuclarabel_tpu/cones/ops.py`, with the reference's
+names.  Every vector carries a leading batch dimension, (B, m); per-cone
+scalars are (B, nsoc) and per-problem scalars (B,).  Zero / nonnegative
+cones are masked elementwise ops; second-order cones run as segment sums
+(`index_add_`) over the gathered (B, msoc) subvector.  Exponential,
+power, generalised power and PSD cones are not ported yet and raise
+NotImplementedError.
+"""
+
+import functools
+
+import numpy as np
+import torch
+
+from .layout import ConeLayout
+
+FMAX = float(np.finfo(np.float64).max)
+EPS = float(np.finfo(np.float64).eps)
+
+PRIMAL = 0
+DUAL = 1
+
+
+def require_supported(layout: ConeLayout) -> None:
+    """Raise for the cone types the port does not cover yet."""
+    missing = [name for name, has in (
+        ("ExponentialConeT", layout.has_exp),
+        ("PowerConeT", layout.has_pow),
+        ("GenPowerConeT", layout.has_genpow),
+        ("PSDTriangleConeT", layout.has_psd),
+    ) if has]
+    if missing:
+        raise NotImplementedError(
+            f"cuclarabel_torch covers zero, nonnegative and second-order "
+            f"cones; {', '.join(missing)} are not ported yet")
+
+
+class _Plan:
+    """The layout's index plans as tensors on one device."""
+
+    def __init__(self, layout: ConeLayout, device):
+        require_supported(layout)
+        t = functools.partial(torch.as_tensor, device=device)
+        self.nn_mask = t(layout.nn_mask)
+        self.zero_mask = t(layout.zero_mask)
+        if layout.has_soc:
+            self.soc_idx = t(layout.soc_idx.astype(np.int64))
+            self.soc_seg = t(layout.soc_seg.astype(np.int64))
+            self.soc_headpos = t(layout.soc_headpos.astype(np.int64))
+            self.soc_is_head = t(layout.soc_is_head)
+            self.soc_sign = t(layout.soc_sign, dtype=torch.float64)
+            self.soc_head_full = t(layout.soc_head_full.astype(np.int64))
+            segfull = layout.soc_segfull
+            self.soc_same = t((segfull[:, None] == segfull[None, :])
+                              & (segfull >= 0)[:, None])
+
+
+@functools.lru_cache(maxsize=64)
+def plan(layout: ConeLayout, device) -> _Plan:
+    return _Plan(layout, torch.device(device))
+
+
+def _col(a, like):
+    """Per-problem scalar(s) as a (B, 1) column (a float broadcasts)."""
+    a = torch.as_tensor(a, dtype=like.dtype, device=like.device)
+    return a.expand(like.shape[0]).unsqueeze(1) if a.dim() == 0 else a[:, None]
+
+
+def _safe(x):
+    """Guard a strictly-positive denominator (result is discarded via
+    `where` whenever the guard fails)."""
+    return torch.where(x > 0, x, 1.0)
+
+
+def _safe_nonzero(x):
+    return torch.where(x != 0, x, 1.0)
+
+
+def _set(x, idx, vals):
+    """Out-of-place x[:, idx] = vals."""
+    return x.index_copy(1, idx, vals)
+
+
+# ---------------------------------------------------------------------------
+# SOC segment helpers.  All take the *gathered* (B, msoc) tensors.
+# ---------------------------------------------------------------------------
+
+
+def _seg_sum(layout: ConeLayout, vals):
+    p = plan(layout, vals.device)
+    out = vals.new_zeros(vals.shape[0], layout.nsoc)
+    return out.index_add_(1, p.soc_seg, vals)
+
+
+def _soc_tail_sumsq(layout, vg):
+    p = plan(layout, vg.device)
+    return _seg_sum(layout, torch.where(p.soc_is_head, 0.0, vg * vg))
+
+
+def _soc_tail_dot(layout, ug, vg):
+    p = plan(layout, vg.device)
+    return _seg_sum(layout, torch.where(p.soc_is_head, 0.0, ug * vg))
+
+
+def _soc_full_dot(layout, ug, vg):
+    return _seg_sum(layout, ug * vg)
+
+
+def _soc_residual(layout, vg):
+    """Per-cone v0^2 - ||v_tail||^2, computed as (v0-t)(v0+t) for
+    cancellation safety (coneops_socone.jl:415-419). Returns
+    (res, v0, tailnorm)."""
+    p = plan(layout, vg.device)
+    v0 = vg[:, p.soc_headpos]
+    t = torch.sqrt(_soc_tail_sumsq(layout, vg))
+    return (v0 - t) * (v0 + t), v0, t
+
+
+def _soc_mul_W(layout, eta, wg, xg):
+    """y = W x via the ECOS fast product (coneops_socone.jl:313-333)."""
+    p = plan(layout, xg.device)
+    hp, seg = p.soc_headpos, p.soc_seg
+    w0 = wg[:, hp]
+    x0 = xg[:, hp]
+    zeta = _soc_tail_dot(layout, wg, xg)
+    c = x0 + zeta / (1.0 + w0)
+    yg = eta[:, seg] * (xg + c[:, seg] * wg)
+    return _set(yg, hp, eta * (w0 * x0 + zeta))
+
+
+def _soc_mul_Winv(layout, eta, wg, xg):
+    """y = W^{-1} x (coneops_socone.jl:336-357)."""
+    p = plan(layout, xg.device)
+    hp, seg = p.soc_headpos, p.soc_seg
+    w0 = wg[:, hp]
+    x0 = xg[:, hp]
+    zeta = _soc_tail_dot(layout, wg, xg)
+    c = -x0 + zeta / (1.0 + w0)
+    etainv = 1.0 / eta
+    yg = etainv[:, seg] * (xg + c[:, seg] * wg)
+    return _set(yg, hp, etainv * (w0 * x0 - zeta))
+
+
+def _soc_circ(layout, ug, vg):
+    """Jordan product x = u o v (coneops_socone.jl:376-391)."""
+    p = plan(layout, vg.device)
+    hp, seg = p.soc_headpos, p.soc_seg
+    u0 = ug[:, hp]
+    v0 = vg[:, hp]
+    full = _soc_full_dot(layout, ug, vg)
+    xg = u0[:, seg] * vg + v0[:, seg] * ug
+    return _set(xg, hp, full)
+
+
+# ---------------------------------------------------------------------------
+# initialization / margins / shifts
+# ---------------------------------------------------------------------------
+
+
+def unit_initialization(layout: ConeLayout, batch: int, device):
+    """Unit (central-ray) initialization of (z, s): zero: 0; NN: 1;
+    SOC: e1 (coneops_*:unit_initialization!)."""
+    p = plan(layout, device)
+    z = torch.zeros(batch, layout.m, dtype=torch.float64, device=device)
+    if layout.has_nn:
+        z = torch.where(p.nn_mask, 1.0, z)
+    if layout.has_soc:
+        z = _set(z, p.soc_head_full, torch.ones_like(z[:, p.soc_head_full]))
+    return z, z.clone()
+
+
+def margins(layout: ConeLayout, z, pd: int):
+    """(min_margin, total_positive_margin) per problem, each (B,)
+    (coneops_compositecone.jl:49-63)."""
+    p = plan(layout, z.device)
+    alpha = torch.full_like(z[:, 0], FMAX)
+    beta = torch.zeros_like(z[:, 0])
+    if layout.has_nn:
+        zn = torch.where(p.nn_mask, z, FMAX)
+        alpha = torch.minimum(alpha, zn.amin(dim=1))
+        beta = beta + torch.where(p.nn_mask & (z > 0), z, 0.0).sum(dim=1)
+    if layout.has_soc:
+        zg = z[:, p.soc_idx]
+        _, z0, t = _soc_residual(layout, zg)
+        am = z0 - t
+        alpha = torch.minimum(alpha, am.amin(dim=1))
+        beta = beta + torch.clamp(am, min=0.0).sum(dim=1)
+    # zero cone contributes (FMAX, 0) (coneops_zerocone.jl:27-39)
+    return alpha, beta
+
+
+def scaled_unit_shift(layout: ConeLayout, z, alpha, pd: int):
+    """z += alpha * e per cone; the zero cone is *zeroed* when shifting
+    primal vectors (coneops_zerocone.jl:42-55).  alpha: (B,) or float."""
+    p = plan(layout, z.device)
+    a = _col(alpha, z)
+    if layout.has_nn:
+        z = torch.where(p.nn_mask, z + a, z)
+    if layout.has_soc:
+        z = z.index_add(1, p.soc_head_full, a.expand(-1, layout.nsoc))
+    if layout.has_zero and pd == PRIMAL:
+        z = torch.where(p.zero_mask, 0.0, z)
+    return z
+
+
+def shift_to_cone_interior(layout: ConeLayout, z, pd: int):
+    """Two-stage interior shift used by symmetric initialization
+    (variables.jl:180-208)."""
+    min_margin, pos_margin = margins(layout, z, pd)
+    deg = max(layout.degree, 1)
+    target = torch.maximum(torch.ones_like(pos_margin), 0.1 * pos_margin / deg)
+
+    z_neg = scaled_unit_shift(layout, z, -min_margin, pd)
+    z_neg = scaled_unit_shift(layout, z_neg, target, pd)
+    z_small = scaled_unit_shift(layout, z, target - min_margin, pd)
+    z_ok = scaled_unit_shift(layout, z, 0.0, pd)
+
+    cond_neg = (min_margin <= 0)[:, None]
+    cond_small = ~cond_neg & (min_margin < target)[:, None]
+    return torch.where(cond_neg, z_neg, torch.where(cond_small, z_small, z_ok))
+
+
+# ---------------------------------------------------------------------------
+# scaling updates
+# ---------------------------------------------------------------------------
+
+
+def set_identity_scaling(layout: ConeLayout, batch: int, device):
+    """W = I scaling used to produce the symmetric initial point
+    (solver.jl:388-396)."""
+    p = plan(layout, device)
+    f64 = torch.float64
+    state = {}
+    if layout.has_nn:
+        one = torch.where(p.nn_mask, 1.0, 0.0).to(f64).expand(batch, -1)
+        state["nn_w"] = one.clone()
+        state["nn_lam"] = one.clone()
+    if layout.has_soc:
+        e1 = torch.where(p.soc_is_head, 1.0, 0.0).to(f64).expand(batch, -1)
+        state["soc_w"] = e1.clone()
+        state["soc_lam"] = e1.clone()
+        state["soc_eta"] = torch.ones(batch, layout.nsoc, dtype=f64,
+                                      device=device)
+    return state
+
+
+def update_scaling(layout: ConeLayout, s, z, mu, scaling_flag):
+    """Update all cone scalings at the current iterate.  Returns
+    (state, ok) with ok (B,) bool; parity with update_scaling!
+    (coneops_compositecone.jl:103-120).  mu and scaling_flag matter only
+    to nonsymmetric cones."""
+    p = plan(layout, s.device)
+    state = {}
+    ok = torch.ones(s.shape[0], dtype=torch.bool, device=s.device)
+
+    if layout.has_nn:
+        sv = torch.where(p.nn_mask, s, 1.0)
+        zv = torch.where(p.nn_mask, z, 1.0)
+        # fail fast when s, z leave the cone (the reference relies on
+        # sqrt(neg) = NaN surfacing in the KKT solve)
+        ok = ok & ((sv > 0) & (zv > 0)).all(dim=1)
+        sz = torch.clamp(sv * zv, min=0.0)
+        ratio = torch.clamp(sv / zv, min=0.0)
+        state["nn_lam"] = torch.where(p.nn_mask, torch.sqrt(sz), 0.0)
+        state["nn_w"] = torch.where(p.nn_mask, torch.sqrt(ratio), 0.0)
+
+    if layout.has_soc:
+        hp, seg = p.soc_headpos, p.soc_seg
+        sg = s[:, p.soc_idx]
+        zg = z[:, p.soc_idx]
+        zres, z0, _ = _soc_residual(layout, zg)
+        sres, s0, _ = _soc_residual(layout, sg)
+        ok_soc = (zres > 0) & (sres > 0)
+        zscale = torch.sqrt(torch.clamp(zres, min=0.0))
+        sscale = torch.sqrt(torch.clamp(sres, min=0.0))
+        zs = _safe(zscale)
+        ss = _safe(sscale)
+        eta = torch.sqrt(ss / zs)
+
+        w = sg / ss[:, seg] + p.soc_sign * zg / zs[:, seg]
+        wres, _, _ = _soc_residual(layout, w)
+        ok_soc = ok_soc & (wres > 0)
+        wscale = torch.sqrt(torch.clamp(wres, min=0.0))
+        w = w / _safe(wscale)[:, seg]
+        # force normalization of the head (coneops_socone.jl:111-113)
+        w1sq = _soc_tail_sumsq(layout, w)
+        w = _set(w, hp, torch.sqrt(1.0 + w1sq))
+
+        # scaling point lambda (coneops_socone.jl:115-123)
+        gamma = 0.5 * wscale
+        s0n = s0 / ss
+        z0n = z0 / zs
+        coef_s = (gamma + z0n) / ss
+        coef_z = (gamma + s0n) / zs
+        denom = _safe(s0n + z0n + 2.0 * gamma)
+        lam = (coef_s[:, seg] * sg + coef_z[:, seg] * zg) / denom[:, seg]
+        lam = _set(lam, hp, gamma)
+        lam = lam * torch.sqrt(ss * zs)[:, seg]
+
+        state["soc_w"] = w
+        state["soc_lam"] = lam
+        state["soc_eta"] = eta
+        ok = ok & ok_soc.all(dim=1)
+
+    return state, ok
+
+
+# ---------------------------------------------------------------------------
+# Hs assembly / products
+# ---------------------------------------------------------------------------
+
+
+def assemble_Hs_dense(layout: ConeLayout, state):
+    """The block-diagonal Hs = W'W as dense (B, m, m) for the dense KKT
+    backend (get_Hs! per-cone semantics)."""
+    any_t = next(iter(state.values()))
+    p = plan(layout, any_t.device)
+    B = any_t.shape[0]
+    diag = any_t.new_zeros(B, layout.m)
+    if layout.has_nn:
+        diag = torch.where(p.nn_mask, state["nn_w"] ** 2, diag)
+    H = torch.diag_embed(diag)
+
+    if layout.has_soc:
+        seg = p.soc_seg
+        eta = state["soc_eta"]
+        we = eta[:, seg] * state["soc_w"]
+        wfull = _set(any_t.new_zeros(B, layout.m), p.soc_idx, we)
+        H = H + 2.0 * (wfull[:, :, None] * wfull[:, None, :]) * p.soc_same
+        jdiag = _set(any_t.new_zeros(B, layout.m), p.soc_idx,
+                     (eta ** 2)[:, seg] * p.soc_sign)
+        H = H - torch.diag_embed(jdiag)
+    return H
+
+
+def mul_Hs(layout: ConeLayout, state, x):
+    """y = Hs x without materializing Hs (mul_Hs! semantics)."""
+    p = plan(layout, x.device)
+    y = torch.zeros_like(x)
+    if layout.has_nn:
+        y = torch.where(p.nn_mask, state["nn_w"] ** 2 * x, y)
+    if layout.has_soc:
+        seg = p.soc_seg
+        wg = state["soc_w"]
+        xg = x[:, p.soc_idx]
+        eta2 = state["soc_eta"] ** 2
+        wx = _soc_full_dot(layout, wg, xg)
+        yg = eta2[:, seg] * (2.0 * wx[:, seg] * wg - p.soc_sign * xg)
+        y = _set(y, p.soc_idx, yg)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# step RHS pieces
+# ---------------------------------------------------------------------------
+
+
+def affine_ds(layout: ConeLayout, state, s):
+    """ds = lambda o lambda for symmetric cones, 0 for the zero cone
+    (affine_ds! per-cone semantics)."""
+    p = plan(layout, s.device)
+    ds = torch.zeros_like(s)
+    if layout.has_nn:
+        ds = torch.where(p.nn_mask, state["nn_lam"] ** 2, ds)
+    if layout.has_soc:
+        lam = state["soc_lam"]
+        ds = _set(ds, p.soc_idx, _soc_circ(layout, lam, lam))
+    return ds
+
+
+def combined_ds_shift(layout: ConeLayout, state, step_z, step_s, sigma_mu, z):
+    """Mehrotra shift term for the combined step RHS: shift =
+    W^{-1} ds_aff o W dz_aff - sigma*mu*e
+    (coneops_symmetric_common.jl:2-35); for NN this collapses to
+    dz .* ds - sigma*mu.  sigma_mu: (B,)."""
+    p = plan(layout, z.device)
+    smu = _col(sigma_mu, z)
+    shift = torch.zeros_like(z)
+    if layout.has_nn:
+        shift = torch.where(p.nn_mask, step_z * step_s - smu, shift)
+    if layout.has_soc:
+        zg = step_z[:, p.soc_idx]
+        sg = step_s[:, p.soc_idx]
+        eta = state["soc_eta"]
+        wg = state["soc_w"]
+        Wz = _soc_mul_W(layout, eta, wg, zg)
+        Wis = _soc_mul_Winv(layout, eta, wg, sg)
+        vals = _soc_circ(layout, Wis, Wz)
+        vals = vals.index_add(1, p.soc_headpos, -smu.expand(-1, layout.nsoc))
+        shift = _set(shift, p.soc_idx, vals)
+    return shift
+
+
+def centrality_correction(layout: ConeLayout, state, z_t, s_t, lo, hi):
+    """Gondzio-corrector outlier term v - clip(v, lo, hi), where
+    v = (W^{-T} s_t) o (W z_t) is the scaled complementarity of a trial
+    point, clipped spectrally (elementwise for NN; Jordan eigenvalues for
+    SOC).  Zero on zero-cone rows.  lo, hi: (B,)."""
+    p = plan(layout, z_t.device)
+    lo_c, hi_c = _col(lo, z_t), _col(hi, z_t)
+    corr = torch.zeros_like(z_t)
+    if layout.has_nn:
+        vvals = s_t * z_t
+        corr = torch.where(
+            p.nn_mask, vvals - torch.clamp(vvals, lo_c, hi_c), corr)
+    if layout.has_soc:
+        hp, seg = p.soc_headpos, p.soc_seg
+        zg = z_t[:, p.soc_idx]
+        sg = s_t[:, p.soc_idx]
+        eta = state["soc_eta"]
+        wg = state["soc_w"]
+        u = _soc_circ(
+            layout,
+            _soc_mul_Winv(layout, eta, wg, sg),
+            _soc_mul_W(layout, eta, wg, zg),
+        )
+        # Jordan spectral decomposition u = lam+ c+ + lam- c-,
+        # lam± = u0 ± ||u1||, c± = (1, ±u1/||u1||)/2
+        u0 = u[:, hp]
+        n1 = torch.sqrt(_soc_tail_sumsq(layout, u))
+        lam_p = u0 + n1
+        lam_m = u0 - n1
+        dp = lam_p - torch.clamp(lam_p, lo_c, hi_c)
+        dm = lam_m - torch.clamp(lam_m, lo_c, hi_c)
+        tail_coef = 0.5 * (dp - dm) / _safe_nonzero(n1)
+        vals = tail_coef[:, seg] * torch.where(p.soc_is_head, 0.0, u)
+        vals = _set(vals, hp, 0.5 * (dp + dm))
+        corr = _set(corr, p.soc_idx, vals)
+    return corr
+
+
+def ds_from_dz_offset(layout: ConeLayout, state, ds, z):
+    """out = W'(lambda \\ ds) for symmetric cones, 0 for the zero cone
+    (Delta_s_from_Delta_z_offset! semantics; SOC uses the numerically
+    stable direct form, coneops_socone.jl:241-268)."""
+    p = plan(layout, z.device)
+    out = torch.zeros_like(z)
+    if layout.has_nn:
+        zv = _safe_nonzero(torch.where(p.nn_mask, z, 1.0))
+        out = torch.where(p.nn_mask, ds / zv, out)
+    if layout.has_soc:
+        hp, seg = p.soc_headpos, p.soc_seg
+        zg = z[:, p.soc_idx]
+        dsg = ds[:, p.soc_idx]
+        lam = state["soc_lam"]
+        wg = state["soc_w"]
+        eta = state["soc_eta"]
+        resz, z0, _ = _soc_residual(layout, zg)
+        lam0 = lam[:, hp]
+        w0 = wg[:, hp]
+        ds0 = dsg[:, hp]
+        lam1ds1 = _soc_tail_dot(layout, lam, dsg)
+        w1ds1 = _soc_tail_dot(layout, wg, dsg)
+        c = (lam0 * ds0 - lam1ds1) / _safe_nonzero(resz)
+        val = _set(-zg * c[:, seg], hp, z0 * c)
+        # tail: + eta*(ds_tail + w1ds1/(1+w0) * w_tail); head: + eta*w1ds1
+        addt = eta[:, seg] * (dsg + (w1ds1 / (1.0 + w0))[:, seg] * wg)
+        add = torch.where(p.soc_is_head, 0.0, addt)
+        add = add.index_add(1, hp, eta * w1ds1)
+        val = (val + add) / _safe_nonzero(lam0)[:, seg]
+        out = _set(out, p.soc_idx, val)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# step length
+# ---------------------------------------------------------------------------
+
+
+def _nn_step_limit(layout, v, dv, amax):
+    p = plan(layout, v.device)
+    neg = p.nn_mask & (dv < 0)
+    ratio = -v / torch.where(dv < 0, dv, -1.0)
+    lim = torch.where(neg, ratio, _col(amax, v)).amin(dim=1)
+    return torch.clamp(lim, max=FMAX)
+
+
+def _soc_step_limit(layout, x, dx, amax):
+    """Minimum positive root of ||x1+a y1||^2 = (x0+a y0)^2 per cone,
+    with the cancellation-safe root formula
+    (coneops_socone.jl:443-511)."""
+    p = plan(layout, x.device)
+    xg = x[:, p.soc_idx]
+    yg = dx[:, p.soc_idx]
+    a, y0, _ = _soc_residual(layout, yg)
+    resx, x0, _ = _soc_residual(layout, xg)
+    c = torch.clamp(resx, min=0.0)
+    b = 2.0 * (x0 * y0 - _soc_tail_dot(layout, xg, yg))
+    d = b * b - 4.0 * a * c
+
+    # scalar-part bound
+    a0 = torch.where((x0 >= 0) & (y0 < 0),
+                     -x0 / torch.where(y0 < 0, y0, -1.0), FMAX)
+
+    sqrt_d = torch.sqrt(torch.clamp(d, min=0.0))
+    t = torch.where(b >= 0, -b - sqrt_d, -b + sqrt_d)
+    r1 = 2.0 * c / _safe_nonzero(t)
+    r2 = t / _safe_nonzero(2.0 * a)
+    r1 = torch.where(r1 < 0, FMAX, r1)
+    r2 = torch.where(r2 < 0, FMAX, r2)
+    root = torch.minimum(r1, r2)
+
+    cand = torch.where(
+        ((a > 0) & (b > 0)) | (d < 0),
+        FMAX,
+        torch.where(
+            a == 0,
+            FMAX,
+            torch.where(c == 0, torch.where(a >= 0, FMAX, torch.zeros_like(a)),
+                        root),
+        ),
+    )
+    lim = torch.clamp(torch.minimum(cand, a0).amin(dim=1), max=FMAX)
+    return torch.minimum(lim, torch.as_tensor(amax, dtype=x.dtype,
+                                              device=x.device))
+
+
+def step_length(layout: ConeLayout, state, dz, ds, z, s, alpha_max, settings):
+    """Max feasible step in all (symmetric) cones, per problem
+    (coneops_compositecone.jl:205-243).  alpha_max: (B,)."""
+    alpha = alpha_max
+    if layout.has_nn:
+        alpha = torch.minimum(alpha, _nn_step_limit(layout, z, dz, alpha_max))
+        alpha = torch.minimum(alpha, _nn_step_limit(layout, s, ds, alpha_max))
+    if layout.has_soc:
+        alpha = torch.minimum(alpha, _soc_step_limit(layout, z, dz, alpha_max))
+        alpha = torch.minimum(alpha, _soc_step_limit(layout, s, ds, alpha_max))
+    return alpha

@@ -1,0 +1,66 @@
+"""Carry the reference's state across to the port.
+
+A solver has no weights; what the JAX package holds and the port must
+take over unchanged is its settings, the problem data in the shape its
+batch front end gives it, and (for the kernel tests) its LDL^T factor.
+Everything here takes and returns numpy and imports no JAX.
+"""
+
+import numpy as np
+
+from .cones.api import cones_collapsed
+from .settings import Settings
+
+
+def settings_from_reference(d: dict) -> Settings:
+    """A port `Settings` from `dataclasses.asdict` of a reference one."""
+    return Settings.from_dict(dict(d))
+
+
+def batchify(M, batch: int, shape) -> np.ndarray:
+    """(batch,) + shape f64 array from None (zeros), a dense or
+    scipy.sparse matrix shared by the batch, or a per-problem stack."""
+    M = np.zeros(shape) if M is None else np.asarray(
+        M.toarray() if hasattr(M, "toarray") else M, dtype=np.float64)
+    if M.ndim == 2:
+        M = np.broadcast_to(M, (batch,) + M.shape)
+    if M.shape != (batch,) + tuple(shape):
+        raise ValueError(f"expected {(batch,) + tuple(shape)}, got {M.shape}")
+    return M
+
+
+def symmetrize_triu(P) -> np.ndarray:
+    """The symmetric matrices whose upper triangles are P's (the
+    reference reads the upper triangle, batch.py:380-382)."""
+    return np.triu(P) + np.transpose(np.triu(P, 1), (0, 2, 1))
+
+
+def problem_from_numpy(P, q, A, b, cones):
+    """(P, q, A, b, cones) as the reference's BatchSolver takes them ->
+    dict of f64 arrays P (B, n, n) symmetrised from its upper triangle,
+    q (B, n), A (B, m, n), b (B, m), and the collapsed cone list."""
+    q = np.asarray(q, dtype=np.float64)
+    b = np.asarray(b, dtype=np.float64)
+    if q.ndim != 2 or b.ndim != 2 or q.shape[0] != b.shape[0]:
+        raise ValueError("q must be (B,n) and b (B,m) with equal B")
+    B, n = q.shape
+    m = b.shape[1]
+    return {
+        "P": symmetrize_triu(batchify(P, B, (n, n))),
+        "q": q,
+        "A": np.ascontiguousarray(batchify(A, B, (m, n))),
+        "b": b,
+        "cones": cones_collapsed(list(cones)),
+    }
+
+
+def factor_from_reference(Lh, Ll, Dh, Dl):
+    """The reference's lane-major (N, N, B) / (N, B) f32 (hi, lo) factor
+    pairs (`pallas_dd.dd_ldl_factor`) -> the port's f64 L (B, N, N),
+    strictly lower (the reference leaves junk on and above the
+    diagonal), and Dinv (B, N), each through hi + lo."""
+    join = lambda h, l: (np.asarray(h, dtype=np.float64)  # noqa: E731
+                         + np.asarray(l, dtype=np.float64))
+    L = np.tril(np.moveaxis(join(Lh, Ll), -1, 0), -1)
+    Dinv = np.moveaxis(join(Dh, Dl), -1, 0)
+    return np.ascontiguousarray(L), np.ascontiguousarray(Dinv)

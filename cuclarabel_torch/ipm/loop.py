@@ -1,0 +1,593 @@
+"""The IPM main loop over a batch of problems.
+
+The counterpart of `cuclarabel_tpu/ipm/loop.py` (reference solve! loop,
+`src/solver.jl:189-380`, with the homogeneous embedding that keeps the
+quadratic objective), for the dense KKT backend and symmetric cones.
+
+The reference runs `vmap` over one `lax.while_loop`, so a finished
+problem's state stays frozen while the others iterate.  Here one Python
+loop runs over the whole batch: every quantity carries a leading batch
+dimension, the body is computed for every problem, and its result is
+committed only where the problem was still UNSOLVED before the body
+(`torch.where(active, new, old)`), which is exactly the reference's
+batching of its while_loop.  The loop stops when no problem is UNSOLVED;
+that test is one host sync per iteration.  The result of each problem is
+therefore that of a solve of that problem alone.
+"""
+
+import math
+import time
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ..cones import ops as cone_ops
+from ..cones.layout import ConeLayout
+from ..kkt.dense import make_dense_kkt
+from ..statuscodes import SolverStatus as S
+
+F64EPS = float(np.finfo(np.float64).eps)
+FMAX = float(np.finfo(np.float64).max)
+
+# scaling strategy flags (PrimalDual first, like the reference)
+PRIMAL_DUAL = 0
+DUAL_ONLY = 1
+
+INFO_KEYS = (
+    "cost_primal",
+    "cost_dual",
+    "res_primal",
+    "res_dual",
+    "res_primal_inf",
+    "res_dual_inf",
+    "gap_abs",
+    "gap_rel",
+    "ktratio",
+    "dot_bz",
+    "dot_qx",
+)
+
+
+def _norm_scaled(w, v):
+    """Per-problem overflow-safe 2-norm of w .* v (mathutils.jl:58-82):
+    the inf-norm is factored out before squaring."""
+    p = w * v
+    if p.shape[1] == 0:  # fully presolved / unconstrained blocks
+        return p.new_zeros(p.shape[0])
+    scale = p.abs().amax(dim=1)
+    safe = torch.where((scale > 0) & torch.isfinite(scale), scale, 1.0)
+    return scale * torch.linalg.vector_norm(p / safe[:, None], dim=1)
+
+
+def where_tree(c, a, b):
+    """torch.where(c, a, b) over matching dicts of (B, ...) tensors, with
+    c (B,) broadcast over the trailing axes."""
+    if isinstance(a, dict):
+        return {k: where_tree(c, a[k], b[k]) for k in a}
+    return torch.where(c.view((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+
+def _bmv(M, v):
+    return torch.bmm(M, v.unsqueeze(2)).squeeze(2)
+
+
+def _vdot(u, v):
+    return (u * v).sum(dim=1)
+
+
+def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
+                  device=None):
+    """Builds the batched solve function for this (layout, settings,
+    dims) signature.  The returned fn maps a dict of batched tensors
+    {P, q, A, b, d, dinv, e, einv, cscale, normq, normb[, t_start]}
+    (device_equilibrate's output) to a dict of batched results.  Runs
+    on `device` (solver.resolve_device: CUDA unless the caller passes
+    device="cpu")."""
+    cone_ops.require_supported(layout)
+    if not layout.is_symmetric:
+        raise NotImplementedError("nonsymmetric cones are not ported yet")
+    if settings.direct_solve_method not in ("auto", "dense"):
+        raise NotImplementedError(
+            f"direct_solve_method={settings.direct_solve_method!r} is not "
+            "ported to cuclarabel_torch yet; the dense backend is")
+
+    deg1 = layout.degree + 1
+    st = settings
+    factorize, kkt_solve = make_dense_kkt(n, m, settings, layout, device)
+
+    # multi-RHS ("pair") solves: off on the dense backend unless asked
+    # for (reference loop.py:133-147); the LP init always pairs its two
+    # solves when the backend offers it
+    kkt_solve_pair = (getattr(kkt_solve, "pair", None)
+                      if st.kkt_pair_solve else None)
+    init_pair = getattr(kkt_solve, "pair", None)
+    has_time_limit = math.isfinite(st.time_limit)
+    n_corr = int(st.centrality_correctors)
+
+    def solve(dev: Dict[str, torch.Tensor]):
+        q, b = dev["q"], dev["b"]
+        P, A = dev["P"], dev["A"]
+        d, dinv = dev["d"], dev["dinv"]
+        e, einv = dev["e"], dev["einv"]
+        cinv = 1.0 / dev["cscale"]
+        normq, normb = dev["normq"], dev["normb"]
+        B = q.shape[0]
+        AT = A.transpose(1, 2)
+
+        def full(v):
+            return torch.full((B,), v, dtype=torch.float64, device=q.device)
+
+        def ifull(v):
+            return torch.full((B,), int(v), dtype=torch.int32,
+                              device=q.device)
+
+        if has_P:
+            def Pmv(v):
+                return _bmv(P, v)
+
+            def quad(u, v):
+                return _vdot(u, Pmv(v))
+        else:
+            # P is exactly zero for LP/SOCP-form problems
+            def Pmv(v):
+                return torch.zeros_like(v)
+
+            def quad(u, v):
+                return u.new_zeros(u.shape[0])
+
+        # -------------------- residuals (residuals.jl:1-37)
+        def residuals(v):
+            x, s_, z_, tau = v["x"], v["s"], v["z"], v["tau"]
+            Px = Pmv(x)
+            qx = _vdot(q, x)
+            bz = _vdot(b, z_)
+            sz = _vdot(s_, z_)
+            xPx = _vdot(x, Px)
+            rx_inf = -_bmv(AT, z_)
+            rz_inf = _bmv(A, x) + s_
+            return {
+                "rx": rx_inf - Px - q * tau[:, None],
+                "rz": rz_inf - b * tau[:, None],
+                "rtau": qx + bz + v["kappa"] + xPx / tau,
+                "rx_inf": rx_inf,
+                "rz_inf": rz_inf,
+                "Px": Px,
+                "qx": qx,
+                "bz": bz,
+                "sz": sz,
+                "xPx": xPx,
+            }
+
+        # -------------------- info scalars (info.jl:1-63)
+        def info_update(r, v):
+            tinv = 1.0 / v["tau"]
+            xPx_half = r["xPx"] * tinv * tinv / 2.0
+            cost_primal = (r["qx"] * tinv + xPx_half) * cinv
+            cost_dual = (-r["bz"] * tinv - xPx_half) * cinv
+
+            normx = _norm_scaled(d, v["x"])
+            normz = _norm_scaled(e, v["z"]) * cinv
+            norms = _norm_scaled(einv, v["s"])
+
+            res_primal_inf = (_norm_scaled(dinv, r["rx_inf"]) * cinv
+                              / torch.clamp(normz, min=1.0))
+            res_dual_inf = torch.maximum(
+                _norm_scaled(dinv, r["Px"]) / torch.clamp(normx, min=1.0),
+                _norm_scaled(einv, r["rz_inf"])
+                / torch.clamp(normx + norms, min=1.0),
+            )
+
+            normx = normx * tinv
+            normz = normz * tinv
+            norms = norms * tinv
+
+            res_primal = (
+                _norm_scaled(einv, r["rz"]) * tinv
+                / torch.clamp(normb + normx + norms, min=1.0)
+            )
+            res_dual = (
+                _norm_scaled(dinv, r["rx"]) * tinv * cinv
+                / torch.clamp(normq + normx + normz, min=1.0)
+            )
+
+            gap_abs = torch.abs(cost_primal - cost_dual)
+            gap_rel = gap_abs / torch.clamp(
+                torch.minimum(cost_primal.abs(), cost_dual.abs()), min=1.0)
+            return {
+                "cost_primal": cost_primal,
+                "cost_dual": cost_dual,
+                "res_primal": res_primal,
+                "res_dual": res_dual,
+                "res_primal_inf": res_primal_inf,
+                "res_dual_inf": res_dual_inf,
+                "gap_abs": gap_abs,
+                "gap_rel": gap_rel,
+                "ktratio": v["kappa"] * tinv,
+                "dot_bz": r["bz"],
+                "dot_qx": r["qx"],
+            }
+
+        # -------------------- convergence predicate (info.jl:274-331)
+        def check_convergence(info, tol_gap_abs, tol_gap_rel, tol_feas,
+                              tol_infeas_abs, tol_infeas_rel, tol_ktratio,
+                              solved_code, pinf_code, dinf_code):
+            solved = (
+                (info["ktratio"] <= 1.0)
+                & ((info["gap_abs"] < tol_gap_abs)
+                   | (info["gap_rel"] < tol_gap_rel))
+                & (info["res_primal"] < tol_feas)
+                & (info["res_dual"] < tol_feas)
+            )
+            kt_huge = info["ktratio"] > 1000.0 / tol_ktratio
+            pinf = (
+                kt_huge
+                & (info["dot_bz"] < -tol_infeas_abs)
+                & (info["res_primal_inf"] < -tol_infeas_rel * info["dot_bz"])
+            )
+            dinf = (
+                kt_huge
+                & ~pinf
+                & (info["dot_qx"] < -tol_infeas_abs)
+                & (info["res_dual_inf"] < -tol_infeas_rel * info["dot_qx"])
+            )
+            return torch.where(
+                solved, solved_code,
+                torch.where(pinf, pinf_code,
+                            torch.where(dinf, dinf_code, int(S.UNSOLVED))),
+            ).to(torch.int32)
+
+        # -------------------- termination (info.jl:65-120)
+        def check_termination(info, prev_info, it, elapsed):
+            status = check_convergence(
+                info,
+                st.tol_gap_abs, st.tol_gap_rel, st.tol_feas,
+                st.tol_infeas_abs, st.tol_infeas_rel, st.tol_ktratio,
+                int(S.SOLVED), int(S.PRIMAL_INFEASIBLE),
+                int(S.DUAL_INFEASIBLE),
+            )
+            # poor progress detectors
+            backwards = (it > 1) & (
+                (info["res_dual"] > prev_info["res_dual"])
+                | (info["res_primal"] > prev_info["res_primal"])
+            )
+            poor_hi = (
+                backwards
+                & (info["ktratio"] < 100.0 * F64EPS)
+                & ((prev_info["gap_abs"] < st.tol_gap_abs)
+                   | (prev_info["gap_rel"] < st.tol_gap_rel))
+            )
+            diverging = (
+                backwards
+                & (info["ktratio"] < 1.0)
+                & (
+                    ((info["res_dual"] > 100.0 * st.tol_feas)
+                     & (info["res_dual"] > 100.0 * prev_info["res_dual"]))
+                    | ((info["res_primal"] > 100.0 * st.tol_feas)
+                       & (info["res_primal"]
+                          > 100.0 * prev_info["res_primal"]))
+                )
+            )
+            unsolved = status == int(S.UNSOLVED)
+            status = torch.where(unsolved & (poor_hi | diverging),
+                                 int(S.INSUFFICIENT_PROGRESS), status)
+            status = torch.where(
+                (status == int(S.UNSOLVED)) & (it >= st.max_iter),
+                int(S.MAX_ITERATIONS), status)
+            # time limit -> MAX_TIME (info.jl:110-115)
+            if elapsed > st.time_limit:
+                status = torch.where(status == int(S.UNSOLVED),
+                                     int(S.MAX_TIME), status)
+            return status.to(torch.int32)
+
+        # -------------------- one generic KKT step solve
+        # (kktsystem.jl:135-215)
+        def kkt_step(fac, x2, z2, v, scal, rhs, is_affine: bool,
+                     presolved=None):
+            if is_affine:
+                const = v["s"]
+            else:
+                const = cone_ops.ds_from_dz_offset(layout, scal, rhs["s"],
+                                                   v["z"])
+            workz = const - rhs["z"]
+            if presolved is None:
+                x1, z1, ok, nir = kkt_solve(fac, rhs["x"], workz)
+            else:
+                # solved jointly with the constant-RHS system
+                x1, z1, ok, nir = presolved
+
+            tau, kappa = v["tau"], v["kappa"]
+            xi = v["x"] / tau[:, None]
+            tau_num = (
+                rhs["tau"] - rhs["kappa"] / tau
+                + _vdot(q, x1) + _vdot(b, z1) + 2.0 * quad(xi, x1)
+            )
+            xi_m = xi - x2
+            tau_den = (
+                kappa / tau - _vdot(q, x2) - _vdot(b, z2)
+                + quad(xi_m, xi_m) - quad(x2, x2)
+            )
+            dtau = tau_num / tau_den
+            dx = x1 + dtau[:, None] * x2
+            dz = z1 + dtau[:, None] * z2
+            dsv = -(cone_ops.mul_Hs(layout, scal, dz) + const)
+            dkappa = -(rhs["kappa"] + kappa * dtau) / tau
+            return ({"x": dx, "s": dsv, "z": dz, "tau": dtau,
+                     "kappa": dkappa}, ok, nir)
+
+        # -------------------- step length (variables.jl:14-43)
+        def get_step_length(v, step, scal, combined: bool):
+            atau = torch.where(step["tau"] < 0, -v["tau"] / step["tau"], FMAX)
+            akappa = torch.where(step["kappa"] < 0,
+                                 -v["kappa"] / step["kappa"], FMAX)
+            amax = torch.clamp(torch.minimum(atau, akappa), max=1.0)
+            alpha = cone_ops.step_length(
+                layout, scal, step["z"], step["s"], v["z"], v["s"], amax, st)
+            if combined:
+                alpha = alpha * st.max_step_fraction
+            return alpha
+
+        # -------------------- initialization (solver.jl:383-404)
+        def default_start():
+            scal0 = cone_ops.set_identity_scaling(layout, B, q.device)
+            fac, _ = factorize(P, A, cone_ops.assemble_Hs_dense(layout, scal0))
+            if has_P:
+                # QP init (kktsystem.jl:120-128)
+                x0, z0, _, _ = kkt_solve(fac, -q, b)
+                s0 = -z0
+            else:
+                # LP init (kktsystem.jl:101-119); the two solves share
+                # the factor — one 2-RHS launch if the backend offers it
+                if init_pair is not None:
+                    x0, ms, _, z0, _, _ = init_pair(
+                        fac, torch.zeros_like(q), b, -q, torch.zeros_like(b))
+                else:
+                    x0, ms, _, _ = kkt_solve(fac, torch.zeros_like(q), b)
+                    _, z0, _, _ = kkt_solve(fac, -q, torch.zeros_like(b))
+                s0 = -ms
+            s0 = cone_ops.shift_to_cone_interior(layout, s0, cone_ops.PRIMAL)
+            z0 = cone_ops.shift_to_cone_interior(layout, z0, cone_ops.DUAL)
+            return {"x": x0, "s": s0, "z": z0, "tau": full(1.0),
+                    "kappa": full(1.0)}
+
+        def make_state0():
+            v0 = default_start()
+            info0 = {k: full(FMAX) for k in INFO_KEYS}
+            return {
+                "vars": v0,
+                "prev_vars": v0,
+                "info": info0,
+                "prev_info": info0,
+                "iter": ifull(0),
+                "status": ifull(S.UNSOLVED),
+                "scaling": ifull(PRIMAL_DUAL),
+                "mu": full(FMAX),
+                "alpha": full(0.0),
+                "sigma": full(1.0),
+                "ir_count": ifull(0),
+                "ir_last": ifull(0),
+            }
+
+        t_start = dev.get("t_start", time.time())
+
+        def loop_body(s_):
+            v = s_["vars"]
+            scaling = s_["scaling"]
+
+            r = residuals(v)
+            mu = (r["sz"] + v["tau"] * v["kappa"]) / deg1
+            info = info_update(r, v)
+            elapsed = time.time() - t_start if has_time_limit else 0.0
+            status = check_termination(info, s_["prev_info"], s_["iter"],
+                                       elapsed)
+            proceed = status == int(S.UNSOLVED)
+
+            # --- cone scaling update
+            scal, scale_ok = cone_ops.update_scaling(layout, v["s"], v["z"],
+                                                     mu, scaling)
+            status = torch.where(proceed & ~scale_ok,
+                                 int(S.NUMERICAL_ERROR), status)
+            proceed = proceed & scale_ok
+
+            it = torch.where(proceed, s_["iter"] + 1, s_["iter"])
+
+            # --- KKT update + constant-rhs solve (kktsystem.jl:62-92)
+            fac, okf = factorize(P, A, cone_ops.assemble_Hs_dense(layout,
+                                                                  scal))
+
+            # --- affine step (variables.jl:107-121)
+            rhs_aff = {
+                "x": r["rx"],
+                "z": r["rz"],
+                "s": cone_ops.affine_ds(layout, scal, v["s"]),
+                "tau": r["rtau"],
+                "kappa": v["tau"] * v["kappa"],
+            }
+            if kkt_solve_pair is not None:
+                x2, z2, x1a, z1a, okc, nir_c = kkt_solve_pair(
+                    fac, -q, b, rhs_aff["x"], v["s"] - rhs_aff["z"])
+                presolved_aff = (x1a, z1a, okc, nir_c)
+            else:
+                x2, z2, okc, nir_c = kkt_solve(fac, -q, b)
+                presolved_aff = None
+            kkt_ok = okf & okc
+
+            step_aff, oka, nir_a = kkt_step(
+                fac, x2, z2, v, scal, rhs_aff, True, presolved=presolved_aff)
+            kkt_ok = kkt_ok & oka
+
+            alpha_aff = get_step_length(v, step_aff, scal, combined=False)
+            sigma = (1.0 - alpha_aff) ** 3  # Mehrotra (solver.jl:446-449)
+            # reduced correction on the first iteration
+            # (solver.jl:305-307, variables.jl:147-151)
+            mcorr = torch.where(it > 1, 1.0, alpha_aff)
+
+            # --- combined step (variables.jl:124-162)
+            sigma_mu = sigma * mu
+            shift = cone_ops.combined_ds_shift(
+                layout, scal, step_aff["z"] * mcorr[:, None], step_aff["s"],
+                sigma_mu, v["z"])
+            rhs_comb = {
+                "x": (1.0 - sigma)[:, None] * r["rx"],
+                "z": (1.0 - sigma)[:, None] * r["rz"],
+                "s": rhs_aff["s"] + shift,
+                "tau": (1.0 - sigma) * r["rtau"],
+                "kappa": -sigma_mu
+                + mcorr * step_aff["tau"] * step_aff["kappa"]
+                + v["tau"] * v["kappa"],
+            }
+            step_comb, okcb, nir_b = kkt_step(fac, x2, z2, v, scal, rhs_comb,
+                                              False)
+            kkt_ok = kkt_ok & okcb
+
+            # --- Gondzio multiple centrality correctors (optional; no
+            # reference counterpart, reference loop.py:720-770)
+            if n_corr > 0:
+                alpha_cc = get_step_length(v, step_comb, scal, combined=True)
+                for _ in range(n_corr):
+                    abar = torch.clamp(1.08 * alpha_cc + 0.08, max=1.0)
+                    z_t = v["z"] + abar[:, None] * step_comb["z"]
+                    s_t = v["s"] + abar[:, None] * step_comb["s"]
+                    lo = st.corrector_beta_min * sigma_mu
+                    hi = st.corrector_beta_max * sigma_mu
+                    cadd = cone_ops.centrality_correction(
+                        layout, scal, z_t, s_t, lo, hi)
+                    tk = (v["tau"] + abar * step_comb["tau"]) * (
+                        v["kappa"] + abar * step_comb["kappa"])
+                    rhs_try = dict(rhs_comb)
+                    rhs_try["s"] = rhs_comb["s"] + cadd
+                    rhs_try["kappa"] = rhs_comb["kappa"] + (
+                        tk - torch.clamp(tk, lo, hi))
+                    step_try, okt, nir_t = kkt_step(
+                        fac, x2, z2, v, scal, rhs_try, False)
+                    alpha_try = get_step_length(v, step_try, scal,
+                                                combined=True)
+                    accept = okt & (
+                        alpha_try >= alpha_cc + 0.1 * (abar - alpha_cc))
+                    step_comb = where_tree(accept, step_try, step_comb)
+                    rhs_comb = where_tree(accept, rhs_try, rhs_comb)
+                    alpha_cc = torch.where(accept, alpha_try, alpha_cc)
+                    nir_b = nir_b + torch.where(accept, nir_t, 0)
+
+            # --- numerical-error checkpoint (solver.jl:475-489)
+            ne_fail = proceed & ~kkt_ok
+            status = torch.where(ne_fail, int(S.NUMERICAL_ERROR), status)
+            active = proceed & kkt_ok
+
+            # --- final step length + small-step checkpoint
+            # (solver.jl:337-344,492-505)
+            if n_corr > 0:
+                alpha = alpha_cc
+            else:
+                alpha = get_step_length(v, step_comb, scal, combined=True)
+            small_fail = active & (
+                alpha <= max(0.0, st.min_terminate_step_length))
+            status = torch.where(small_fail, int(S.INSUFFICIENT_PROGRESS),
+                                 status)
+
+            commit = active & ~small_fail
+
+            # --- commit step (variables.jl:92-104) + save prev iterate
+            new_vars = {
+                "x": v["x"] + alpha[:, None] * step_comb["x"],
+                "s": v["s"] + alpha[:, None] * step_comb["s"],
+                "z": v["z"] + alpha[:, None] * step_comb["z"],
+                "tau": v["tau"] + alpha * step_comb["tau"],
+                "kappa": v["kappa"] + alpha * step_comb["kappa"],
+            }
+            nir = (nir_c + nir_a + nir_b).to(torch.int32)
+            return {
+                "vars": where_tree(commit, new_vars, v),
+                "prev_vars": where_tree(commit, v, s_["prev_vars"]),
+                "info": info,
+                "prev_info": where_tree(commit, info, s_["prev_info"]),
+                "iter": it.to(torch.int32),
+                "status": status.to(torch.int32),
+                "scaling": scaling,
+                "mu": mu,
+                "alpha": torch.where(commit, alpha, 0.0),
+                "sigma": sigma,
+                # every refinement pass of the whole solve
+                "ir_count": s_["ir_count"] + nir,
+                "ir_last": nir,
+            }
+
+        # -------------------- post-processing
+        def post(final):
+            info = final["info"]
+            status = final["status"]
+
+            # "almost" convergence on errored / limit exits
+            # (info.jl:198-214)
+            errored_or_limit = (
+                (status == int(S.NUMERICAL_ERROR))
+                | (status == int(S.INSUFFICIENT_PROGRESS))
+                | (status == int(S.MAX_ITERATIONS))
+                | (status == int(S.MAX_TIME))
+            )
+            almost = check_convergence(
+                info,
+                st.reduced_tol_gap_abs, st.reduced_tol_gap_rel,
+                st.reduced_tol_feas,
+                st.reduced_tol_infeas_abs, st.reduced_tol_infeas_rel,
+                st.reduced_tol_ktratio,
+                int(S.ALMOST_SOLVED),
+                int(S.ALMOST_PRIMAL_INFEASIBLE),
+                int(S.ALMOST_DUAL_INFEASIBLE),
+            )
+            status = torch.where(
+                errored_or_limit & (almost != int(S.UNSOLVED)), almost,
+                status).to(torch.int32)
+
+            is_infeasible = (
+                (status == int(S.PRIMAL_INFEASIBLE))
+                | (status == int(S.DUAL_INFEASIBLE))
+                | (status == int(S.ALMOST_PRIMAL_INFEASIBLE))
+                | (status == int(S.ALMOST_DUAL_INFEASIBLE))
+            )
+
+            # unscale (variables.jl:247-275)
+            v = final["vars"]
+            scaleinv = torch.where(is_infeasible, 1.0 / v["kappa"],
+                                   1.0 / v["tau"])
+            x_out = v["x"] * d * scaleinv[:, None]
+            z_out = v["z"] * e * (scaleinv * cinv)[:, None]
+            s_out = v["s"] * einv * scaleinv[:, None]
+
+            nan = float("nan")
+            return {
+                "x": x_out,
+                "s": s_out,
+                "z": z_out,
+                "tau": v["tau"] * scaleinv,
+                "kappa": v["kappa"] * scaleinv,
+                "status": status,
+                "obj_val": torch.where(is_infeasible, nan,
+                                       info["cost_primal"]),
+                "obj_val_dual": torch.where(is_infeasible, nan,
+                                            info["cost_dual"]),
+                "iterations": final["iter"],
+                "r_prim": info["res_primal"],
+                "r_dual": info["res_dual"],
+                "res_primal_inf": info["res_primal_inf"],
+                "res_dual_inf": info["res_dual_inf"],
+                "gap_abs": info["gap_abs"],
+                "gap_rel": info["gap_rel"],
+                "ktratio": info["ktratio"],
+                "mu": final["mu"],
+                "step_length": final["alpha"],
+                "sigma": final["sigma"],
+                "ir_count": final["ir_count"],
+                # terminal scaling strategy (0 = PrimalDual, 1 = Dual)
+                "scaling": final["scaling"],
+            }
+
+        state = make_state0()
+        while True:
+            unsolved = state["status"] == int(S.UNSOLVED)
+            if not bool(unsolved.any()):  # the one host sync per iteration
+                break
+            state = where_tree(unsolved, loop_body(state), state)
+        return post(state)
+
+    return solve

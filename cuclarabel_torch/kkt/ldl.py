@@ -1,0 +1,269 @@
+"""Batched f64 LDL^T KKT engine: the four hand-written Hopper kernels of
+`csrc/ldl.cu` and their plain PyTorch versions.
+
+The counterpart of `cuclarabel_tpu/kkt/pallas_dd.py`.  Layout is
+batch-first: K and L are (B, N, N), D^-1 is (B, N), right-hand sides are
+(B, N) or (B, N, R) with R in {1, 2}; everything is float64 and N <= 128.
+
+  ldl_factor(K, reg)                     -> (L, Dinv, ok)
+  ldl_solve(L, Dinv, b)                  -> x
+  kkt_residual(K, x, b)                  -> r = b - K x
+  ldl_solve_refine(K, L, Dinv, b, npass) -> (x, r)
+
+L is the strict-lower unit factor (zeros on and above the diagonal) of
+K + diag(reg) = (I + L) D (I + L)^T, and Dinv holds D^-1, as in the
+reference.  Each wrapper takes its plain version when its tensors lie on
+the CPU and launches its CUDA kernel when they lie on a CUDA device;
+there is no fallback from one to the other.  `LAUNCHES` counts kernel
+launches and `PLAIN_CALLS` calls of the plain versions, keyed by
+"<name>/r<R>", so a run can show which path it took.
+"""
+
+import collections
+
+import torch
+
+from . import _build
+
+MAX_N = 128
+
+LAUNCHES = collections.Counter()
+PLAIN_CALLS = collections.Counter()
+
+
+def reset_counts() -> None:
+    LAUNCHES.clear()
+    PLAIN_CALLS.clear()
+
+
+# ---------------------------------------------------------------------
+# plain PyTorch versions (batched loops over pivots)
+# ---------------------------------------------------------------------
+
+def _sym_from_lower(K):
+    """The symmetric matrix whose lower triangle is K's (the kernels of
+    ldl_factor and ldl_solve_refine read only that triangle)."""
+    return torch.tril(K) + torch.tril(K, -1).transpose(1, 2)
+
+
+def _as_rhs(b):
+    """(B, N) -> (B, N, 1) view; (B, N, R) unchanged."""
+    return b.unsqueeze(-1) if b.dim() == 2 else b
+
+
+def _factor(K, reg):
+    B, N, _ = K.shape
+    A = _sym_from_lower(K) + torch.diag_embed(reg)
+    L = torch.zeros_like(K)
+    Dinv = torch.empty_like(reg)
+    for j in range(N):
+        dinv = 1.0 / A[:, j, j]
+        Dinv[:, j] = dinv
+        a = A[:, j + 1:, j]
+        lcol = a * dinv[:, None]
+        L[:, j + 1:, j] = lcol
+        A[:, j + 1:, j + 1:] -= a[:, :, None] * lcol[:, None, :]
+    return L, Dinv, torch.isfinite(Dinv).all(dim=1)
+
+
+def _solve(L, Dinv, b):
+    x = _as_rhs(b).clone()
+    N = x.shape[1]
+    for j in range(N - 1):  # forward, column by column
+        x[:, j + 1:, :] -= L[:, j + 1:, j, None] * x[:, j, None, :]
+    x *= Dinv[:, :, None]
+    for i in range(N - 1, 0, -1):  # backward, row by row
+        x[:, :i, :] -= L[:, i, :i, None] * x[:, i, None, :]
+    return x.reshape(b.shape)
+
+
+def _residual(K, x, b):
+    xr = _as_rhs(x)
+    Kx = (K[:, :, :, None] * xr[:, None, :, :]).sum(dim=2)
+    return (_as_rhs(b) - Kx).reshape(b.shape)
+
+
+def _solve_refine(K, L, Dinv, b, npass):
+    Ks = _sym_from_lower(K)
+    br = _as_rhs(b)
+    x = _solve(L, Dinv, br)
+    r = _residual(Ks, x, br)
+    ne = r.abs().amax(dim=1)  # (B, R), NaN-propagating
+    for _ in range(npass):
+        xn = x + _solve(L, Dinv, r)
+        en = _residual(Ks, xn, br)
+        nen = en.abs().amax(dim=1)
+        acc = nen < ne
+        x = torch.where(acc[:, None, :], xn, x)
+        r = torch.where(acc[:, None, :], en, r)
+        ne = torch.where(acc, nen, ne)
+    return x.reshape(b.shape), r.reshape(b.shape)
+
+
+def _r(b):
+    return 1 if b.dim() == 2 else b.shape[-1]
+
+
+def ldl_factor_plain(K, reg):
+    PLAIN_CALLS["ldl_factor/r1"] += 1
+    return _factor(K, reg)
+
+
+def ldl_solve_plain(L, Dinv, b):
+    PLAIN_CALLS[f"ldl_solve/r{_r(b)}"] += 1
+    return _solve(L, Dinv, b)
+
+
+def kkt_residual_plain(K, x, b):
+    PLAIN_CALLS[f"kkt_residual/r{_r(b)}"] += 1
+    return _residual(K, x, b)
+
+
+def ldl_solve_refine_plain(K, L, Dinv, b, npass):
+    PLAIN_CALLS[f"ldl_solve_refine/r{_r(b)}"] += 1
+    return _solve_refine(K, L, Dinv, b, npass)
+
+
+# ---------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------
+
+def _on_cpu(*ts) -> bool:
+    devs = {t.device.type for t in ts}
+    if devs == {"cpu"}:
+        return True
+    if devs == {"cuda"} and len({t.device for t in ts}) == 1:
+        return False
+    raise ValueError(
+        f"operands must all lie on the CPU or all on one CUDA device, "
+        f"got {sorted(str(t.device) for t in ts)}")
+
+
+def _check(name, t, shape):
+    if t.dtype != torch.float64:
+        raise TypeError(f"{name} must be float64, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _dims(M, name):
+    if M.dim() != 3 or M.shape[1] != M.shape[2]:
+        raise ValueError(f"{name} must be (B, N, N), got {tuple(M.shape)}")
+    B, N = M.shape[0], M.shape[1]
+    if not 1 <= N <= MAX_N:
+        raise ValueError(f"the LDL^T kernels take 1 <= N <= {MAX_N}, got {N}")
+    return B, N
+
+
+def _rhs_shape(b, B, N, name):
+    if b.dim() == 2:
+        shape = (B, N)
+    elif b.dim() == 3 and b.shape[-1] in (1, 2):
+        shape = (B, N, b.shape[-1])
+    else:
+        raise ValueError(f"{name} must be (B, N) or (B, N, R) with R in "
+                         f"(1, 2), got {tuple(b.shape)}")
+    return shape
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise_on(rc, name):
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def ldl_factor(K, reg):
+    """Pivot-free LDL^T of K + diag(reg).  K: (B, N, N), of which only
+    the lower triangle is read; reg: (B, N).  Returns L (B, N, N)
+    strict-lower unit factor, Dinv (B, N) and ok (B,) bool = all of the
+    problem's D^-1 finite."""
+    if _on_cpu(K, reg):
+        return ldl_factor_plain(K, reg)
+    B, N = _dims(K, "K")
+    _check("K", K, (B, N, N))
+    _check("reg", reg, (B, N))
+    L = torch.empty_like(K)
+    Dinv = torch.empty_like(reg)
+    ok = torch.empty(B, dtype=torch.bool, device=K.device)
+    lib = _build.load()
+    with torch.cuda.device(K.device):
+        rc = lib.cc_ldl_factor(K.data_ptr(), reg.data_ptr(), L.data_ptr(),
+                               Dinv.data_ptr(), ok.data_ptr(), B, N,
+                               _stream(K))
+    _raise_on(rc, "ldl_factor")
+    LAUNCHES["ldl_factor/r1"] += 1
+    return L, Dinv, ok
+
+
+def ldl_solve(L, Dinv, b):
+    """x with (I + L) D (I + L)^T x = b; b (B, N) or (B, N, R)."""
+    if _on_cpu(L, Dinv, b):
+        return ldl_solve_plain(L, Dinv, b)
+    B, N = _dims(L, "L")
+    shape = _rhs_shape(b, B, N, "b")
+    _check("L", L, (B, N, N))
+    _check("Dinv", Dinv, (B, N))
+    _check("b", b, shape)
+    R = _r(b)
+    x = torch.empty_like(b)
+    lib = _build.load()
+    with torch.cuda.device(L.device):
+        rc = lib.cc_ldl_solve(L.data_ptr(), Dinv.data_ptr(), b.data_ptr(),
+                              x.data_ptr(), B, N, R, _stream(L))
+    _raise_on(rc, "ldl_solve")
+    LAUNCHES[f"ldl_solve/r{R}"] += 1
+    return x
+
+
+def kkt_residual(K, x, b):
+    """r = b - K x for a full K (B, N, N); x, b (B, N) or (B, N, R)."""
+    if _on_cpu(K, x, b):
+        return kkt_residual_plain(K, x, b)
+    B, N = _dims(K, "K")
+    shape = _rhs_shape(b, B, N, "b")
+    _check("K", K, (B, N, N))
+    _check("x", x, shape)
+    _check("b", b, shape)
+    R = _r(b)
+    r = torch.empty_like(b)
+    lib = _build.load()
+    with torch.cuda.device(K.device):
+        rc = lib.cc_kkt_residual(K.data_ptr(), x.data_ptr(), b.data_ptr(),
+                                 r.data_ptr(), B, N, R, _stream(K))
+    _raise_on(rc, "kkt_residual")
+    LAUNCHES[f"kkt_residual/r{R}"] += 1
+    return r
+
+
+def ldl_solve_refine(K, L, Dinv, b, npass):
+    """Fused refined solve: x = solve(b), then `npass` passes of
+    x' = x + solve(b - K x), each accepted per right-hand side only where
+    max|b - K x'| < max|b - K x| strictly.  K must be symmetric (its
+    lower triangle is read).  Returns the accepted x and r = b - K x."""
+    if _on_cpu(K, L, Dinv, b):
+        return ldl_solve_refine_plain(K, L, Dinv, b, npass)
+    B, N = _dims(K, "K")
+    shape = _rhs_shape(b, B, N, "b")
+    _check("K", K, (B, N, N))
+    _check("L", L, (B, N, N))
+    _check("Dinv", Dinv, (B, N))
+    _check("b", b, shape)
+    if npass < 0:
+        raise ValueError(f"npass must be >= 0, got {npass}")
+    R = _r(b)
+    x = torch.empty_like(b)
+    r = torch.empty_like(b)
+    lib = _build.load()
+    with torch.cuda.device(K.device):
+        rc = lib.cc_ldl_solve_refine(
+            K.data_ptr(), L.data_ptr(), Dinv.data_ptr(), b.data_ptr(),
+            x.data_ptr(), r.data_ptr(), B, N, R, int(npass), _stream(K))
+    _raise_on(rc, "ldl_solve_refine")
+    LAUNCHES[f"ldl_solve_refine/r{R}"] += 1
+    return x, r

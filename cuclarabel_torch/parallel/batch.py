@@ -1,0 +1,273 @@
+"""Batched problem solving on one device.
+
+The counterpart of `cuclarabel_tpu/parallel/batch.py`: many conic
+programs with the same structure (cone layout, dimensions) and different
+numeric data solve together, every tensor carrying a leading batch
+dimension.  Ruiz equilibration runs on the device, per problem.  The
+batched path skips presolve (row elimination would give ragged shapes).
+
+Not ported yet: sharding over several devices, warm starts and staged
+batch compaction.
+"""
+
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..cones import api
+from ..cones.layout import build_layout
+from ..infinity import get_infinity
+from ..interop import batchify, problem_from_numpy, symmetrize_triu
+from ..ipm.loop import make_solve_fn
+from ..settings import Settings
+from ..solver import DefaultSolution, resolve_device
+from ..statuscodes import SolverStatus
+
+
+def _rect_plan(layout):
+    """Static segment plan for cone rectification: seg id per row of
+    the m-vector for cones that need scalar equilibration, -1 elsewhere
+    (rectify_equilibration!, coneops_defaults.jl:32-44)."""
+    seg = np.full(layout.m, -1, dtype=np.int64)
+    ranges = layout.rectification_ranges()
+    for i, (lo, hi) in enumerate(ranges):
+        seg[lo:hi] = i
+    return seg, len(ranges)
+
+
+def device_equilibrate(P, A, q, b, layout, settings, has_P=True):
+    """Per-problem Ruiz equilibration (data_equilibrate!,
+    src/problemdata.jl:133-221) on batched tensors P (B, n, n),
+    A (B, m, n), q (B, n), b (B, m).  Returns the dict consumed by the
+    IPM solve function.
+
+    The reference chooses the scalings on an f32 shadow of the data for
+    TPU speed and applies them once in f64; here the same iteration runs
+    in f64 throughout, which moves the scalings by about 1e-7 relative.
+    has_P=False (statically no quadratic term) skips every P-side
+    computation: with P == 0 the cost scaling c stays exactly 1."""
+    B, n = q.shape
+    m = b.shape[1]
+    zeros = q.new_zeros(B)
+    normq = q.abs().amax(dim=1) if n else zeros
+    normb = b.abs().amax(dim=1) if m else zeros
+
+    d = torch.ones_like(q)
+    e = torch.ones_like(b)
+    c = torch.ones_like(zeros)
+
+    if settings.equilibrate_enable:
+        smin = settings.equilibrate_min_scaling
+        smax = settings.equilibrate_max_scaling
+        Pw, Aw, qw = P, A, q
+        for _ in range(settings.equilibrate_max_iter):
+            colA = Aw.abs().amax(dim=1)
+            dwork = (torch.maximum(Pw.abs().amax(dim=1), colA) if has_P
+                     else colA)
+            ework = Aw.abs().amax(dim=2)
+            dwork = 1.0 / torch.sqrt(torch.where(dwork == 0.0, 1.0, dwork))
+            ework = 1.0 / torch.sqrt(torch.where(ework == 0.0, 1.0, ework))
+            dwork = torch.clamp(dwork, smin / d, smax / d)
+            ework = torch.clamp(ework, smin / e, smax / e)
+
+            if has_P:
+                Pw = Pw * dwork[:, None, :] * dwork[:, :, None]
+            Aw = Aw * dwork[:, None, :] * ework[:, :, None]
+            qw = qw * dwork
+            d = d * dwork
+            e = e * ework
+
+            if has_P:
+                mean_col_P = Pw.abs().amax(dim=1).mean(dim=1)
+                inf_q = qw.abs().amax(dim=1)
+                ctmp = 1.0 / torch.clamp(torch.maximum(inf_q, mean_col_P),
+                                         min=1e-30)
+                ctmp = torch.clamp(ctmp, smin / c, smax / c)
+                ctmp = torch.where((mean_col_P != 0.0) & (inf_q != 0.0),
+                                   ctmp, 1.0)
+                Pw = Pw * ctmp[:, None, None]
+                qw = qw * ctmp[:, None]
+                c = c * ctmp
+        # one application of the accumulated scalings to the data
+        if has_P:
+            P = P * (c[:, None, None] * d[:, None, :] * d[:, :, None])
+        A = A * d[:, None, :] * e[:, :, None]
+        q = q * (c[:, None] * d)
+        b = b * e
+
+        seg, nrect = _rect_plan(layout)
+        if nrect:
+            valid = np.flatnonzero(seg >= 0)
+            vidx = torch.as_tensor(valid, device=q.device)
+            vseg = torch.as_tensor(seg[valid], device=q.device)
+            counts = torch.as_tensor(np.bincount(seg[valid], minlength=nrect),
+                                     dtype=q.dtype, device=q.device)
+            ev = e[:, vidx]
+            mean_e = e.new_zeros(B, nrect).index_add_(1, vseg, ev) / counts
+            delta = torch.ones_like(e).index_copy(1, vidx,
+                                                  mean_e[:, vseg] / ev)
+            A = A * delta[:, :, None]
+            b = b * delta
+            e = e * delta
+
+    return {
+        "P": P,
+        "q": q,
+        "A": A,
+        "b": b,
+        "d": d,
+        "dinv": 1.0 / d,
+        "e": e,
+        "einv": 1.0 / e,
+        "cscale": c,
+        "normq": normq,
+        "normb": normb,
+    }
+
+
+def make_batch_solve_fn(layout, settings: Settings, n: int, m: int,
+                        has_P: bool, device=None):
+    """Batched solve: (P, A, q, b, t_start) with a leading batch axis ->
+    batched solution dict of tensors, on `device` (CUDA unless the
+    caller passes device="cpu")."""
+    base = make_solve_fn(layout, settings, n, m, has_P, device)
+
+    def solve_batch(P, A, q, b, t_start):
+        b = torch.clamp(b, max=get_infinity())  # problemdata.jl:58-62
+        dev = device_equilibrate(P, A, q, b, layout, settings, has_P=has_P)
+        dev["t_start"] = t_start
+        return base(dev)
+
+    return solve_batch
+
+
+class BatchSolver:
+    """Solve a batch of structurally identical conic programs.
+
+    P: (n,n) or (B,n,n); A: (m,n) or (B,m,n); q: (B,n); b: (B,m).
+    All problems share the cone layout; numeric data varies freely.
+    Runs on `device` (default: the current CUDA device; with no CUDA
+    device this raises unless device="cpu" is passed)."""
+
+    def __init__(
+        self,
+        P,
+        q,
+        A,
+        b,
+        cones: Sequence[api.SupportedCone],
+        settings: Optional[Settings] = None,
+        n_devices: int = 1,
+        device=None,
+        **kwargs,
+    ):
+        settings = settings or Settings()
+        if kwargs:
+            settings = settings.replace(**kwargs)
+        # batched path: no host presolve (shapes must stay uniform)
+        settings = settings.replace(presolve_enable=False)
+        settings.validate()
+        if n_devices != 1:
+            raise NotImplementedError(
+                "cuclarabel_torch runs a batch on one device; sharding "
+                "over n_devices > 1 is not ported yet")
+        if settings.batch_compaction > 0.0:
+            raise NotImplementedError(
+                "staged batch compaction is not ported to cuclarabel_torch "
+                "yet; use batch_compaction=0.0 or -1.0 (auto)")
+        # auto resolves to 0: staged compaction is not ported, and it
+        # changes no problem's result (the reference's own contract)
+        settings = settings.replace(batch_compaction=0.0)
+        self.settings = settings
+        self.device = resolve_device(device)
+
+        prob = problem_from_numpy(P, q, A, b, cones)
+        B, n = prob["q"].shape
+        m = prob["b"].shape[1]
+        self.layout = build_layout(tuple(prob["cones"]))
+        if self.layout.m != m:
+            raise ValueError("cone dimensions inconsistent with b")
+        self._has_P = bool(np.any(prob["P"] != 0.0))
+        self.B, self.n, self.m = B, n, m
+        self._chunk = settings.resolved_batch_chunk(B)
+        self._fn = make_batch_solve_fn(self.layout, settings, n, m,
+                                       self._has_P, self.device)
+        self._args = tuple(self._put(prob[k]) for k in ("P", "A", "q", "b"))
+
+    def _put(self, a):
+        return torch.tensor(a, dtype=torch.float64, device=self.device)
+
+    def update_data(self, P=None, q=None, A=None, b=None) -> None:
+        """Parametric re-solves (update_data!, data_updating.jl
+        semantics): equilibration runs per solve, so new data is just
+        new arguments; nothing is re-analysed."""
+        Pd, Ad, qd, bd = self._args
+        if P is not None:
+            Pn = symmetrize_triu(batchify(P, self.B, (self.n, self.n)))
+            if bool(np.any(Pn != 0.0)) != self._has_P:
+                raise ValueError(
+                    "update_data cannot change whether P is zero "
+                    "(the solve function is specialised on it)")
+            Pd = self._put(Pn)
+        if A is not None:
+            Ad = self._put(batchify(A, self.B, (self.m, self.n)))
+        if q is not None:
+            q = np.asarray(q, dtype=np.float64)
+            if q.shape != (self.B, self.n):
+                raise ValueError("q must be (B, n)")
+            qd = self._put(q)
+        if b is not None:
+            b = np.asarray(b, dtype=np.float64)
+            if b.shape != (self.B, self.m):
+                raise ValueError("b must be (B, m)")
+            bd = self._put(b)
+        self._args = (Pd, Ad, qd, bd)
+
+    def _solve_chunked(self, t):
+        """Chunked wide-batch solve (settings.batch_chunk_size): the
+        batch splits into chunk-wide solves run one after another, which
+        bounds the live device memory by the chunk width."""
+        C = self._chunk
+        merged = None
+        for i in range(0, self.B, C):
+            out = self._fn(*(a[i:i + C] for a in self._args), t)
+            out = {k: v.cpu().numpy() for k, v in out.items()}
+            if merged is None:
+                merged = {k: np.empty((self.B,) + v.shape[1:], v.dtype)
+                          for k, v in out.items()}
+            for k, v in out.items():
+                merged[k][i:i + v.shape[0]] = v
+        return merged
+
+    def solve(self, warm_start=None):
+        """Solve every problem of the batch; returns a list of
+        DefaultSolution and keeps the batched result dict in self.raw."""
+        if warm_start is not None:
+            raise NotImplementedError(
+                "warm starts are not ported to cuclarabel_torch yet")
+        t = time.time()
+        if self._chunk:
+            out = self._solve_chunked(t)
+        else:
+            out = {k: v.cpu().numpy()
+                   for k, v in self._fn(*self._args, t).items()}
+        sols = []
+        for i in range(self.B):
+            sols.append(
+                DefaultSolution(
+                    x=out["x"][i],
+                    z=out["z"][i],
+                    s=out["s"][i],
+                    status=SolverStatus(int(out["status"][i])),
+                    obj_val=float(out["obj_val"][i]),
+                    obj_val_dual=float(out["obj_val_dual"][i]),
+                    solve_time=0.0,
+                    iterations=int(out["iterations"][i]),
+                    r_prim=float(out["r_prim"][i]),
+                    r_dual=float(out["r_dual"][i]),
+                )
+            )
+        self.raw = out
+        return sols

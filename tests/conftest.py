@@ -44,3 +44,10 @@ def _clear_jax_caches_between_modules():
     little and keeps the compiler healthy."""
     yield
     jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the port's kernels have no CPU mode); "
+        "skips without one")

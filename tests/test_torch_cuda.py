@@ -1,0 +1,122 @@
+"""The port's CUDA kernels and its batched solve on the card.
+
+These need a CUDA device (a CUDA kernel has no CPU mode) and skip
+without one.  On a machine with a card and without JAX, run them with
+
+    python3 -m pytest --noconftest -q tests/test_torch_cuda.py
+
+The kernels are held against their plain PyTorch versions on the same
+card tensors: the factor and the substitution bit for bit (the kernels
+are built with -fmad=false and round every operation as the plain
+versions do), the residual and the refined solve within 1e-12 relative
+(other summation orders)."""
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the LDL^T kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _kkt(rng, B, n, m, dev):
+    N = n + m
+    A = rng.standard_normal((B, m, n))
+    G = rng.standard_normal((n, n)) / np.sqrt(n)
+    K = np.zeros((B, N, N))
+    Hs = 10.0 ** rng.uniform(-3, 3, (B, m))
+    K[:, :m, :m] = -Hs[:, :, None] * np.eye(m)
+    K[:, :m, m:] = A
+    K[:, m:, :m] = np.transpose(A, (0, 2, 1))
+    K[:, m:, m:] = G @ G.T
+    reg = np.broadcast_to(np.concatenate([-np.ones(m), np.ones(n)]) * 1e-8,
+                          (B, N)).copy()
+    return (torch.tensor(K, device=dev), torch.tensor(reg, device=dev))
+
+
+@pytest.mark.parametrize("n,m", [(5, 8), (33, 43), (56, 72)])
+@pytest.mark.parametrize("R", [1, 2])
+def test_kernels_match_plain(dev, n, m, R):
+    from cuclarabel_torch.kkt import ldl
+
+    rng = np.random.default_rng(n + m + R)
+    B = 37
+    K, reg = _kkt(rng, B, n, m, dev)
+    shape = (B, n + m) if R == 1 else (B, n + m, R)
+    b = torch.tensor(rng.standard_normal(shape), device=dev)
+    ldl.reset_counts()
+
+    L, Dinv, ok = ldl.ldl_factor(K, reg)
+    Lp, Dinvp, okp = ldl.ldl_factor_plain(K, reg)
+    assert torch.equal(L, Lp) and torch.equal(Dinv, Dinvp)
+    assert torch.equal(ok, okp) and bool(ok.all())
+
+    x = ldl.ldl_solve(L, Dinv, b)
+    assert torch.equal(x, ldl.ldl_solve_plain(L, Dinv, b))
+
+    r = ldl.kkt_residual(K, x, b)
+    torch.testing.assert_close(r, ldl.kkt_residual_plain(K, x, b),
+                               rtol=1e-12, atol=1e-12)
+    for npass in (0, 1, 2):
+        xr, rr = ldl.ldl_solve_refine(K, L, Dinv, b, npass)
+        xp, rp = ldl.ldl_solve_refine_plain(K, L, Dinv, b, npass)
+        torch.testing.assert_close(xr, xp, rtol=1e-12, atol=1e-12)
+        torch.testing.assert_close(rr, ldl.kkt_residual_plain(K, xr, b),
+                                   rtol=0, atol=1e-11)
+    torch.cuda.synchronize()
+    assert ldl.LAUNCHES[f"ldl_solve_refine/r{R}"] == 3
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(dev):
+    from cuclarabel_torch.kkt import ldl
+
+    K, reg = _kkt(np.random.default_rng(0), 2, 5, 8, dev)
+    with pytest.raises(TypeError):
+        ldl.ldl_factor(K.float(), reg.float())
+    with pytest.raises(ValueError):
+        ldl.ldl_factor(K.transpose(1, 2), reg)  # not contiguous
+    big = torch.zeros(1, 129, 129, dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError):
+        ldl.ldl_factor(big, big[:, 0])
+    with pytest.raises(ValueError):
+        ldl.ldl_solve(K, reg, torch.zeros(2, 13, 3, dtype=torch.float64,
+                                          device=dev))
+
+
+def test_kernels_on_two_devices(dev):
+    """The shared-memory attribute is set per device: kernels whose
+    launch needs more than 48 KB (the refined solve at N = 76) run on a
+    second card after the first."""
+    from cuclarabel_torch.kkt import ldl
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    rng = np.random.default_rng(3)
+    for d in (torch.device("cuda", 0), torch.device("cuda", 1)):
+        K, reg = _kkt(rng, 5, 33, 43, d)
+        b = torch.tensor(rng.standard_normal((5, 76)), device=d)
+        L, Dinv, _ = ldl.ldl_factor(K, reg)
+        xr, _ = ldl.ldl_solve_refine(K, L, Dinv, b, 1)
+        xp, _ = ldl.ldl_solve_refine_plain(K, L, Dinv, b, 1)
+        torch.testing.assert_close(xr, xp, rtol=1e-12, atol=1e-12)
+
+
+def test_batch_solver_on_card_matches_cpu(dev):
+    import cuclarabel_torch as ct
+    from cuclarabel_torch.kkt import ldl
+    from cuclarabel_torch.problems import portfolio_socp
+
+    A, q, b, cones = portfolio_socp(nass=8, batch=6, seed=2)
+    ldl.reset_counts()
+    gpu = ct.BatchSolver(None, q, A, b, cones).solve()
+    assert not ldl.PLAIN_CALLS and ldl.LAUNCHES["ldl_factor/r1"] > 0
+    cpu = ct.BatchSolver(None, q, A, b, cones, device="cpu").solve()
+    for g, c in zip(gpu, cpu):
+        assert g.status == c.status == ct.SolverStatus.SOLVED
+        assert abs(g.obj_val - c.obj_val) <= 1e-7 * abs(c.obj_val)
