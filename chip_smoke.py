@@ -7,24 +7,38 @@ Phases, in order; any failure exits non-zero:
 
 1. device: requires CUDA; prints the card's name and power limit
    (nvidia-smi) and the torch and CUDA versions;
-2. build: compiles csrc/ldl.cu with nvcc into build/ and prints the
-   seconds taken;
-3. kernels: each of the four LDL^T kernels against its plain PyTorch
-   version on the card, at (N, B) = (76, 4096), (13, 1024) and
-   (128, 1024), for one and two right-hand sides, plus numpy f64 solves
-   of a few problems;
-4. main path: cuclarabel_torch.BatchSolver on the portfolio SOCP with
-   nass = 32 (KKT dimension 76) at B = 256 and B = 4096: every problem
-   SOLVED, the first 8 problems agreeing with the port's CPU solve, and
-   the launch counters, set to 0 before each width's solve and read
-   after it, showing the kernels ran and no plain version did;
-5. timing: warm problems/s, iterations and refinement passes, and each
-   kernel's time at (76, 4096) beside its bound, its plain version's
-   time and, where one PyTorch call computes the same function, that
-   call's time.
+2. build: compiles csrc/*.cu with nvcc into build/ (one nvcc per source,
+   started together) and prints the seconds taken;
+3. kernels: each of the four f64 LDL^T kernels against its plain
+   PyTorch version on the card, at (N, B) = (76, 4096), (13, 1024),
+   (128, 1024) and the Solver's B = 1 shapes (76, 1), (12, 1), (8, 1),
+   for one and two right-hand sides, plus numpy f64 solves of a few
+   problems; then the two f32 kernels (ldl_factor_batched,
+   ldl_solve_batched) against theirs at (N, B) = (16, 5), (76, 4096),
+   (128, 256) and (9, 3), with numpy's reconstruction of K and the
+   inertia of D;
+4. main paths, each driven with the launch counters set to 0 just
+   before it and read just after, showing its kernels ran and no plain
+   version did:
+   - batch: cuclarabel_torch.BatchSolver on the portfolio SOCP with
+     nass = 32 (KKT dimension 76) at B = 256 and B = 4096: every problem
+     SOLVED, the first 8 agreeing with the port's CPU solve;
+   - solver: cuclarabel_torch.Solver on the QP, LP and SOCP goldens and
+     the portfolio SOCP at nass = 32 (N = 76, "pallas": the f64 kernels
+     at B = 1) and nass = 64 (N = 148, "lu"): every problem SOLVED with
+     the objective and iteration count of Solver(..., device="cpu");
+     then an update_q with a warm-started re-solve, and one verbose
+     solve whose table is printed;
+   - f32: ldl_factor_batched and ldl_solve_batched at (76, 4096);
+5. timing: warm problems/s, iterations and refinement passes of the
+   batch; first, repeat and warm-started solve ms of the N = 76 Solver
+   problem; each kernel's time at (76, 4096) beside its bound, its
+   plain version's time and, where one PyTorch call computes the same
+   function, that call's time; the r = 2 forms of the substitution and
+   the refined solve; the f64 factor and substitution on the f32 K.
 
 The line before the last is the `kernels` JSON, whose `launches` sums
-both widths' solves and `launches_per_width` splits them; the last line
+the main paths' runs and `launches_per_path` splits them; the last line
 is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -36,16 +50,20 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM (NVIDIA data sheet): HBM3 bandwidth and the f64 rate outside
-# the tensor cores, at the full 700 W power limit
+# H100 SXM (NVIDIA data sheet): HBM3 bandwidth and the f64 and f32 rates
+# outside the tensor cores, at the full 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F64_PER_S = 34e12
+PEAK_F32_PER_S = 67e12
 
 # the portfolio SOCP of the main path
 NASS = 32
 MAIN_WIDTHS = (256, 4096)
 CPU_CHECK = 8
-KERNEL_SHAPES = ((33, 43, 4096), (5, 8, 1024), (56, 72, 1024))  # (n, m, B)
+# (n, m, B): the batch widths, then the Solver's B = 1 at N = 76 and at
+# the sizes of the goldens (SOCP N = 12, QP N = 8)
+KERNEL_SHAPES = ((33, 43, 4096), (5, 8, 1024), (56, 72, 1024), (33, 43, 1),
+                 (3, 9, 1), (2, 6, 1))
 NUMPY_CHECK = 4
 
 # accuracy bars (tests/test_pallas_dd.py of the reference)
@@ -54,6 +72,19 @@ TOL_SOLVE = 1e-9      # x vs numpy f64 / plain, relative to max(|x|, 1)
 TOL_RESID = 1e-10     # residual vs plain, relative to max(|r|, 1)
 TOL_RETURNED_R = 1e-11  # refine's r vs b - K x recomputed, absolute
 TOL_OBJ = 1e-7        # objective vs the CPU solve, relative
+# f32 kernels (tests/test_pallas_ldl.py): kernel vs plain bit for bit
+# (-fmad=false: the same rounding of every operation); L D L^T vs K
+# relative to max |K|
+TOL_F32_RECON = 1e-4
+# the library yardsticks (cuSOLVER's LDL^T through torch.linalg) against
+# the kernels' x, relative to max(|x|, 1): they must solve the same system
+TOL_LIB_F64 = 1e-9
+TOL_LIB_F32 = 1e-4
+LIB_SLOW_MS = 100.0
+F32_SHAPES = ((16, 5), (76, 4096), (128, 256), (9, 3))  # (N, B)
+F32_CHECK = 8
+# Solver problems: (name, nass) of the portfolio SOCP, or the goldens
+SOLVER_PORTFOLIOS = (32, 64)
 
 REPLACES = {
     "ldl_factor": "cuclarabel_tpu/kkt/pallas_dd.py:1318",
@@ -66,6 +97,11 @@ ALSO_REPLACES = {
     "ldl_solve_refine": "cuclarabel_tpu/kkt/pallas_dd.py:1455",
 }
 SOURCE = "cuclarabel_torch/csrc/ldl.cu"
+REPLACES_F32 = {
+    "ldl_factor_batched": "cuclarabel_tpu/kkt/pallas_ldl.py:89",
+    "ldl_solve_batched": "cuclarabel_tpu/kkt/pallas_ldl.py:114",
+}
+SOURCE_F32 = "cuclarabel_torch/csrc/ldl_f32.cu"
 
 
 class SmokeFailure(RuntimeError):
@@ -114,10 +150,10 @@ def rel(a, b, floor=0.0):
     return float((a - b).abs().max()) / scale if scale > 0 else 0.0
 
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, warmup=2):
     """Mean device ms per call from CUDA events around `reps` calls,
-    after two warm-up calls."""
-    for _ in range(2):
+    after `warmup` calls."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
@@ -130,25 +166,33 @@ def cuda_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, peak_flops=PEAK_F64_PER_S):
     tb = nbytes / PEAK_BYTES_PER_S * 1e3
-    tf = flops / PEAK_F64_PER_S * 1e3
+    tf = flops / peak_flops * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
 def work(name, B, N, R=1, npass=1):
-    """(bytes, f64 operations) the function must move and do: each
-    input read once and each output written once, K and L counted as
-    the triangles the function needs (K is symmetric, and L is strictly
-    lower: no consumer reads the zeros the factor kernel writes above
-    its diagonal)."""
-    f8 = 8
+    """(bytes, operations) the function must move and do: each input
+    read once and each output written once, K and L counted as the
+    triangles the function needs (K is symmetric, and L is strictly
+    lower: no consumer reads the zeros the factor kernels write above
+    the diagonal).  f64 operands, f32 for the *_batched functions."""
+    f8 = 4 if name.endswith("_batched") else 8
     tri = N * (N + 1) // 2
     stri = N * (N - 1) // 2
     solve_ops = 2 * stri * 2 * R + N * R
+    factor_ops = N + sum((N - j - 1) + (N - j - 1) * (N - j)
+                         for j in range(N))
     if name == "ldl_factor":
         nbytes = B * f8 * (tri + N + stri + N) + B
-        ops = N + sum((N - j - 1) + (N - j - 1) * (N - j) for j in range(N))
+        ops = factor_ops
+    elif name == "ldl_factor_batched":
+        nbytes = B * f8 * (tri + stri + N)
+        ops = factor_ops
+    elif name == "ldl_solve_batched":
+        nbytes = B * f8 * (stri + 3 * N)
+        ops = solve_ops
     elif name == "ldl_solve":
         nbytes = B * f8 * (stri + N + 2 * N * R)
         ops = solve_ops
@@ -204,22 +248,23 @@ def phase_kernels():
 
         # refinement runs against the unregularised K: its iterates move
         # from the solution of K + diag(reg) towards that of K
-        Kc = Kn[:NUMPY_CHECK]
-        Kreg = Kc + np.einsum("bi,ij->bij", regn[:NUMPY_CHECK], np.eye(N))
+        c = min(B, NUMPY_CHECK)
+        Kc = Kn[:c]
+        Kreg = Kc + np.einsum("bi,ij->bij", regn[:c], np.eye(N))
         for R in (1, 2):
             shape = (B, N) if R == 1 else (B, N, R)
             b = torch.tensor(rng.standard_normal(shape), device=dev)
             x0 = torch.tensor(rng.standard_normal(shape), device=dev)
-            bref = b.cpu().numpy()[:NUMPY_CHECK].reshape(NUMPY_CHECK, N, R)
+            bref = b.cpu().numpy()[:c].reshape(c, N, R)
             xref, xref_unreg = (
                 torch.tensor(np.linalg.solve(M, bref)).reshape(
-                    (NUMPY_CHECK,) + shape[1:]) for M in (Kreg, Kc))
+                    (c,) + shape[1:]) for M in (Kreg, Kc))
 
             x = ldl.ldl_solve(L, Dinv, b)
             torch.cuda.synchronize()
             xp = ldl.ldl_solve_plain(L, Dinv, b)
             e1 = rel(x, xp, 1.0)
-            e2 = rel(x[:NUMPY_CHECK].cpu(), xref, 1.0)
+            e2 = rel(x[:c].cpu(), xref, 1.0)
             check(e1 < TOL_SOLVE and e2 < TOL_SOLVE,
                   f"ldl_solve r={R} at {tag}: vs plain {e1:.2e}, "
                   f"vs numpy {e2:.2e}")
@@ -242,7 +287,7 @@ def phase_kernels():
                 xrp, rrp = ldl.ldl_solve_refine_plain(K, L, Dinv, b, npass)
                 rtrue = ldl.kkt_residual_plain(K, xr, b)
                 e1 = rel(xr, xrp, 1.0)
-                e2 = rel(xr[:NUMPY_CHECK].cpu(),
+                e2 = rel(xr[:c].cpu(),
                          xref if npass == 0 else xref_unreg, 1.0)
                 e3 = float((rr - rtrue).abs().max())
                 check(e1 < TOL_SOLVE and e2 < TOL_SOLVE
@@ -265,7 +310,7 @@ def phase_main(card):
     from cuclarabel_torch.problems import portfolio_socp
 
     runs = {}
-    per_kernel = {k: {} for k in REPLACES}
+    paths = {}
     for B in MAIN_WIDTHS:
         A, qs, bs, cones = portfolio_socp(NASS, B, seed=7)
         ldl.reset_counts()
@@ -291,12 +336,7 @@ def phase_main(card):
         for key in ("ldl_factor/r1", "ldl_solve_refine/r1",
                     "ldl_solve_refine/r2"):
             check(launches.get(key, 0) > 0, f"B={B}: {key} never launched")
-        for k in REPLACES:
-            per_kernel[k][f"B{B}"] = sum(
-                v for kk, v in launches.items() if kk.split("/")[0] == k)
-    for k, v in per_kernel.items():
-        check(sum(v.values()) > 0, f"kernel {k} never launched on the "
-              "main path")
+        paths[f"batch_B{B}"] = launches
 
     # the first problems against the port's CPU solve (plain versions)
     A, qs, bs, cones, _, sols, _ = runs[MAIN_WIDTHS[0]]
@@ -309,7 +349,233 @@ def phase_main(card):
     check(worst <= TOL_OBJ, f"objective vs CPU: {worst:.2e} relative")
     print(f"[{card}] first {CPU_CHECK} problems match the CPU solve: "
           f"max objective difference {worst:.3e} relative")
-    return runs, per_kernel
+    return runs, paths
+
+
+def counted(name, fn):
+    """Drive one main path: the launch counters set to 0 just before fn
+    runs and read just after; no plain version may run.  Returns (fn's
+    result, the launches by "<kernel>/r<R>")."""
+    from cuclarabel_torch.kkt import ldl
+
+    ldl.reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = dict(ldl.LAUNCHES)
+    plain = dict(ldl.PLAIN_CALLS)
+    print(f"{name} launches: {json.dumps(launches, sort_keys=True)}")
+    check(not plain, f"{name}: plain versions ran on the main path: {plain}")
+    return out, launches
+
+
+def solver_problems():
+    """(name, (P, q, A, b, cones)) of the Solver phase: BASELINE.md's QP
+    golden and the LP and SOCP goldens of tests/test_basic_lp.py and
+    tests/test_basic_socp.py (copied), and the portfolio SOCP of the
+    batch path, one problem at each nass of SOLVER_PORTFOLIOS."""
+    import cuclarabel_torch as ct
+    from cuclarabel_torch.problems import portfolio_socp
+
+    nn3 = [ct.NonnegativeConeT(3), ct.NonnegativeConeT(3)]
+    A0 = np.array([[1.0, 1.0], [1.0, 0.0], [0.0, 1.0]])
+    yield "qp", (np.array([[4.0, 1.0], [1.0, 2.0]]), np.ones(2),
+                 np.vstack([-A0, A0]),
+                 np.array([-1.0, 0.0, 0.0, 1.0, 0.7, 0.7]), nn3)
+    A_box = np.vstack([np.eye(3), -np.eye(3)]) * 2.0
+    yield "lp", (None, np.array([3.0, -2.0, 1.0]), A_box, np.ones(6), nn3)
+    P_socp = np.array([
+        [1.4652521089139698, 0.6137176286085666, -1.1527861771130112],
+        [0.6137176286085666, 2.219109946678485, -1.4400420548730628],
+        [-1.1527861771130112, -1.4400420548730628, 1.6014483534926371]])
+    yield "socp", (P_socp, np.array([0.1, -2.0, 1.0]),
+                   np.vstack([A_box, np.eye(3)]),
+                   np.concatenate([np.ones(6), np.zeros(3)]),
+                   nn3 + [ct.SecondOrderConeT(3)])
+    for nass in SOLVER_PORTFOLIOS:
+        A, q, b, cones = portfolio_socp(nass, 1, seed=7)
+        yield f"portfolio{nass}", (None, q[0], A, b[0], cones)
+
+
+def phase_solver(card):
+    """The single-problem Solver on the card, held against the same
+    solves on the CPU.  Returns (launches, timing)."""
+    import cuclarabel_torch as ct
+
+    problems = dict(solver_problems())
+    main = f"portfolio{SOLVER_PORTFOLIOS[0]}"
+    rng = np.random.default_rng(4)
+    dq = 1e-3 * rng.standard_normal(problems[main][1].shape)
+
+    def drive():
+        out = {}
+        for name, data in problems.items():
+            solver = ct.Solver(*data)
+            check(solver.device.type == "cuda", "Solver did not run on CUDA")
+            t0 = time.perf_counter()
+            sol = solver.solve()
+            out[name] = (solver, sol, time.perf_counter() - t0)
+        solver, sol, _ = out[main]
+        solver.update_q(problems[main][1] + dq)
+        t0 = time.perf_counter()
+        warm = solver.solve(warm_start=(sol.x, sol.s, sol.z))
+        out["warm"] = (solver, warm, time.perf_counter() - t0)
+        print("verbose solve of the QP golden on the card:")
+        out["verbose"] = (None, ct.Solver(*problems["qp"],
+                                          verbose=True).solve(), 0.0)
+        return out
+
+    out, launches = counted("solver", drive)
+    for key in ("ldl_factor/r1", "ldl_solve_refine/r1",
+                "ldl_solve_refine/r2"):
+        check(launches.get(key, 0) > 0, f"solver: {key} never launched")
+
+    # the same solves on the CPU: status, objective and iterations
+    cpu = {name: ct.Solver(*data, device="cpu") for name, data in
+           problems.items()}
+    want = {name: s.solve() for name, s in cpu.items()}
+    cpu[main].update_q(problems[main][1] + dq)
+    want["warm"] = cpu[main].solve(
+        warm_start=(want[main].x, want[main].s, want[main].z))
+    want["verbose"] = want["qp"]
+    for name, (solver, got, secs) in out.items():
+        w = want[name]
+        err = abs(got.obj_val - w.obj_val) / abs(w.obj_val)
+        check(got.status == ct.SolverStatus.SOLVED, f"solver {name}: "
+              f"{got.status.name}")
+        check(err <= TOL_OBJ, f"solver {name}: objective {err:.2e} "
+              "relative from the CPU solve")
+        check(got.iterations == w.iterations, f"solver {name}: "
+              f"{got.iterations} iterations, {w.iterations} on the CPU")
+        method = (solver.get_info()["linear_solver"]["method"]
+                  if solver is not None else "")
+        print(f"solver {name}: SOLVED in {got.iterations} iterations "
+              f"(CPU {w.iterations}), objective {got.obj_val:.12g}, "
+              f"{err:.2e} relative from the CPU, {method} {secs * 1e3:.1f} ms")
+    for nass in SOLVER_PORTFOLIOS:
+        solver = out[f"portfolio{nass}"][0]
+        N = solver.n + solver.m
+        method = solver.get_info()["linear_solver"]["method"]
+        check(method == ("pallas" if N <= 128 else "lu"),
+              f"portfolio{nass}: N = {N} took {method}")
+
+    # the N = 76 problem's solve times on the card
+    solver, sol, first = out[main]
+    solver.update_q(problems[main][1])
+    reps = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        sol = solver.solve()
+        reps.append(time.perf_counter() - t0)
+    solver.update_q(problems[main][1] + dq)
+    warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        solver.solve(warm_start=(sol.x, sol.s, sol.z))
+        warm.append(time.perf_counter() - t0)
+    timing = {"first_ms": first * 1e3,
+              "repeat_ms": float(np.median(reps)) * 1e3,
+              "warm_start_ms": float(np.median(warm)) * 1e3,
+              "iterations": sol.iterations,
+              "warm_start_iterations": out["warm"][1].iterations}
+    print(f"[{card}] Solver, portfolio nass={SOLVER_PORTFOLIOS[0]} (N=76): "
+          f"first solve {timing['first_ms']:.1f} ms, repeat solve "
+          f"{timing['repeat_ms']:.1f} ms (median of 5, "
+          f"{timing['iterations']} iterations), warm-started re-solve "
+          f"after update_q {timing['warm_start_ms']:.1f} ms (median of 3, "
+          f"{timing['warm_start_iterations']} iterations)")
+    return launches, timing
+
+
+def make_qd_kkt(rng, B, N):
+    """Well-conditioned symmetric quasidefinite K = [[P, A'], [A, -H]]
+    with P = F F' + 0.1 I and H = diag(U(0.5, 1.5)), as
+    tests/test_pallas_ldl.py:14-23 builds them, batched: n = N // 2
+    positive and m = N - n negative pivots.  Returns (K, n, m)."""
+    n = N // 2
+    m = N - n
+    F = rng.standard_normal((B, n, n))
+    A = rng.standard_normal((B, m, n))
+    K = np.zeros((B, N, N))
+    K[:, :n, :n] = F @ np.transpose(F, (0, 2, 1)) + 0.1 * np.eye(n)
+    K[:, :n, n:] = np.transpose(A, (0, 2, 1))
+    K[:, n:, :n] = A
+    K[:, n:, n:] = -(rng.random((B, m)) + 0.5)[:, :, None] * np.eye(m)
+    return K, n, m
+
+
+def phase_kernels_f32():
+    """The f32 kernels against their plain versions on the card, bit for
+    bit, with numpy's reconstruction of K and the inertia of D.  Returns
+    the max abs error per kernel over all shapes."""
+    from cuclarabel_torch.kkt import ldl_f32
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    errs = {k: 0.0 for k in REPLACES_F32}
+    for N, B in F32_SHAPES:
+        Kn, n, m = make_qd_kkt(rng, B, N)
+        K = torch.tensor(Kn, dtype=torch.float32, device=dev)
+        b = torch.tensor(rng.standard_normal((B, N)), dtype=torch.float32,
+                         device=dev)
+        tag = f"N={N} B={B}"
+        L, Dinv = ldl_f32.ldl_factor_batched(K)
+        x = ldl_f32.ldl_solve_batched(L, Dinv, b)
+        torch.cuda.synchronize()
+        check(L.dtype == Dinv.dtype == x.dtype == torch.float32,
+              f"f32 kernels at {tag}: not f32")
+        Lp, Dinvp = ldl_f32.ldl_factor_batched_plain(K)
+        xp = ldl_f32.ldl_solve_batched_plain(L, Dinv, b)
+        eF = max(float((L - Lp).abs().max()), float((Dinv - Dinvp).abs().max()))
+        eS = float((x - xp).abs().max())
+        check(eF == 0.0 and eS == 0.0, f"f32 kernels vs plain at {tag}: "
+              f"factor {eF:.2e}, solve {eS:.2e} (bar: bit for bit)")
+        c = min(B, F32_CHECK)
+        Ln = np.tril(L[:c].double().cpu().numpy(), -1) + np.eye(N)
+        D = 1.0 / Dinv[:c].double().cpu().numpy()
+        rec = max(np.abs(Ln[i] @ np.diag(D[i]) @ Ln[i].T - Kn[i]).max()
+                  / np.abs(Kn[i]).max() for i in range(c))
+        check(rec < TOL_F32_RECON, f"f32 factor at {tag}: reconstruction "
+              f"{rec:.2e} relative")
+        Dall = 1.0 / Dinv.double()
+        check(bool(((Dall > 0).sum(dim=1) == n).all()
+                   and ((Dall < 0).sum(dim=1) == m).all()),
+              f"f32 factor at {tag}: inertia is not ({n}, {m})")
+        errs["ldl_factor_batched"] = max(errs["ldl_factor_batched"], eF)
+        errs["ldl_solve_batched"] = max(errs["ldl_solve_batched"], eS)
+        print(f"f32 kernels ok at {tag}: bit for bit with plain, "
+              f"reconstruction {rec:.2e} relative, inertia ({n}, {m})")
+    return errs
+
+
+def phase_f32_path():
+    """The f32 entry points at (76, 4096).  Returns (launches, inputs
+    and outputs for the timing)."""
+    import cuclarabel_torch as ct
+
+    N, B = 76, 4096
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    Kn, _, _ = make_qd_kkt(rng, B, N)
+    bn = rng.standard_normal((B, N))
+    K = torch.tensor(Kn, dtype=torch.float32, device=dev)
+    b = torch.tensor(bn, dtype=torch.float32, device=dev)
+
+    def drive():
+        L, Dinv = ct.ldl_factor_batched(K)
+        return L, Dinv, ct.ldl_solve_batched(L, Dinv, b)
+
+    (L, Dinv, x), launches = counted("f32", drive)
+    for key in ("ldl_factor_batched/r1", "ldl_solve_batched/r1"):
+        check(launches.get(key, 0) > 0, f"f32: {key} never launched")
+    xc = x[:F32_CHECK].double().cpu().numpy()
+    check(bool(torch.isfinite(x).all()) and x.shape == (B, N),
+          "f32 path: non-finite x")
+    res = np.abs(np.einsum("bij,bj->bi", Kn[:F32_CHECK], xc)
+                 - bn[:F32_CHECK]).max()
+    check(res < 1e-3, f"f32 path: residual {res:.2e} (bar 1e-3)")
+    print(f"f32 path at N={N} B={B}: max |K x - b| {res:.2e} over the first "
+          f"{F32_CHECK} problems")
+    return launches, (K, b, L, Dinv)
 
 
 def phase_timing(card, runs):
@@ -331,7 +597,30 @@ def phase_timing(card, runs):
               f"refinement passes per iteration {ir.sum() / it.sum():.3f}")
 
 
+def ldl_library_operands(L, Dinv):
+    """The port's factor in the compact form of torch.linalg.ldl_factor:
+    strict-lower L with D on the diagonal, and identity pivots (1-based,
+    all 1x1 blocks), so that torch.linalg.ldl_solve (cuSOLVER's sytrs on
+    the card) solves (I+L) D (I+L)' x = b as the kernels do."""
+    B, N = Dinv.shape
+    LD = torch.tril(L, -1) + torch.diag_embed(1.0 / Dinv)
+    piv = torch.arange(1, N + 1, dtype=torch.int32, device=L.device)
+    return LD, piv.expand(B, N).contiguous()
+
+
+def check_library(name, got, want, tol):
+    """A library yardstick solves the kernel's system: its x against the
+    kernel's."""
+    e = rel(got, want, 1.0)
+    check(e < tol, f"library call for {name}: x {e:.2e} from the kernel's")
+    print(f"library call for {name}: x within {e:.2e} of the kernel's")
+
+
 def phase_kernel_timing(card):
+    """The f64 kernels at (76, 4096).  Library calls: torch.baddbmm for
+    the residual, cuSOLVER's LDL^T through torch.linalg for the factor
+    (Bunch-Kaufman pivoted, of K + diag(reg) formed outside the timing)
+    and for the substitution (identity pivots)."""
     from cuclarabel_torch.kkt import ldl
 
     dev = torch.device("cuda")
@@ -345,11 +634,20 @@ def phase_kernel_timing(card):
     b = torch.tensor(rng.standard_normal((B, N)), device=dev)
     x = ldl.ldl_solve(L, Dinv, b)
     b3, x3 = b[:, :, None], x[:, :, None].contiguous()
+    LD, piv = ldl_library_operands(L, Dinv)
+    Kreg = K + torch.diag_embed(reg)
+    LDf, pivf = torch.linalg.ldl_factor(Kreg)
+    check_library("ldl_factor", torch.linalg.ldl_solve(LDf, pivf, b3)[..., 0],
+                  x, TOL_LIB_F64)
+    check_library("ldl_solve", torch.linalg.ldl_solve(LD, piv, b3)[..., 0],
+                  x, TOL_LIB_F64)
     calls = {
         "ldl_factor": (lambda: ldl.ldl_factor(K, reg),
-                       lambda: ldl.ldl_factor_plain(K, reg), None),
+                       lambda: ldl.ldl_factor_plain(K, reg),
+                       lambda: torch.linalg.ldl_factor(Kreg)),
         "ldl_solve": (lambda: ldl.ldl_solve(L, Dinv, b),
-                      lambda: ldl.ldl_solve_plain(L, Dinv, b), None),
+                      lambda: ldl.ldl_solve_plain(L, Dinv, b),
+                      lambda: torch.linalg.ldl_solve(LD, piv, b3)),
         "kkt_residual": (lambda: ldl.kkt_residual(K, x, b),
                          lambda: ldl.kkt_residual_plain(K, x, b),
                          lambda: torch.baddbmm(b3, K, x3, alpha=-1)),
@@ -359,18 +657,115 @@ def phase_kernel_timing(card):
     }
     out = {}
     for name, (kern, plain, lib) in calls.items():
-        ms = cuda_ms(kern, 20)
-        plain_ms = cuda_ms(plain, 3)
-        lib_ms = cuda_ms(lib, 20) if lib is not None else None
-        nbytes, ops = work(name, B, N)
-        bms, by = bound_ms(nbytes, ops)
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                     "bound_ms": bms, "bound_by": by}
-        print(f"[{card}] {name} at N={N} B={B}: {ms:.4f} ms, bound "
-              f"{bms:.4f} ms ({by}: {nbytes / 1e9:.3f} GB, "
-              f"{ops / 1e9:.3f} GFLOP), plain {plain_ms:.3f} ms, library "
-              + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none"))
+        out[name] = time_kernel(card, name, B, N, kern, plain, lib)
+    # the two-right-hand-side forms (pallas_dd.py:1430, :1455)
+    b2 = torch.tensor(rng.standard_normal((B, N, 2)), device=dev)
+    check_library("ldl_solve r=2", torch.linalg.ldl_solve(LD, piv, b2),
+                  ldl.ldl_solve(L, Dinv, b2), TOL_LIB_F64)
+    calls_r2 = {
+        "ldl_solve": (lambda: ldl.ldl_solve(L, Dinv, b2),
+                      lambda: ldl.ldl_solve_plain(L, Dinv, b2),
+                      lambda: torch.linalg.ldl_solve(LD, piv, b2)),
+        "ldl_solve_refine": (
+            lambda: ldl.ldl_solve_refine(K, L, Dinv, b2, 1),
+            lambda: ldl.ldl_solve_refine_plain(K, L, Dinv, b2, 1), None),
+    }
+    for name, (kern, plain, lib) in calls_r2.items():
+        t = time_kernel(card, name, B, N, kern, plain, lib, R=2)
+        out[name].update({f"{k}_r2": v for k, v in t.items()})
     return out
+
+
+def time_kernel(card, name, B, N, kern, plain, lib, R=1):
+    """A kernel's ms by CUDA events beside its bound, its plain version's
+    ms and, where one PyTorch call computes the same function, that
+    call's ms.  A library call that takes more than LIB_SLOW_MS is timed
+    once, after one warm-up: cuSOLVER's batched LDL^T through
+    torch.linalg loops over the batch on the host and takes seconds."""
+    ms = cuda_ms(kern, 20)
+    plain_ms = cuda_ms(plain, 3)
+    lib_ms = None
+    if lib is not None:
+        lib_ms = cuda_ms(lib, 1, warmup=1)
+        if lib_ms < LIB_SLOW_MS:
+            lib_ms = cuda_ms(lib, 20)
+    nbytes, ops = work(name, B, N, R=R)
+    peak = PEAK_F32_PER_S if name.endswith("_batched") else PEAK_F64_PER_S
+    bms, by = bound_ms(nbytes, ops, peak)
+    print(f"[{card}] {name} at N={N} B={B} R={R}: {ms:.4f} ms, bound "
+          f"{bms:.4f} ms ({by}: {nbytes / 1e9:.3f} GB, "
+          f"{ops / 1e9:.3f} GFLOP), plain {plain_ms:.3f} ms, library "
+          + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none"))
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bms, "bound_by": by}
+
+
+def phase_kernel_timing_f32(card, K, b, L, Dinv):
+    """The f32 kernels at (76, 4096), with torch.linalg.inv of the f32 K
+    (the reference microbenchmark's library baseline,
+    scripts/tpu_dd_check.py:96-99) as the factor's library call and
+    cuSOLVER's LDL^T substitution through torch.linalg.ldl_solve as the
+    solve's, and the f64 kernels ldl_factor and ldl_solve on the same K
+    in f64."""
+    from cuclarabel_torch.kkt import ldl, ldl_f32
+
+    B, N = b.shape
+    LD, piv = ldl_library_operands(L, Dinv)
+    b3 = b[:, :, None]
+    check_library("ldl_solve_batched",
+                  torch.linalg.ldl_solve(LD, piv, b3)[..., 0],
+                  ldl_f32.ldl_solve_batched(L, Dinv, b), TOL_LIB_F32)
+    out = {
+        "ldl_factor_batched": time_kernel(
+            card, "ldl_factor_batched", B, N,
+            lambda: ldl_f32.ldl_factor_batched(K),
+            lambda: ldl_f32.ldl_factor_batched_plain(K),
+            lambda: torch.linalg.inv(K)),
+        "ldl_solve_batched": time_kernel(
+            card, "ldl_solve_batched", B, N,
+            lambda: ldl_f32.ldl_solve_batched(L, Dinv, b),
+            lambda: ldl_f32.ldl_solve_batched_plain(L, Dinv, b),
+            lambda: torch.linalg.ldl_solve(LD, piv, b3)),
+    }
+    K64 = K.double()
+    reg0 = torch.zeros_like(b, dtype=torch.float64)
+    L64, D64, _ = ldl.ldl_factor(K64, reg0)
+    b64 = b.double()
+    f64 = {"ldl_factor_batched": lambda: ldl.ldl_factor(K64, reg0),
+           "ldl_solve_batched": lambda: ldl.ldl_solve(L64, D64, b64)}
+    for name, fn in f64.items():
+        out[name]["f64_kernel_ms"] = cuda_ms(fn, 20)
+        print(f"[{card}] {name}: f32 {out[name]['ms']:.4f} ms, the f64 "
+              f"kernel on the same K {out[name]['f64_kernel_ms']:.4f} ms")
+    return out
+
+
+def kernel_entries(paths, errs, times):
+    """The `kernels` JSON rows: one per kernel function, its launches
+    summed over the main paths' runs and split by path and by number of
+    right-hand sides."""
+    rows = []
+    for name, replaces, source in (
+            [(k, v, SOURCE) for k, v in REPLACES.items()]
+            + [(k, v, SOURCE_F32) for k, v in REPLACES_F32.items()]):
+        per_path = {path: sum(v for kk, v in launches.items()
+                              if kk.split("/")[0] == name)
+                    for path, launches in paths.items()}
+        check(sum(per_path.values()) > 0,
+              f"kernel {name} never launched on a main path")
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces}
+        if name in ALSO_REPLACES:
+            entry["also_replaces"] = ALSO_REPLACES[name]
+            entry["launches_by_form"] = {
+                f"r{R}": sum(launches.get(f"{name}/r{R}", 0)
+                             for launches in paths.values())
+                for R in (1, 2)}
+        entry.update(launches=sum(per_path.values()),
+                     launches_per_path=per_path, max_abs_err=errs[name],
+                     **times[name])
+        rows.append(entry)
+    return rows
 
 
 def main():
@@ -384,20 +779,15 @@ def main():
           f"{torch.cuda.device_count()} device(s)")
     phase_build()
     errs = phase_kernels()
-    runs, per_kernel = phase_main(card)
+    errs.update(phase_kernels_f32())
+    runs, paths = phase_main(card)
+    paths["solver"], solver_times = phase_solver(card)
+    paths["f32"], f32_data = phase_f32_path()
     phase_timing(card, runs)
     times = phase_kernel_timing(card)
-    kernels = []
-    for name in REPLACES:
-        entry = {"name": name, "route": "cuda", "source": SOURCE,
-                 "replaces": REPLACES[name]}
-        if name in ALSO_REPLACES:
-            entry["also_replaces"] = ALSO_REPLACES[name]
-        entry.update(launches=sum(per_kernel[name].values()),
-                     launches_per_width=per_kernel[name],
-                     max_abs_err=errs[name], **times[name])
-        kernels.append(entry)
-    print(json.dumps({"kernels": kernels}))
+    times.update(phase_kernel_timing_f32(card, *f32_data))
+    print(json.dumps({"solver_n76": solver_times}))
+    print(json.dumps({"kernels": kernel_entries(paths, errs, times)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,14 +3,19 @@
 A port of `cuclarabel_tpu` (JAX, the reference) to one NVIDIA H100.  It
 imports torch and never jax, and nothing of the JAX package; the modules
 it shares with the reference are copies (`settings`, `statuscodes`,
-`infinity`, `cones/api`, `cones/layout`).
+`infinity`, `cones/api`, `cones/layout`, `equilibration`, `presolve`,
+`warmstart`, `info_print`, `json_io`).
 
-This slice covers the batched dense path: `BatchSolver` on problems with
-zero, nonnegative and second-order cones, with or without P, through the
-dense KKT backend whose LDL^T factorisation, substitution, residual and
-refined solve are hand-written CUDA kernels (`kkt/ldl.py`,
-`csrc/ldl.cu`).  Solves run on the CUDA device unless the caller passes
-device="cpu", where the kernels' plain PyTorch versions run instead.
+It covers the dense path on problems with zero, nonnegative and
+second-order cones, with or without P: the single-problem `Solver`
+(presolve, host equilibration, warm starts, data updates, JSON files,
+the verbose table) and the batched `BatchSolver`, through the dense KKT
+backend whose LDL^T factorisation, substitution, residual and refined
+solve are hand-written CUDA kernels (`kkt/ldl.py`, `csrc/ldl.cu`), and
+the f32 batched LDL^T entry points `ldl_factor_batched` and
+`ldl_solve_batched` (`kkt/ldl_f32.py`, `csrc/ldl_f32.cu`).  Solves run
+on the CUDA device unless the caller passes device="cpu", where the
+kernels' plain PyTorch versions run instead.
 """
 
 from .cones.api import (
@@ -24,10 +29,13 @@ from .cones.api import (
     ZeroConeT,
 )
 from .infinity import default_infinity, get_infinity, set_infinity
+from .kkt.ldl_f32 import ldl_factor_batched, ldl_solve_batched
 from .parallel.batch import BatchSolver
 from .settings import Settings
-from .solver import DefaultSolution
+from .solver import DefaultSolution, Solver
 from .statuscodes import SolverStatus
+
+__version__ = "0.1.0"
 
 __all__ = [
     "BatchSolver",
@@ -39,10 +47,13 @@ __all__ = [
     "PSDTriangleConeT",
     "SecondOrderConeT",
     "Settings",
+    "Solver",
     "SolverStatus",
     "SupportedCone",
     "ZeroConeT",
     "default_infinity",
     "get_infinity",
+    "ldl_factor_batched",
+    "ldl_solve_batched",
     "set_infinity",
 ]

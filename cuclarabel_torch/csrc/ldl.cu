@@ -25,22 +25,21 @@
 // through it in shared memory with one __syncthreads() per step, and the
 // card is filled by running many problems (blocks) at once.
 //
+// The factor and substitution bodies live in ldl_core.cuh, shared with
+// the f32 kernels of ldl_f32.cu.
+//
 // Host interface: plain C functions returning cudaGetLastError() after
 // the launch, called from kkt/ldl.py through ctypes.  No kernel
 // allocates or synchronises; all launch on the caller's stream.
 
-#include <cuda_runtime.h>
+#include "ldl_core.cuh"
 
 namespace {
 
-constexpr int kMaxN = 128;
 constexpr int kFactorThreads = 256;
 constexpr int kSolveThreads = 128;
 constexpr int kSolveWarps = kSolveThreads / 32;
 constexpr int kMaxR = 2;
-
-// Offset of row i of a packed lower triangle (row i holds columns 0..i).
-__host__ __device__ inline int tri(int i) { return i * (i + 1) / 2; }
 
 // max that propagates NaN, like torch.amax and jnp.max: a NaN residual
 // must never look small to the refinement acceptance test.
@@ -59,20 +58,6 @@ __device__ inline double warp_max(double v) {
   return v;
 }
 
-// Copy the lower triangle (diagonal included) of a row-major (N, N)
-// matrix in device memory into a packed triangle in shared memory.  One
-// warp per row, lanes over consecutive columns: coalesced reads.
-__device__ void load_lower_packed(const double* __restrict__ g, double* s,
-                                  int n) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  for (int i = warp; i < n; i += nw) {
-    const double* row = g + (size_t)i * n;
-    double* srow = s + tri(i);
-    for (int k = lane; k <= i; k += 32) srow[k] = row[k];
-  }
-}
-
 // Element (i, k) of a row-major matrix in device memory.
 struct FullRows {
   const double* p;
@@ -89,39 +74,6 @@ struct PackedSym {
     return i >= k ? s[tri(i) + k] : s[tri(k) + i];
   }
 };
-
-// In-place solve (I + L) D (I + L)^T x = b for R right-hand sides.
-// ls: packed strict-lower unit factor L (its diagonal is not read),
-// dinv: D^-1, x: (n, R) in shared memory, holding b on entry.  The
-// caller syncs before the call; the routine returns synced.
-template <int R>
-__device__ void ldl_solve_smem(const double* ls, const double* dinv,
-                               double* x, int n) {
-  // forward, column by column: after step j-1, x_j is final
-  for (int j = 0; j + 1 < n; ++j) {
-    for (int i = j + 1 + threadIdx.x; i < n; i += blockDim.x) {
-      const double l = ls[tri(i) + j];
-#pragma unroll
-      for (int t = 0; t < R; ++t) x[i * R + t] -= l * x[j * R + t];
-    }
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-#pragma unroll
-    for (int t = 0; t < R; ++t) x[i * R + t] *= dinv[i];
-  }
-  __syncthreads();
-  // backward, row by row of L: x_j -= L_ij x_i for j < i
-  for (int i = n - 1; i > 0; --i) {
-    const double* row = ls + tri(i);
-    for (int j = threadIdx.x; j < i; j += blockDim.x) {
-      const double l = row[j];
-#pragma unroll
-      for (int t = 0; t < R; ++t) x[j * R + t] -= l * x[i * R + t];
-    }
-    __syncthreads();
-  }
-}
 
 // r = b - K x for R right-hand sides, one warp per row of K, lanes over
 // the row's columns and a shuffle reduction.  x is in shared memory;
@@ -211,44 +163,14 @@ __global__ void __launch_bounds__(kFactorThreads)
   double* acol = a + tri(n);     // pivot column before scaling, n
   double* lcol = acol + n;       // pivot column of L, n
   const size_t b = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
 
   load_lower_packed(K + b * n * n, a, n);
   __syncthreads();
   for (int i = threadIdx.x; i < n; i += blockDim.x)
     a[tri(i) + i] += reg[b * n + i];
   __syncthreads();
-
-  bool finite = true;
-  for (int j = 0; j < n; ++j) {
-    const double dinv = 1.0 / a[tri(j) + j];
-    for (int k = j + 1 + threadIdx.x; k < n; k += blockDim.x) {
-      const double v = a[tri(k) + j];
-      const double l = v * dinv;
-      acol[k] = v;
-      lcol[k] = l;
-      a[tri(k) + j] = l;
-    }
-    if (threadIdx.x == 0) {
-      Dinv[b * n + j] = dinv;
-      finite = finite && isfinite(dinv);
-    }
-    __syncthreads();
-    for (int i = j + 1 + warp; i < n; i += nw) {
-      const double ai = acol[i];
-      double* row = a + tri(i);
-      for (int k = j + 1 + lane; k <= i; k += 32) row[k] -= ai * lcol[k];
-    }
-    __syncthreads();
-  }
-
-  double* lb = L + b * n * n;
-  for (int i = warp; i < n; i += nw) {
-    const double* srow = a + tri(i);
-    for (int k = lane; k < n; k += 32)
-      lb[(size_t)i * n + k] = k < i ? srow[k] : 0.0;
-  }
+  const bool finite = factor_packed(a, acol, lcol, Dinv + b * n, n);
+  store_strict_lower(a, L + b * n * n, n);
   if (threadIdx.x == 0) ok[b] = finite ? 1 : 0;
 }
 
@@ -286,7 +208,7 @@ __global__ void __launch_bounds__(kSolveThreads)
     for (int t = 0; t < R; ++t) x[i * R + t] = bg[(b * n + i) * R + t];
   }
   __syncthreads();
-  ldl_solve_smem<R>(ls, dinv, x, n);
+  ldl_solve_smem<double, R>(ls, dinv, x, n);
   for (int i = threadIdx.x; i < n * R; i += blockDim.x)
     xg[b * n * R + i] = x[i];
 }
@@ -373,7 +295,7 @@ __global__ void __launch_bounds__(kSolveThreads)
     }
   }
   __syncthreads();
-  ldl_solve_smem<R>(ls, dinv, x, n);
+  ldl_solve_smem<double, R>(ls, dinv, x, n);
   residual_rows<R>(PackedSym{ks}, x, bs, r, n);
   __syncthreads();
   block_absmax<R>(r, n, red, ne);
@@ -381,7 +303,7 @@ __global__ void __launch_bounds__(kSolveThreads)
   for (int p = 0; p < npass; ++p) {
     for (int i = threadIdx.x; i < n * R; i += blockDim.x) xn[i] = r[i];
     __syncthreads();
-    ldl_solve_smem<R>(ls, dinv, xn, n);
+    ldl_solve_smem<double, R>(ls, dinv, xn, n);
     for (int i = threadIdx.x; i < n * R; i += blockDim.x) xn[i] += x[i];
     __syncthreads();
     residual_rows<R>(PackedSym{ks}, xn, bs, en, n);

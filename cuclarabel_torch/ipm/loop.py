@@ -24,6 +24,7 @@ import torch
 
 from ..cones import ops as cone_ops
 from ..cones.layout import ConeLayout
+from ..info_print import format_iteration_row
 from ..kkt.dense import make_dense_kkt
 from ..statuscodes import SolverStatus as S
 
@@ -80,10 +81,15 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
                   device=None):
     """Builds the batched solve function for this (layout, settings,
     dims) signature.  The returned fn maps a dict of batched tensors
-    {P, q, A, b, d, dinv, e, einv, cscale, normq, normb[, t_start]}
-    (device_equilibrate's output) to a dict of batched results.  Runs
-    on `device` (solver.resolve_device: CUDA unless the caller passes
-    device="cpu")."""
+    {P, q, A, b, d, dinv, e, einv, cscale, normq, normb[, t_start]
+    [, ws_x, ws_s, ws_z]} (device_equilibrate's output, or the Solver's
+    host-equilibrated data at B = 1) to a dict of batched results.  With
+    ws_x/ws_s/ws_z (iterates in the equilibrated space) the solve starts
+    warm instead of cold.  Runs on `device` (device.resolve_device: CUDA
+    unless the caller passes device="cpu").  With settings.verbose and a
+    batch of one (the single-problem Solver), every loop pass prints its
+    status row, as the reference streams it (one host sync per pass);
+    wider batches print none, as in the reference."""
     cone_ops.require_supported(layout)
     if not layout.is_symmetric:
         raise NotImplementedError("nonsymmetric cones are not ported yet")
@@ -113,6 +119,7 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
         cinv = 1.0 / dev["cscale"]
         normq, normb = dev["normq"], dev["normb"]
         B = q.shape[0]
+        stream = st.verbose and B == 1
         AT = A.transpose(1, 2)
 
         def full(v):
@@ -315,6 +322,13 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
             return ({"x": dx, "s": dsv, "z": dz, "tau": dtau,
                      "kappa": dkappa}, ok, nir)
 
+        def hs_dense(scal):
+            # zero cones have no scaling state and contribute Hs = 0; a
+            # layout of zero cones only (or none) has an empty state
+            if not scal:
+                return b.new_zeros(B, m, m)
+            return cone_ops.assemble_Hs_dense(layout, scal)
+
         # -------------------- step length (variables.jl:14-43)
         def get_step_length(v, step, scal, combined: bool):
             atau = torch.where(step["tau"] < 0, -v["tau"] / step["tau"], FMAX)
@@ -328,9 +342,27 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
             return alpha
 
         # -------------------- initialization (solver.jl:383-404)
+        def warm_start():
+            """Reference loop.py:460-490 (no Clarabel counterpart): the
+            user's iterates, nudged to a small strictly-interior margin
+            (a fixed 1e-6 floor in the equilibrated space, where the cold
+            start's margin >= 1 would erase a near-optimal point's
+            centrality); tau = 1 and kappa = mu0 place the homogeneous
+            embedding at that centrality."""
+            def interior(vec, pd):
+                min_margin, _ = cone_ops.margins(layout, vec, pd)
+                shift = torch.clamp(1e-6 - min_margin, min=0.0)
+                return cone_ops.scaled_unit_shift(layout, vec, shift, pd)
+
+            s0 = interior(dev["ws_s"], cone_ops.PRIMAL)
+            z0 = interior(dev["ws_z"], cone_ops.DUAL)
+            mu0 = torch.clamp(_vdot(s0, z0) / deg1, min=1e-8)
+            return {"x": dev["ws_x"], "s": s0, "z": z0, "tau": full(1.0),
+                    "kappa": mu0}
+
         def default_start():
             scal0 = cone_ops.set_identity_scaling(layout, B, q.device)
-            fac, _ = factorize(P, A, cone_ops.assemble_Hs_dense(layout, scal0))
+            fac, _ = factorize(P, A, hs_dense(scal0))
             if has_P:
                 # QP init (kktsystem.jl:120-128)
                 x0, z0, _, _ = kkt_solve(fac, -q, b)
@@ -351,7 +383,7 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
                     "kappa": full(1.0)}
 
         def make_state0():
-            v0 = default_start()
+            v0 = warm_start() if "ws_x" in dev else default_start()
             info0 = {k: full(FMAX) for k in INFO_KEYS}
             return {
                 "vars": v0,
@@ -380,6 +412,15 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
             elapsed = time.time() - t_start if has_time_limit else 0.0
             status = check_termination(info, s_["prev_info"], s_["iter"],
                                        elapsed)
+            if stream:
+                # the live status line (reference loop.py:597-629)
+                row = torch.stack([
+                    info["cost_primal"], info["cost_dual"], info["gap_rel"],
+                    info["res_primal"], info["res_dual"], info["ktratio"],
+                    mu, s_["alpha"], s_["iter"].double(),
+                    s_["ir_last"].double(), scaling.double(),
+                ], dim=1)[0].cpu().numpy()  # the host sync
+                print(format_iteration_row(int(row[8]), row), flush=True)
             proceed = status == int(S.UNSOLVED)
 
             # --- cone scaling update
@@ -392,8 +433,7 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
             it = torch.where(proceed, s_["iter"] + 1, s_["iter"])
 
             # --- KKT update + constant-rhs solve (kktsystem.jl:62-92)
-            fac, okf = factorize(P, A, cone_ops.assemble_Hs_dense(layout,
-                                                                  scal))
+            fac, okf = factorize(P, A, hs_dense(scal))
 
             # --- affine step (variables.jl:107-121)
             rhs_aff = {

@@ -1,11 +1,13 @@
-"""Build and load the port's CUDA kernels (`csrc/ldl.cu`).
+"""Build and load the port's CUDA kernels (`csrc/*.cu`).
 
-`nvcc` compiles the sources into a shared library with a plain C
+`nvcc` compiles each source to an object, all sources at once in
+parallel, and links the objects into one shared library with a plain C
 interface, which `ctypes` loads; no PyTorch headers are involved, so a
 build takes seconds.  The build happens the first time a kernel is used
 on a CUDA tensor, into `build/` beside the package (git ignores it).
-The library's name carries a hash of the sources and the flags, so an
-edited source is never served by a stale build.  A failed build raises.
+The library's name carries a hash of the sources, headers and flags, so
+an edited source is never served by a stale build.  A failed build
+raises.
 """
 
 import ctypes
@@ -15,10 +17,13 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
-SOURCES = (PACKAGE_DIR / "csrc" / "ldl.cu",)
+CSRC = PACKAGE_DIR / "csrc"
+SOURCES = (CSRC / "ldl.cu", CSRC / "ldl_f32.cu")
+HEADERS = (CSRC / "ldl_core.cuh",)
 BUILD_DIR = PACKAGE_DIR.parent / "build"
 # -fmad=false: no contraction of a multiply and an add into one FMA, so
 # the factor and the substitution round each operation as their plain
@@ -26,20 +31,23 @@ BUILD_DIR = PACKAGE_DIR.parent / "build"
 # two differ by rounding alone, but a nearly cancelling pivot of an
 # unscaled K (N = 128, Hs spread 1e+-4) amplified that to 1e-9 relative
 # on an H100, above the 1e-10 bar the kernels are held to.
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + (
+    "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures of csrc/ldl.cu (pointers, then ints, then the stream)
+# C signatures of csrc/ldl.cu and csrc/ldl_f32.cu (pointers, then ints,
+# then the stream)
 SIGNATURES = {
     "cc_ldl_factor": (_P, _P, _P, _P, _P, _I, _I, _P),
     "cc_ldl_solve": (_P, _P, _P, _P, _I, _I, _I, _P),
     "cc_kkt_residual": (_P, _P, _P, _P, _I, _I, _I, _P),
     "cc_ldl_solve_refine": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "cc_ldl_factor_f32": (_P, _P, _P, _I, _I, _P),
+    "cc_ldl_solve_f32": (_P, _P, _P, _P, _I, _I, _P),
 }
 
 
@@ -58,10 +66,21 @@ def find_nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libcuclarabel_ldl_{h.hexdigest()[:16]}.so"
+
+
+def _run(cmd):
+    """Run one nvcc command to its end; raise with its output on failure.
+    Returns the output."""
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with exit code {res.returncode}:\n"
+            f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    return res.stdout + res.stderr
 
 
 def build() -> dict:
@@ -72,18 +91,26 @@ def build() -> dict:
     if path.exists():
         return {"path": path, "seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    tag = f"{path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
+    try:
+        # one nvcc per source, all started together
+        with ThreadPoolExecutor(len(SOURCES)) as pool:
+            logs = list(pool.map(
+                _run, [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                       for src, o in zip(SOURCES, objs)]))
+        logs.append(_run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                          *map(str, objs)]))
+        os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {res.returncode}:\n"
-            f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
-    return {"path": path, "seconds": seconds, "log": res.stdout + res.stderr}
+        for o in objs:
+            o.unlink(missing_ok=True)
+    return {"path": path, "seconds": time.perf_counter() - t0,
+            "log": "".join(logs)}
 
 
 @functools.lru_cache(maxsize=1)

@@ -17,14 +17,17 @@ Methods (`resolve_kkt_method`):
   * "pallas": the hand-written LDL^T kernels of `kkt/ldl.py` on the
     scaled, permuted K (N <= 128).  The name stays for parity with the
     reference `Settings`; the kernels are CUDA, not Pallas.
-  * "lu": f64 pivoted LU (`torch.linalg.lu_factor`) with iterative
-    refinement against the unregularised K.
+  * "lu": pivoted LU (`torch.linalg.lu_factor`) of the scaled K with
+    iterative refinement in f64 against the unregularised K.  The factor
+    is f64, or f32 under kkt_factor_precision="float32" (reference
+    dense.py:564-577); "pallas" ignores the factor precision, as the
+    reference's does.
 """
 
 import numpy as np
 import torch
 
-from ..solver import resolve_device
+from ..device import resolve_device
 from .ldl import MAX_N, kkt_residual, ldl_factor, ldl_solve, ldl_solve_refine
 
 
@@ -64,7 +67,7 @@ def make_dense_kkt(n: int, m: int, settings, layout=None, device=None):
 
     With method "pallas", `solve.pair(fac, rx1, rz1, rx2, rz2)` solves
     two systems against one factor in 2-RHS kernel launches and returns
-    (x1, z1, x2, z2, ok, nir).  Runs on `device` (solver.resolve_device:
+    (x1, z1, x2, z2, ok, nir).  Runs on `device` (device.resolve_device:
     CUDA unless the caller passes device="cpu")."""
     device = resolve_device(device)
     N = n + m
@@ -216,6 +219,9 @@ def make_dense_kkt(n: int, m: int, settings, layout=None, device=None):
         return factorize, solve
 
     # ---------------------------------------------------------------- lu
+    factor_dtype = (torch.float32 if settings.kkt_factor_precision == "float32"
+                    else f64)
+
     def factorize(P, A, Hs):
         K = _assemble_K(P, A, Hs)
         eps = _eps(K)
@@ -225,7 +231,7 @@ def make_dense_kkt(n: int, m: int, settings, layout=None, device=None):
         rn = Kreg.abs().amax(dim=2)
         dj = 1.0 / torch.sqrt(torch.where(rn > 1e-300, rn, 1.0))
         Ks = Kreg * (dj[:, :, None] * dj[:, None, :])
-        lu, piv, _ = torch.linalg.lu_factor_ex(Ks)
+        lu, piv, _ = torch.linalg.lu_factor_ex(Ks.to(factor_dtype))
         ok = torch.isfinite(lu).flatten(1).all(dim=1)
         return {"lu": lu, "piv": piv, "K": K, "dj": dj[:, :, None]}, ok
 
@@ -236,7 +242,9 @@ def make_dense_kkt(n: int, m: int, settings, layout=None, device=None):
         K, dj = fac["K"], fac["dj"]
 
         def raw_solve(r):
-            return dj * torch.linalg.lu_solve(fac["lu"], fac["piv"], dj * r)
+            y = torch.linalg.lu_solve(fac["lu"], fac["piv"],
+                                      (dj * r).to(factor_dtype))
+            return dj * y.to(f64)
 
         def step(x, e):
             xn = x + raw_solve(e)

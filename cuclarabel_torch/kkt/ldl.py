@@ -52,10 +52,14 @@ def _as_rhs(b):
 
 
 def _factor(K, reg):
+    """Plain pivot-free LDL^T of K + diag(reg) (reg None: of K), in K's
+    dtype.  Reads K's lower triangle."""
     B, N, _ = K.shape
-    A = _sym_from_lower(K) + torch.diag_embed(reg)
+    A = _sym_from_lower(K)
+    if reg is not None:
+        A = A + torch.diag_embed(reg)
     L = torch.zeros_like(K)
-    Dinv = torch.empty_like(reg)
+    Dinv = K.new_empty(B, N)
     for j in range(N):
         dinv = 1.0 / A[:, j, j]
         Dinv[:, j] = dinv
@@ -139,9 +143,9 @@ def _on_cpu(*ts) -> bool:
         f"got {sorted(str(t.device) for t in ts)}")
 
 
-def _check(name, t, shape):
-    if t.dtype != torch.float64:
-        raise TypeError(f"{name} must be float64, got {t.dtype}")
+def _check(name, t, shape, dtype=torch.float64):
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")

@@ -22,7 +22,8 @@ from ..infinity import get_infinity
 from ..interop import batchify, problem_from_numpy, symmetrize_triu
 from ..ipm.loop import make_solve_fn
 from ..settings import Settings
-from ..solver import DefaultSolution, resolve_device
+from ..device import resolve_device
+from ..solver import DefaultSolution
 from ..statuscodes import SolverStatus
 
 

@@ -1,11 +1,12 @@
-"""Where the time of a cuclarabel_torch batched solve goes, on one card.
+"""Where the time of a cuclarabel_torch solve goes, on one card.
 
     python3 -m cuclarabel_torch.profiling [--widths 256 4096] [--out DIR]
 
 Solves the portfolio SOCP (nass = 32, KKT dimension 76) with
-cuclarabel_torch.BatchSolver at each width: one warm-up solve, then one
-timed solve, then one solve under torch.profiler (device activity
-only).  Prints, per width: the wall time of both, the
+cuclarabel_torch.BatchSolver at each width, then one such problem with
+the single-problem cuclarabel_torch.Solver: one warm-up
+solve, then one timed solve, then one solve under torch.profiler
+(device activity only).  Prints, per run: the wall time of both, the
 device busy time (the union of the kernels' intervals on the timeline),
 the idle share, the number of kernel launches and of IPM loop passes,
 and the device time by kernel name, largest first.  With --out it writes
@@ -20,11 +21,13 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 from .kkt import ldl
 from .parallel.batch import BatchSolver
 from .problems import portfolio_socp
+from .solver import Solver
 
 
 def busy_ms(events):
@@ -42,21 +45,36 @@ def busy_ms(events):
 
 
 def profile(B, out_dir):
+    """BatchSolver at width B."""
     A, q, b, cones = portfolio_socp(32, B, seed=7)
     solver = BatchSolver(None, q, A, b, cones)
-    solver.solve()
+    report(f"B={B}", solver.solve, out_dir,
+           lambda: solver.raw["iterations"])
+
+
+def profile_solver(out_dir):
+    """The single-problem Solver on problem 0 of the same batch."""
+    A, q, b, cones = portfolio_socp(32, 1, seed=7)
+    solver = Solver(None, q[0], A, b[0], cones)
+    report("Solver", solver.solve, out_dir,
+           lambda: np.array([solver.get_info()["iterations"]]))
+
+
+def report(tag, solve, out_dir, iterations):
+    solve()
     t0 = time.perf_counter()
-    solver.solve()
+    solve()
     wall_unprofiled = (time.perf_counter() - t0) * 1e3
     ldl.reset_counts()
     acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        solver.solve()
+        solve()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(out_dir or tmp, f"trace_b{B}.json")
+        path = os.path.join(out_dir or tmp,
+                            f"trace_{tag.replace('=', '').lower()}.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             trace = json.load(f)
@@ -69,9 +87,9 @@ def profile(B, out_dir):
         by_name[k] = (n + 1, t + e["dur"] / 1e3)
     busy = busy_ms(kern)
     passes = int(ldl.LAUNCHES["ldl_factor/r1"]) - 1  # minus the init
-    its = solver.raw["iterations"]
+    its = iterations()
     print(json.dumps({
-        "B": B, "wall_ms_unprofiled": wall_unprofiled,
+        "run": tag, "wall_ms_unprofiled": wall_unprofiled,
         "wall_ms": wall, "device_busy_ms": busy,
         "idle_share": 1.0 - busy / wall, "kernel_launches": len(kern),
         "ipm_loop_passes": passes,
@@ -101,6 +119,7 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip())
     for B in args.widths:
         profile(B, args.out)
+    profile_solver(args.out)
     return 0
 
 

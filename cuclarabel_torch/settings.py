@@ -15,7 +15,11 @@ in this package:
     name stays for parity with the reference `Settings`.  "auto" picks
     "pallas" for N <= 128 and "lu" (f64 `torch.linalg.lu_factor`)
     above; "qr" and "inverse" are not ported yet.
-  * `kkt_factor_precision` is ignored: every factor is f64.
+  * `kkt_factor_precision="float32"` factors in f32 under "lu" and
+    refines in f64, as in the reference; "pallas" factors in f64
+    whatever it says, as the reference's "pallas" does.
+  * `host_solve` is accepted and has no effect: the port never moves a
+    solve off the device it was given.
   * `batch_compaction` auto resolves to 0 (staged compaction is not
     ported); an explicit value > 0 raises NotImplementedError.
 """

@@ -6,10 +6,10 @@ without one.  On a machine with a card and without JAX, run them with
     python3 -m pytest --noconftest -q tests/test_torch_cuda.py
 
 The kernels are held against their plain PyTorch versions on the same
-card tensors: the factor and the substitution bit for bit (the kernels
-are built with -fmad=false and round every operation as the plain
-versions do), the residual and the refined solve within 1e-12 relative
-(other summation orders)."""
+card tensors: the factor and the substitution, f64 and f32, bit for bit
+(the kernels are built with -fmad=false and round every operation as the
+plain versions do), the residual and the refined solve within 1e-12
+relative (other summation orders)."""
 
 import numpy as np
 import pytest
@@ -120,3 +120,56 @@ def test_batch_solver_on_card_matches_cpu(dev):
     for g, c in zip(gpu, cpu):
         assert g.status == c.status == ct.SolverStatus.SOLVED
         assert abs(g.obj_val - c.obj_val) <= 1e-7 * abs(c.obj_val)
+
+
+@pytest.mark.parametrize("N,B", [(16, 5), (128, 37)])
+def test_f32_kernels_match_plain(dev, N, B):
+    """ldl_factor_batched / ldl_solve_batched (csrc/ldl_f32.cu) on
+    quasidefinite K as tests/test_pallas_ldl.py builds them."""
+    from cuclarabel_torch.kkt import ldl, ldl_f32
+
+    rng = np.random.default_rng(N + B)
+    n = N // 2
+    m = N - n
+    Ks = []
+    for _ in range(B):
+        F = rng.standard_normal((n, n))
+        A = rng.standard_normal((m, n))
+        Ks.append(np.block([[F @ F.T + 0.1 * np.eye(n), A.T],
+                            [A, -np.diag(rng.random(m) + 0.5)]]))
+    K = torch.tensor(np.stack(Ks), dtype=torch.float32, device=dev)
+    b = torch.tensor(rng.standard_normal((B, N)), dtype=torch.float32,
+                     device=dev)
+    ldl.reset_counts()
+    L, Dinv = ldl_f32.ldl_factor_batched(K)
+    x = ldl_f32.ldl_solve_batched(L, Dinv, b)
+    torch.cuda.synchronize()
+    assert dict(ldl.LAUNCHES) == {"ldl_factor_batched/r1": 1,
+                                  "ldl_solve_batched/r1": 1}
+    assert L.dtype == Dinv.dtype == x.dtype == torch.float32
+    Lp, Dinvp = ldl_f32.ldl_factor_batched_plain(K)
+    assert torch.equal(L, Lp) and torch.equal(Dinv, Dinvp)
+    assert torch.equal(x, ldl_f32.ldl_solve_batched_plain(L, Dinv, b))
+    D = 1.0 / Dinv.double()
+    assert bool(((D > 0).sum(dim=1) == n).all())
+    assert bool(((D < 0).sum(dim=1) == m).all())
+
+
+def test_solver_defaults_to_cuda(dev):
+    import cuclarabel_torch as ct
+    from cuclarabel_torch.kkt import ldl
+
+    P = np.array([[4.0, 1.0], [1.0, 2.0]])
+    A0 = np.array([[1.0, 1.0], [1.0, 0.0], [0.0, 1.0]])
+    data = (P, np.ones(2), np.vstack([-A0, A0]),
+            np.array([-1.0, 0.0, 0.0, 1.0, 0.7, 0.7]),
+            [ct.NonnegativeConeT(3), ct.NonnegativeConeT(3)])
+    ldl.reset_counts()
+    solver = ct.Solver(*data)
+    assert solver.device.type == "cuda"
+    got = solver.solve()
+    assert not ldl.PLAIN_CALLS and ldl.LAUNCHES["ldl_factor/r1"] > 0
+    want = ct.Solver(*data, device="cpu").solve()
+    assert got.status == want.status == ct.SolverStatus.SOLVED
+    assert got.iterations == want.iterations
+    assert abs(got.obj_val - want.obj_val) <= 1e-7 * abs(want.obj_val)

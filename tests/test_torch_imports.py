@@ -26,7 +26,14 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "cuclarabel_tpu"))
 print("LOADED", bad)
+print("PORT", sorted(m for m in sys.modules if m.startswith("cuclarabel_torch")))
 """
+
+# modules added with the single-problem Solver and the f32 LDL^T kernels
+NEW_MODULES = ("cuclarabel_torch.device", "cuclarabel_torch.equilibration",
+               "cuclarabel_torch.info_print", "cuclarabel_torch.json_io",
+               "cuclarabel_torch.kkt.ldl_f32", "cuclarabel_torch.presolve",
+               "cuclarabel_torch.solver", "cuclarabel_torch.warmstart")
 
 
 def _env():
@@ -41,6 +48,8 @@ def test_port_imports_no_jax():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
+    for mod in NEW_MODULES:
+        assert repr(mod) in out.stdout, mod
 
 
 def test_no_cuda_means_no_quiet_cpu_run():
@@ -51,6 +60,20 @@ def test_no_cuda_means_no_quiet_cpu_run():
         ct.BatchSolver(None, q, A, b, cones)
     sols = ct.BatchSolver(None, q, A, b, cones, device="cpu").solve()
     assert all(s.status == ct.SolverStatus.SOLVED for s in sols)
+
+
+def test_solver_needs_cuda_or_cpu():
+    """Solver, like BatchSolver, runs on CUDA unless given device="cpu"."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    data = (np.eye(1), np.zeros(1), np.eye(1), np.ones(1),
+            [ct.NonnegativeConeT(1)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ct.Solver(*data)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ct.Solver(*data, device="cuda")
+    assert ct.Solver(*data, device="cpu").solve().status == \
+        ct.SolverStatus.SOLVED
 
 
 @pytest.mark.parametrize("entry", ["make_dense_kkt", "make_solve_fn",
