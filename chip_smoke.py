@@ -12,8 +12,8 @@ Phases, in order; any failure exits non-zero:
 3. kernels: each of the four f64 LDL^T kernels against its plain
    PyTorch version on the card, at (N, B) = (76, 4096), (13, 1024),
    (128, 1024) and the Solver's B = 1 shapes (76, 1), (12, 1), (8, 1),
-   for one and two right-hand sides, plus numpy f64 solves of a few
-   problems; then the two f32 kernels (ldl_factor_batched,
+   for one and two right-hand sides (ldl_solve bit for bit), plus numpy
+   f64 solves of a few problems; then the two f32 kernels (ldl_factor_batched,
    ldl_solve_batched) against theirs at (N, B) = (16, 5), (76, 4096),
    (128, 256) and (9, 3), with numpy's reconstruction of K and the
    inertia of D;
@@ -32,29 +32,30 @@ Phases, in order; any failure exits non-zero:
    - f32: ldl_factor_batched and ldl_solve_batched at (76, 4096);
 5. timing: warm problems/s, iterations and refinement passes of the
    batch; first, repeat and warm-started solve ms of the N = 76 Solver
-   problem; each kernel's time at (76, 4096) beside its bound, its
+   problem; each f64 kernel form (R = 1 and 2) at N = 76 and B = 4096,
+   256 and 1 (cuclarabel_torch.kernel_timing: device time, CUDA events
+   at B = 4096, resident blocks and warps per SM) beside its bound, its
    plain version's time and, where one PyTorch call computes the same
-   function, that call's time; the r = 2 forms of the substitution and
-   the refined solve; the f64 factor and substitution on the f32 K.
+   function, that call's time; the f32 kernels at (76, 4096), and the
+   f64 factor and substitution on the f32 K, by device time.  A kernel's
+   `ms` is its device time per launch (torch.profiler); plain and
+   library times are CUDA events around the call.
 
 The line before the last is the `kernels` JSON, whose `launches` sums
-the main paths' runs and `launches_per_path` splits them; the last line
-is {"ok": true, "device": {...}}.  Imports nothing of JAX.
+the main paths' runs and `launches_per_path` splits them, and whose
+`by_shape` holds the f64 kernels' times at every timed shape; the last
+line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 import json
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
 
-# H100 SXM (NVIDIA data sheet): HBM3 bandwidth and the f64 and f32 rates
-# outside the tensor cores, at the full 700 W power limit
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F64_PER_S = 34e12
-PEAK_F32_PER_S = 67e12
+from cuclarabel_torch import kernel_timing as kt
+from cuclarabel_torch.kernel_timing import card_line, cuda_ms, make_kkt
 
 # the portfolio SOCP of the main path
 NASS = 32
@@ -64,6 +65,9 @@ CPU_CHECK = 8
 # the sizes of the goldens (SOCP N = 12, QP N = 8)
 KERNEL_SHAPES = ((33, 43, 4096), (5, 8, 1024), (56, 72, 1024), (33, 43, 1),
                  (3, 9, 1), (2, 6, 1))
+# the f64 kernels are timed at N = 76 and these widths: the B = 4096
+# batch, the B = 256 batch and the Solver's B = 1
+TIMING_WIDTHS = (4096, 256, 1)
 NUMPY_CHECK = 4
 
 # accuracy bars (tests/test_pallas_dd.py of the reference)
@@ -113,96 +117,11 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def make_kkt(rng, B, n, m, spread=4.0):
-    """Quasidefinite KKT matrices with the blocks of the reference's
-    bench (bench.py:299-314): P = G G' shared, A random per problem, Hs
-    spread 10^(+-spread).  They are laid out in the stability order in
-    which the dense backend hands K to the factor (kkt/dense.py: the
-    inequality rows before the x block), [[-Hs, A], [A', P]]: in the
-    bench's x-first order some of these draws lose 1e-8 of accuracy to
-    pivot growth in any pivot-free LDL^T, kernel and plain version
-    alike."""
-    N = n + m
-    A = rng.standard_normal((B, m, n))
-    K = np.zeros((B, N, N))
-    G = rng.standard_normal((n, n)) / np.sqrt(n)
-    Hs = 10.0 ** rng.uniform(-spread, spread, (B, m))
-    K[:, :m, :m] = -Hs[:, :, None] * np.eye(m)
-    K[:, :m, m:] = A
-    K[:, m:, :m] = np.transpose(A, (0, 2, 1))
-    K[:, m:, m:] = G @ G.T
-    dsigns = np.concatenate([-np.ones(m), np.ones(n)])
-    return K, np.broadcast_to(dsigns * 1e-8, (B, N)).copy()
-
-
 def rel(a, b, floor=0.0):
     a = a.double()
     b = b.double()
     scale = max(float(b.abs().max()), floor)
     return float((a - b).abs().max()) / scale if scale > 0 else 0.0
-
-
-def cuda_ms(fn, reps, warmup=2):
-    """Mean device ms per call from CUDA events around `reps` calls,
-    after `warmup` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
-
-
-def bound_ms(nbytes, flops, peak_flops=PEAK_F64_PER_S):
-    tb = nbytes / PEAK_BYTES_PER_S * 1e3
-    tf = flops / peak_flops * 1e3
-    return (tb, "bytes") if tb >= tf else (tf, "operations")
-
-
-def work(name, B, N, R=1, npass=1):
-    """(bytes, operations) the function must move and do: each input
-    read once and each output written once, K and L counted as the
-    triangles the function needs (K is symmetric, and L is strictly
-    lower: no consumer reads the zeros the factor kernels write above
-    the diagonal).  f64 operands, f32 for the *_batched functions."""
-    f8 = 4 if name.endswith("_batched") else 8
-    tri = N * (N + 1) // 2
-    stri = N * (N - 1) // 2
-    solve_ops = 2 * stri * 2 * R + N * R
-    factor_ops = N + sum((N - j - 1) + (N - j - 1) * (N - j)
-                         for j in range(N))
-    if name == "ldl_factor":
-        nbytes = B * f8 * (tri + N + stri + N) + B
-        ops = factor_ops
-    elif name == "ldl_factor_batched":
-        nbytes = B * f8 * (tri + stri + N)
-        ops = factor_ops
-    elif name == "ldl_solve_batched":
-        nbytes = B * f8 * (stri + 3 * N)
-        ops = solve_ops
-    elif name == "ldl_solve":
-        nbytes = B * f8 * (stri + N + 2 * N * R)
-        ops = solve_ops
-    elif name == "kkt_residual":
-        nbytes = B * f8 * (tri + 3 * N * R)
-        ops = 2 * N * N * R
-    else:
-        nbytes = B * f8 * (tri + stri + N + 3 * N * R)
-        ops = (1 + npass) * (solve_ops + 2 * N * N * R) + npass * N * R
-    return nbytes, B * ops
 
 
 # ---------------------------------------------------------------------
@@ -265,9 +184,9 @@ def phase_kernels():
             xp = ldl.ldl_solve_plain(L, Dinv, b)
             e1 = rel(x, xp, 1.0)
             e2 = rel(x[:c].cpu(), xref, 1.0)
-            check(e1 < TOL_SOLVE and e2 < TOL_SOLVE,
-                  f"ldl_solve r={R} at {tag}: vs plain {e1:.2e}, "
-                  f"vs numpy {e2:.2e}")
+            check(torch.equal(x, xp) and e2 < TOL_SOLVE,
+                  f"ldl_solve r={R} at {tag}: vs plain {e1:.2e} (bar: "
+                  f"bit for bit), vs numpy {e2:.2e}")
             worst["ldl_solve"] = max(worst.get("ldl_solve", 0.0), e1)
             errs["ldl_solve"] = max(errs["ldl_solve"],
                                     float((x - xp).abs().max()))
@@ -616,86 +535,82 @@ def check_library(name, got, want, tol):
     print(f"library call for {name}: x within {e:.2e} of the kernel's")
 
 
-def phase_kernel_timing(card):
-    """The f64 kernels at (76, 4096).  Library calls: torch.baddbmm for
-    the residual, cuSOLVER's LDL^T through torch.linalg for the factor
-    (Bunch-Kaufman pivoted, of K + diag(reg) formed outside the timing)
-    and for the substitution (identity pivots)."""
-    from cuclarabel_torch.kkt import ldl
-
-    dev = torch.device("cuda")
-    n, m, B = KERNEL_SHAPES[0]
-    N = n + m
-    rng = np.random.default_rng(1)
-    Kn, regn = make_kkt(rng, B, n, m)
-    K = torch.tensor(Kn, device=dev)
-    reg = torch.tensor(regn, device=dev)
-    L, Dinv, _ = ldl.ldl_factor(K, reg)
-    b = torch.tensor(rng.standard_normal((B, N)), device=dev)
-    x = ldl.ldl_solve(L, Dinv, b)
-    b3, x3 = b[:, :, None], x[:, :, None].contiguous()
+def library_calls(op):
+    """{(name, R): one PyTorch call computing the same function} on the
+    operands of kernel_timing.operands, each first checked against the
+    kernel's result: torch.baddbmm for the residual, cuSOLVER's LDL^T
+    through torch.linalg for the factor (Bunch-Kaufman pivoted, of
+    K + diag(reg) formed outside the timing) and for the substitution
+    (the port's factor with identity pivots).  The refined solve has
+    none."""
+    K, reg, L, Dinv = op["K"], op["reg"], op["L"], op["Dinv"]
     LD, piv = ldl_library_operands(L, Dinv)
     Kreg = K + torch.diag_embed(reg)
+    b3, x3 = op["b"][:, :, None], op["x"][:, :, None].contiguous()
+    b2, x2 = op["b2"], op["x2"]
     LDf, pivf = torch.linalg.ldl_factor(Kreg)
     check_library("ldl_factor", torch.linalg.ldl_solve(LDf, pivf, b3)[..., 0],
-                  x, TOL_LIB_F64)
-    check_library("ldl_solve", torch.linalg.ldl_solve(LD, piv, b3)[..., 0],
-                  x, TOL_LIB_F64)
-    calls = {
-        "ldl_factor": (lambda: ldl.ldl_factor(K, reg),
-                       lambda: ldl.ldl_factor_plain(K, reg),
-                       lambda: torch.linalg.ldl_factor(Kreg)),
-        "ldl_solve": (lambda: ldl.ldl_solve(L, Dinv, b),
-                      lambda: ldl.ldl_solve_plain(L, Dinv, b),
-                      lambda: torch.linalg.ldl_solve(LD, piv, b3)),
-        "kkt_residual": (lambda: ldl.kkt_residual(K, x, b),
-                         lambda: ldl.kkt_residual_plain(K, x, b),
-                         lambda: torch.baddbmm(b3, K, x3, alpha=-1)),
-        "ldl_solve_refine": (
-            lambda: ldl.ldl_solve_refine(K, L, Dinv, b, 1),
-            lambda: ldl.ldl_solve_refine_plain(K, L, Dinv, b, 1), None),
+                  op["x"], TOL_LIB_F64)
+    return {
+        ("ldl_factor", 1): lambda: torch.linalg.ldl_factor(Kreg),
+        ("ldl_solve", 1): checked(
+            "ldl_solve", lambda: torch.linalg.ldl_solve(LD, piv, b3),
+            op["x"][:, :, None]),
+        ("ldl_solve", 2): checked(
+            "ldl_solve r=2", lambda: torch.linalg.ldl_solve(LD, piv, b2), x2),
+        ("kkt_residual", 1): lambda: torch.baddbmm(b3, K, x3, alpha=-1),
+        ("kkt_residual", 2): lambda: torch.baddbmm(b2, K, x2, alpha=-1),
     }
+
+
+def checked(name, fn, want):
+    """fn, after one call (its warm-up) held against the kernel's x."""
+    check_library(name, fn(), want, TOL_LIB_F64)
+    return fn
+
+
+def library_ms(fn):
+    """One library call's ms.  One that takes more than LIB_SLOW_MS is
+    timed once, after its warm-up: cuSOLVER's batched LDL^T through
+    torch.linalg loops over the batch on the host and takes seconds."""
+    ms = cuda_ms(fn, 1, warmup=0)
+    return ms if ms >= LIB_SLOW_MS else cuda_ms(fn, 20)
+
+
+def phase_kernel_timing(card):
+    """The f64 kernels at N = 76 and each of TIMING_WIDTHS
+    (cuclarabel_torch.kernel_timing: device time, CUDA events at
+    B = 4096, plain version, bound, occupancy), each beside its library
+    call.  Returns {kernel: {"B<B>_r<R>": numbers}}."""
     out = {}
-    for name, (kern, plain, lib) in calls.items():
-        out[name] = time_kernel(card, name, B, N, kern, plain, lib)
-    # the two-right-hand-side forms (pallas_dd.py:1430, :1455)
-    b2 = torch.tensor(rng.standard_normal((B, N, 2)), device=dev)
-    check_library("ldl_solve r=2", torch.linalg.ldl_solve(LD, piv, b2),
-                  ldl.ldl_solve(L, Dinv, b2), TOL_LIB_F64)
-    calls_r2 = {
-        "ldl_solve": (lambda: ldl.ldl_solve(L, Dinv, b2),
-                      lambda: ldl.ldl_solve_plain(L, Dinv, b2),
-                      lambda: torch.linalg.ldl_solve(LD, piv, b2)),
-        "ldl_solve_refine": (
-            lambda: ldl.ldl_solve_refine(K, L, Dinv, b2, 1),
-            lambda: ldl.ldl_solve_refine_plain(K, L, Dinv, b2, 1), None),
-    }
-    for name, (kern, plain, lib) in calls_r2.items():
-        t = time_kernel(card, name, B, N, kern, plain, lib, R=2)
-        out[name].update({f"{k}_r2": v for k, v in t.items()})
+    for B in TIMING_WIDTHS:
+        rows, op = kt.time_width(B)
+        lib = library_calls(op)
+        for row in rows:
+            fn = lib.get((row["name"], row["R"]))
+            row["library_ms"] = library_ms(fn) if fn is not None else None
+            print(kt.row_line(card, row) + ", library "
+                  + (f"{row['library_ms']:.4f} ms"
+                     if fn is not None else "none"), flush=True)
+            out.setdefault(row["name"], {})[f"B{B}_r{row['R']}"] = {
+                k: row[k] for k in (
+                    "ms", "events_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by", "blocks_per_sm", "warps_per_sm") if k in row}
     return out
 
 
-def time_kernel(card, name, B, N, kern, plain, lib, R=1):
-    """A kernel's ms by CUDA events beside its bound, its plain version's
-    ms and, where one PyTorch call computes the same function, that
-    call's ms.  A library call that takes more than LIB_SLOW_MS is timed
-    once, after one warm-up: cuSOLVER's batched LDL^T through
-    torch.linalg loops over the batch on the host and takes seconds."""
-    ms = cuda_ms(kern, 20)
+def time_kernel(card, name, B, N, ms, plain, lib):
+    """An f32 kernel's device ms beside its bound, its plain version's ms
+    and its library call's ms."""
     plain_ms = cuda_ms(plain, 3)
-    lib_ms = None
-    if lib is not None:
-        lib_ms = cuda_ms(lib, 1, warmup=1)
-        if lib_ms < LIB_SLOW_MS:
-            lib_ms = cuda_ms(lib, 20)
-    nbytes, ops = work(name, B, N, R=R)
-    peak = PEAK_F32_PER_S if name.endswith("_batched") else PEAK_F64_PER_S
-    bms, by = bound_ms(nbytes, ops, peak)
-    print(f"[{card}] {name} at N={N} B={B} R={R}: {ms:.4f} ms, bound "
+    lib()
+    lib_ms = library_ms(lib)
+    nbytes, ops = kt.work(name, B, N)
+    bms, by = kt.bound_ms(nbytes, ops, kt.PEAK_F32_PER_S)
+    print(f"[{card}] {name} at N={N} B={B}: device {ms:.4f} ms, bound "
           f"{bms:.4f} ms ({by}: {nbytes / 1e9:.3f} GB, "
           f"{ops / 1e9:.3f} GFLOP), plain {plain_ms:.3f} ms, library "
-          + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none"))
+          f"{lib_ms:.4f} ms")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": bms, "bound_by": by}
 
@@ -706,7 +621,7 @@ def phase_kernel_timing_f32(card, K, b, L, Dinv):
     scripts/tpu_dd_check.py:96-99) as the factor's library call and
     cuSOLVER's LDL^T substitution through torch.linalg.ldl_solve as the
     solve's, and the f64 kernels ldl_factor and ldl_solve on the same K
-    in f64."""
+    in f64, all four by device time."""
     from cuclarabel_torch.kkt import ldl, ldl_f32
 
     B, N = b.shape
@@ -715,35 +630,45 @@ def phase_kernel_timing_f32(card, K, b, L, Dinv):
     check_library("ldl_solve_batched",
                   torch.linalg.ldl_solve(LD, piv, b3)[..., 0],
                   ldl_f32.ldl_solve_batched(L, Dinv, b), TOL_LIB_F32)
-    out = {
-        "ldl_factor_batched": time_kernel(
-            card, "ldl_factor_batched", B, N,
-            lambda: ldl_f32.ldl_factor_batched(K),
-            lambda: ldl_f32.ldl_factor_batched_plain(K),
-            lambda: torch.linalg.inv(K)),
-        "ldl_solve_batched": time_kernel(
-            card, "ldl_solve_batched", B, N,
-            lambda: ldl_f32.ldl_solve_batched(L, Dinv, b),
-            lambda: ldl_f32.ldl_solve_batched_plain(L, Dinv, b),
-            lambda: torch.linalg.ldl_solve(LD, piv, b3)),
-    }
     K64 = K.double()
     reg0 = torch.zeros_like(b, dtype=torch.float64)
     L64, D64, _ = ldl.ldl_factor(K64, reg0)
     b64 = b.double()
-    f64 = {"ldl_factor_batched": lambda: ldl.ldl_factor(K64, reg0),
-           "ldl_solve_batched": lambda: ldl.ldl_solve(L64, D64, b64)}
-    for name, fn in f64.items():
-        out[name]["f64_kernel_ms"] = cuda_ms(fn, 20)
+    dev = kt.device_ms({
+        ("f32", "ldl_factor_f32_kernel("):
+            lambda: ldl_f32.ldl_factor_batched(K),
+        ("f32", "ldl_solve_f32_kernel<"):
+            lambda: ldl_f32.ldl_solve_batched(L, Dinv, b),
+        ("f64", "ldl_factor_kernel("): lambda: ldl.ldl_factor(K64, reg0),
+        ("f64", "ldl_solve_kernel<1"): lambda: ldl.ldl_solve(L64, D64, b64)},
+        20)
+    out = {
+        "ldl_factor_batched": time_kernel(
+            card, "ldl_factor_batched", B, N,
+            dev[("f32", "ldl_factor_f32_kernel(")],
+            lambda: ldl_f32.ldl_factor_batched_plain(K),
+            lambda: torch.linalg.inv(K)),
+        "ldl_solve_batched": time_kernel(
+            card, "ldl_solve_batched", B, N,
+            dev[("f32", "ldl_solve_f32_kernel<")],
+            lambda: ldl_f32.ldl_solve_batched_plain(L, Dinv, b),
+            lambda: torch.linalg.ldl_solve(LD, piv, b3)),
+    }
+    for name, kname in (("ldl_factor_batched", "ldl_factor_kernel("),
+                        ("ldl_solve_batched", "ldl_solve_kernel<1")):
+        out[name]["f64_kernel_ms"] = dev[("f64", kname)]
         print(f"[{card}] {name}: f32 {out[name]['ms']:.4f} ms, the f64 "
-              f"kernel on the same K {out[name]['f64_kernel_ms']:.4f} ms")
+              f"kernel on the same K {out[name]['f64_kernel_ms']:.4f} ms "
+              "(device time)")
     return out
 
 
 def kernel_entries(paths, errs, times):
     """The `kernels` JSON rows: one per kernel function, its launches
     summed over the main paths' runs and split by path and by number of
-    right-hand sides."""
+    right-hand sides; an f64 kernel's times at (76, 4096) with R = 1,
+    and under `by_shape` at every timed width and R.  `ms` is device
+    time per launch throughout."""
     rows = []
     for name, replaces, source in (
             [(k, v, SOURCE) for k, v in REPLACES.items()]
@@ -762,8 +687,14 @@ def kernel_entries(paths, errs, times):
                              for launches in paths.values())
                 for R in (1, 2)}
         entry.update(launches=sum(per_path.values()),
-                     launches_per_path=per_path, max_abs_err=errs[name],
-                     **times[name])
+                     launches_per_path=per_path, max_abs_err=errs[name])
+        t = times[name]
+        if "B4096_r1" in t:  # an f64 kernel: (76, 4096), R = 1, up front
+            entry.update({k: t["B4096_r1"][k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+                by_shape=t)
+        else:
+            entry.update(t)
         rows.append(entry)
     return rows
 

@@ -20,10 +20,12 @@
 // tensor cores) at the main path's shape (N = 76, B = 4096): each kernel
 // moves O(N^2) bytes per problem and does O(N^2) (substitution,
 // residual) or O(N^3 / 3) (factor) f64 operations, so all four are
-// memory-bound; see the note above each kernel.  The chain of N pivot
-// steps inside one problem is sequential, which is why one block works
-// through it in shared memory with one __syncthreads() per step, and the
-// card is filled by running many problems (blocks) at once.
+// memory-bound by their bytes; see the note above each kernel.  The
+// chain of pivot steps inside one problem is sequential, so what they
+// wait on is latency: the factor works through it in shared memory with
+// one __syncthreads() per pivot, the substitution and the refined solve
+// in one warp with one shuffle per step, and the card is filled by
+// running many problems (blocks) at once.
 //
 // The factor and substitution bodies live in ldl_core.cuh, shared with
 // the f32 kernels of ldl_f32.cu.
@@ -37,8 +39,7 @@
 namespace {
 
 constexpr int kFactorThreads = 256;
-constexpr int kSolveThreads = 128;
-constexpr int kSolveWarps = kSolveThreads / 32;
+constexpr int kResidualThreads = 128;
 constexpr int kMaxR = 2;
 
 // max that propagates NaN, like torch.amax and jnp.max: a NaN residual
@@ -64,14 +65,6 @@ struct FullRows {
   int n;
   __device__ double operator()(int i, int k) const {
     return p[(size_t)i * n + k];
-  }
-};
-
-// Element (i, k) of a symmetric matrix held as its packed lower triangle.
-struct PackedSym {
-  const double* s;
-  __device__ double operator()(int i, int k) const {
-    return i >= k ? s[tri(i) + k] : s[tri(k) + i];
   }
 };
 
@@ -101,33 +94,120 @@ __device__ void residual_rows(KView kv, const double* x, const double* b,
   }
 }
 
-// out[t] = max_i |v[i, t]| over the block (NaN-propagating).  red holds
-// one slot per warp and right-hand side.  Returns synced.
-template <int R>
-__device__ void block_absmax(const double* v, int n, double* red,
-                             double* out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  double m[R];
+// r = b - K x by the calling warp, for the symmetric K held as its
+// packed lower triangle ks (row i at tri(i), diagonal included); x, b
+// and r are the lane's rows (ldl_core.cuh's warp layout).
+//
+// The sums are those of residual_rows, bit for bit, so r equals
+// kkt_residual's: for row i, lane l sums K_ik x_k over its own
+// k = l + 32 q in ascending q, and the 32 partial sums are added along
+// the butterfly tree of warp_sum (lane l with lane l ^ 16, then ^ 8, ^ 4,
+// ^ 2, ^ 1).  K_ik is read from row i (k <= i, lanes on consecutive
+// columns) or from column i of row k (k > i, lanes on rows tri(k) + i,
+// conflict-free as in the forward sweep).
+//
+// Rows go in groups of kRowGroup = 8, and the first three levels of the
+// tree are transposed: at level o each lane keeps the half of its rows
+// picked by its bit o and trades the other half with lane l ^ o, so the
+// group takes 4 + 2 + 1 shuffles there in place of 3 x 8, and each lane
+// ends with one row (g = bits 4, 3, 2 of the lane), whose last two
+// levels are a plain butterfly.  The pairs added are the tree's own, so
+// the sums are the same.
+constexpr int kRowGroup = 8;
+
+// One transposed level: the G rows of v become G / 2, the lane keeping
+// rows [0, G/2) or [G/2, G) by its bit o, summed with lane l ^ o.
+template <int G, int R>
+__device__ inline void transpose_level(double (&v)[kRowGroup][R], int o) {
+  const bool hi = (threadIdx.x & o) != 0;
 #pragma unroll
-  for (int t = 0; t < R; ++t) m[t] = 0.0;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+  for (int g = 0; g < G / 2; ++g) {
 #pragma unroll
-    for (int t = 0; t < R; ++t) m[t] = nanmax(m[t], fabs(v[i * R + t]));
+    for (int t = 0; t < R; ++t) {
+      const double keep = hi ? v[g + G / 2][t] : v[g][t];
+      const double send = hi ? v[g][t] : v[g + G / 2][t];
+      v[g][t] = keep + __shfl_xor_sync(kFullMask, send, o);
+    }
   }
+}
+
+template <int R, int S>
+__device__ void warp_residual(const double* ks, const double (&x)[S][R],
+                              const double (&b)[S][R],
+                              double (&r)[S][R], int n) {
+  const int lane = threadIdx.x & 31;
+  int off[S];  // tri(k) of the lane's columns k = 32 q + lane
 #pragma unroll
-  for (int t = 0; t < R; ++t) m[t] = warp_max(m[t]);
-  if (lane == 0) {
+  for (int q = 0; q < S; ++q) {
+    const int k = kWarp * q + lane;
+    off[q] = k < n ? tri(k) : 0;
+  }
+  // the lane holding row g of a group after the transposed levels
+  const int g = lane & (kRowGroup - 1);
+  const int src = ((g >> 2) & 1) << 4 | ((g >> 1) & 1) << 3 | (g & 1) << 2;
+#pragma unroll 1
+  for (int p = 0; p < S; ++p) {
+    const int rows = min(kWarp, n - kWarp * p);  // may be <= 0
+#pragma unroll 1
+    for (int i0 = 0; i0 < rows; i0 += kRowGroup) {
+      double kik[kRowGroup][S];  // K_ik, i = 32 p + i0 + gg
 #pragma unroll
-    for (int t = 0; t < R; ++t) red[warp * R + t] = m[t];
+      for (int gg = 0; gg < kRowGroup; ++gg) {
+        const int i = kWarp * p + min(i0 + gg, rows - 1);
+        const int ti = tri(i);
+#pragma unroll
+        for (int q = 0; q < S; ++q) {
+          // two adds and a select, no branch (k >= n: off[q] = 0, index i)
+          const int k = kWarp * q + lane;
+          kik[gg][q] = ks[k <= i ? ti + k : off[q] + i];
+        }
+      }
+      __syncwarp();  // every load of the group issued before the sums
+      double v[kRowGroup][R];
+#pragma unroll
+      for (int gg = 0; gg < kRowGroup; ++gg) {
+#pragma unroll
+        for (int t = 0; t < R; ++t) {
+          v[gg][t] = 0.0;
+#pragma unroll
+          for (int q = 0; q < S; ++q) {
+            const double w = v[gg][t] + kik[gg][q] * x[q][t];
+            v[gg][t] = kWarp * q + lane < n ? w : v[gg][t];
+          }
+        }
+      }
+      transpose_level<8, R>(v, 16);
+      transpose_level<4, R>(v, 8);
+      transpose_level<2, R>(v, 4);
+      const bool mine = lane >= i0 && lane < min(i0 + kRowGroup, rows);
+#pragma unroll
+      for (int t = 0; t < R; ++t) {
+        double sum = v[0][t];
+        sum += __shfl_xor_sync(kFullMask, sum, 2);
+        sum += __shfl_xor_sync(kFullMask, sum, 1);
+        sum = __shfl_sync(kFullMask, sum, src);
+#pragma unroll
+        for (int q = 0; q < S; ++q)  // r[p] with p a runtime index
+          if (q == p && mine) r[q][t] = b[q][t] - sum;
+      }
+    }
   }
-  __syncthreads();
-  if (threadIdx.x < R) {
-    double a = red[threadIdx.x];
-    for (int w = 1; w < nw; ++w) a = nanmax(a, red[w * R + threadIdx.x]);
-    out[threadIdx.x] = a;
+}
+
+// m[t] = max_i |v[i, t]| over the warp's rows (NaN-propagating), in
+// every lane.
+template <int R, int S>
+__device__ void warp_absmax(const double (&v)[S][R], int n,
+                            double (&m)[R]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int t = 0; t < R; ++t) {
+    m[t] = 0.0;
+#pragma unroll
+    for (int q = 0; q < S; ++q)
+      if (kWarp * q + lane < n) m[t] = nanmax(m[t], fabs(v[q][t]));
+    m[t] = warp_max(m[t]);
   }
-  __syncthreads();
 }
 
 // ---------------------------------------------------------------------
@@ -183,34 +263,40 @@ __global__ void __launch_bounds__(kFactorThreads)
 // (_solve_kernel_r_blocked, _solve_kernel_r_looped, _solve_kernel_r)
 // for R = 2.
 //
-// Bound: reads L's strict lower triangle once, about 0.095 GB at
-// (76, 4096): 0.028 ms; 2 N^2 R operations per problem are negligible.
-// Design: L is staged in shared memory by coalesced row reads, then the
-// 2N sequential steps of the substitution run out of shared memory with
-// one thread per row and one __syncthreads() per step.
+// Bound: reads L's strict lower triangle, D^-1 and b once and writes x,
+// about 0.10 GB at (76, 4096): 0.030 ms; 2 N^2 R operations per problem
+// are negligible.  What holds a problem back is latency: the 2 (N - 1)
+// sequential steps of the two sweeps, and the copy of L into the SM.
+// Design: four warps request L's strict triangle at once with
+// cp.async into a packed triangle in shared memory (23.4 KB at N = 76:
+// 9 resident problems per SM), then warp 0 alone sweeps
+// (ldl_core.cuh::warp_solve): x in registers, one shuffle per step, the
+// factor entries of kChunk steps loaded ahead, no block barrier after
+// the copy, conflict-free shared reads.
+// Measured (H100 80GB HBM3, 700 W, device time): 0.069 ms at (76, 4096)
+// against the 0.030 ms bound, 0.0099 ms at (76, 256), 0.0095 ms at
+// (76, 1).  At B = 1 about half the time is the copy of L (23 KB into
+// one SM) and half the sweeps, ~95 cycles a step: a shuffle, a multiply,
+// a subtract and a select in a chain.
 // ---------------------------------------------------------------------
-template <int R>
-__global__ void __launch_bounds__(kSolveThreads)
+template <int R, int S>
+__global__ void __launch_bounds__(kLoadThreads, 1)
     ldl_solve_kernel(const double* __restrict__ L,
                      const double* __restrict__ Dinv,
                      const double* __restrict__ bg, double* __restrict__ xg,
                      int n) {
-  extern __shared__ double smem[];
-  double* ls = smem;            // tri(n)
-  double* dinv = ls + tri(n);   // n
-  double* x = dinv + n;         // n * R
+  extern __shared__ double ls[];  // tri(n), packed strict lower
   const size_t b = blockIdx.x;
-
-  load_lower_packed(L + b * n * n, ls, n);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    dinv[i] = Dinv[b * n + i];
-#pragma unroll
-    for (int t = 0; t < R; ++t) x[i * R + t] = bg[(b * n + i) * R + t];
-  }
+  load_lower_async(L + b * n * n, ls, n, false);
+  cp_async_commit();
+  double dinv[S], x[S][R];
+  load_dinv<double>(Dinv + b * n, dinv, n);
+  load_rows<double, R>(bg + b * n * R, x, n);
+  cp_async_wait<0>();
   __syncthreads();
-  ldl_solve_smem<double, R>(ls, dinv, x, n);
-  for (int i = threadIdx.x; i < n * R; i += blockDim.x)
-    xg[b * n * R + i] = x[i];
+  if (threadIdx.x >= kWarp) return;
+  warp_solve<double, R>(ls, dinv, x, n);
+  store_rows<double, R>(x, xg + b * n * R, n);
 }
 
 // ---------------------------------------------------------------------
@@ -229,7 +315,7 @@ __global__ void __launch_bounds__(kSolveThreads)
 // (coalesced), x staged in shared memory, a shuffle reduction per row.
 // ---------------------------------------------------------------------
 template <int R>
-__global__ void __launch_bounds__(kSolveThreads)
+__global__ void __launch_bounds__(kResidualThreads)
     kkt_residual_kernel(const double* __restrict__ K,
                         const double* __restrict__ xg,
                         const double* __restrict__ bg, double* __restrict__ rg,
@@ -256,14 +342,33 @@ __global__ void __launch_bounds__(kSolveThreads)
 //
 // Bound: reads the lower triangles of K and L once, about 0.19 GB at
 // (76, 4096): 0.057 ms; the (1 + npass) solves and residuals are
-// O(N^2 R) operations per problem.
-// Design: both triangles stay in shared memory (47 KB at N = 76,
-// 132 KB at N = 128) for every pass, so the passes read device memory
-// once; the substitution and residual are the routines of ldl_solve and
-// kkt_residual.
+// O(N^2 R) operations per problem.  Latency holds it back, as for
+// ldl_solve, over two solves and two residuals at npass = 1.
+// Design: both triangles in shared memory (46.8 KB at N = 76: 4
+// resident problems per SM; 132 KB at N = 128) for every pass, so the
+// passes read device memory once.  Four warps request L and then K as
+// two cp.async groups; warp 0 starts the first solve as soon as L has
+// arrived while K is still arriving, and alone runs every pass, every
+// vector in registers: the substitutions of ldl_solve, the residual of
+// warp_residual (kkt_residual's sums, bit for bit), the acceptance test
+// by a warp reduction; no block barrier after the copy.  One loop over
+// the passes holds the only copy of the solve and of the residual:
+// fully unrolled copies per call and per panel overran the instruction
+// cache (the second solve ran 2.4x slower than the first).
+// Measured (H100 80GB HBM3, 700 W, device time, npass = 1): R = 1
+// 0.268 ms at (76, 4096) against the 0.060 ms bound, 0.031 ms at
+// (76, 256), 0.030 ms at (76, 1); R = 2 0.443, 0.041 and 0.041 ms.
 // ---------------------------------------------------------------------
-template <int R>
-__global__ void __launch_bounds__(kSolveThreads)
+// Threads of a refine block: at R = 2 the registers of its vectors
+// (about 220 a thread at S = 3) would leave two blocks of four warps per
+// SM, so two warps copy there, and four blocks fit, as shared memory
+// allows at N = 76.
+constexpr int refine_threads(int R) {
+  return R == 1 ? kLoadThreads : kLoadThreads / 2;
+}
+
+template <int R, int S>
+__global__ void __launch_bounds__(refine_threads(R), 1)
     ldl_solve_refine_kernel(const double* __restrict__ K,
                             const double* __restrict__ L,
                             const double* __restrict__ Dinv,
@@ -271,74 +376,70 @@ __global__ void __launch_bounds__(kSolveThreads)
                             double* __restrict__ xg, double* __restrict__ rg,
                             int n, int npass) {
   extern __shared__ double smem[];
-  double* ks = smem;             // tri(n)
-  double* ls = ks + tri(n);      // tri(n)
-  double* dinv = ls + tri(n);    // n
-  double* bs = dinv + n;         // n * R
-  double* x = bs + n * R;        // n * R, accepted iterate
-  double* r = x + n * R;         // n * R, its residual
-  double* xn = r + n * R;        // n * R, candidate iterate
-  double* en = xn + n * R;       // n * R, its residual
-  __shared__ double red[kSolveWarps * kMaxR];
-  __shared__ double ne[kMaxR], nen[kMaxR];
+  double* ls = smem;          // tri(n), packed strict lower L
+  double* ks = ls + tri(n);   // tri(n), packed lower K
   const size_t b = blockIdx.x;
-
-  load_lower_packed(K + b * n * n, ks, n);
-  load_lower_packed(L + b * n * n, ls, n);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    dinv[i] = Dinv[b * n + i];
+  load_lower_async(L + b * n * n, ls, n, false);
+  cp_async_commit();
+  load_lower_async(K + b * n * n, ks, n, true);
+  cp_async_commit();
+  double dinv[S], bv[S][R];
+  load_dinv<double>(Dinv + b * n, dinv, n);
+  load_rows<double, R>(bg + b * n * R, bv, n);
+  // x, r: the accepted iterate and its residual; xn, en: the candidate.
+  // Pass 0 solves b and is accepted as it is; pass p > 0 solves the
+  // residual, and its x + dx is accepted where max |r| strictly falls.
+  // One loop, so one copy of the solve and of the residual code.
+  double x[S][R] = {}, r[S][R] = {}, xn[S][R], en[S][R];
+  double ne[R], nen[R];
+  cp_async_wait<1>();  // L has arrived; K may still be in flight
+  __syncthreads();
+  if (threadIdx.x >= kWarp) {
+    cp_async_wait<0>();
+    loaders_arrive();
+    return;
+  }
+  for (int p = 0; p <= npass; ++p) {
+#pragma unroll
+    for (int q = 0; q < S; ++q)
+#pragma unroll
+      for (int t = 0; t < R; ++t) xn[q][t] = p == 0 ? bv[q][t] : r[q][t];
+    warp_solve<double, R>(ls, dinv, xn, n);
+    if (p > 0) {
+#pragma unroll
+      for (int q = 0; q < S; ++q)
+#pragma unroll
+        for (int t = 0; t < R; ++t) xn[q][t] = x[q][t] + xn[q][t];
+    } else {
+      cp_async_wait<0>();  // K was still arriving during the first solve
+      wait_for_loaders();
+    }
+    warp_residual<R>(ks, xn, bv, en, n);
+    warp_absmax<R>(en, n, nen);
 #pragma unroll
     for (int t = 0; t < R; ++t) {
-      const double v = bg[(b * n + i) * R + t];
-      bs[i * R + t] = v;
-      x[i * R + t] = v;
-    }
-  }
-  __syncthreads();
-  ldl_solve_smem<double, R>(ls, dinv, x, n);
-  residual_rows<R>(PackedSym{ks}, x, bs, r, n);
-  __syncthreads();
-  block_absmax<R>(r, n, red, ne);
-
-  for (int p = 0; p < npass; ++p) {
-    for (int i = threadIdx.x; i < n * R; i += blockDim.x) xn[i] = r[i];
-    __syncthreads();
-    ldl_solve_smem<double, R>(ls, dinv, xn, n);
-    for (int i = threadIdx.x; i < n * R; i += blockDim.x) xn[i] += x[i];
-    __syncthreads();
-    residual_rows<R>(PackedSym{ks}, xn, bs, en, n);
-    __syncthreads();
-    block_absmax<R>(en, n, red, nen);
-    for (int i = threadIdx.x; i < n * R; i += blockDim.x) {
-      const int t = i % R;
-      if (nen[t] < ne[t]) {
-        x[i] = xn[i];
-        r[i] = en[i];
+      if (p == 0 || nen[t] < ne[t]) {  // warp-uniform: every lane holds both
+#pragma unroll
+        for (int q = 0; q < S; ++q) {
+          x[q][t] = xn[q][t];
+          r[q][t] = en[q][t];
+        }
+        ne[t] = nen[t];
       }
     }
-    __syncthreads();
-    if (threadIdx.x < R && nen[threadIdx.x] < ne[threadIdx.x])
-      ne[threadIdx.x] = nen[threadIdx.x];
-    __syncthreads();
   }
-
-  for (int i = threadIdx.x; i < n * R; i += blockDim.x) {
-    xg[b * n * R + i] = x[i];
-    rg[b * n * R + i] = r[i];
-  }
+  store_rows<double, R>(x, xg + b * n * R, n);
+  store_rows<double, R>(r, rg + b * n * R, n);
 }
 
 size_t factor_smem(int n) { return sizeof(double) * (tri(n) + 2 * n); }
-size_t solve_smem(int n, int r) {
-  return sizeof(double) * (tri(n) + n + n * r);
-}
-size_t refine_smem(int n, int r) {
-  return sizeof(double) * (2 * tri(n) + n + 5 * n * r);
-}
+size_t solve_smem(int n) { return sizeof(double) * tri(n); }
+size_t refine_smem(int n) { return sizeof(double) * 2 * tri(n); }
 
 // Raise a kernel's dynamic shared memory cap to what N = kMaxN needs,
 // once per kernel and device: the attribute belongs to the current
-// device's context, and above 48 KB a launch needs it.
+// device's context, and above 48 KB a launch (and an occupancy query)
+// needs it.
 constexpr int kMaxDevices = 64;
 using DeviceFlags = bool[kMaxDevices];
 
@@ -355,6 +456,76 @@ cudaError_t allow_smem(F* kernel, size_t bytes, DeviceFlags& done) {
   return e;
 }
 
+cudaError_t ready_factor() {
+  static DeviceFlags done = {};
+  return allow_smem(ldl_factor_kernel, factor_smem(kMaxN), done);
+}
+
+// The one-warp kernels are instantiated for S = 1..4 slots, the slots a
+// lane needs at N (ldl_core.cuh::slots), so that a lane computes no slot
+// that holds no row.  Each form's launch: its function, shared memory
+// cap raised once per device.
+
+template <int R, int S>
+cudaError_t ready_solve() {
+  static DeviceFlags done = {};
+  return allow_smem(ldl_solve_kernel<R, S>, solve_smem(kMaxN), done);
+}
+template <int R, int S>
+cudaError_t ready_refine() {
+  static DeviceFlags done = {};
+  return allow_smem(ldl_solve_refine_kernel<R, S>, refine_smem(kMaxN), done);
+}
+
+template <int R, int S>
+int launch_solve(const double* L, const double* Dinv, const double* b,
+                 double* x, int B, int n, cudaStream_t stream) {
+  cudaError_t e = ready_solve<R, S>();
+  if (e != cudaSuccess) return (int)e;
+  ldl_solve_kernel<R, S><<<B, kLoadThreads, solve_smem(n), stream>>>(
+      L, Dinv, b, x, n);
+  return (int)cudaGetLastError();
+}
+
+template <int R, int S>
+int launch_refine(const double* K, const double* L, const double* Dinv,
+                  const double* b, double* x, double* res, int B, int n,
+                  int npass, cudaStream_t stream) {
+  cudaError_t e = ready_refine<R, S>();
+  if (e != cudaSuccess) return (int)e;
+  ldl_solve_refine_kernel<R, S><<<B, refine_threads(R), refine_smem(n),
+                                  stream>>>(K, L, Dinv, b, x, res, n, npass);
+  return (int)cudaGetLastError();
+}
+
+// f(R, S) for the runtime R in {1, 2} and S = slots(n), each passed as a
+// std::integral_constant.
+template <class F>
+int with_form(int r, int n, F&& f) {
+  return with_slots(n, [&](auto S) {
+    return r == 1 ? f(std::integral_constant<int, 1>{}, S)
+                  : f(std::integral_constant<int, 2>{}, S);
+  });
+}
+
+// Resident blocks per SM of one form at N = n, by
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor.
+template <int R, int S>
+int occupancy_solve(int n, int* blocks) {
+  cudaError_t e = ready_solve<R, S>();
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, ldl_solve_kernel<R, S>, kLoadThreads, solve_smem(n));
+}
+template <int R, int S>
+int occupancy_refine(int n, int* blocks) {
+  cudaError_t e = ready_refine<R, S>();
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, ldl_solve_refine_kernel<R, S>, refine_threads(R),
+      refine_smem(n));
+}
+
 bool bad_shape(int B, int n, int r) {
   return B < 0 || n < 1 || n > kMaxN || r < 1 || r > kMaxR;
 }
@@ -368,8 +539,7 @@ int cc_ldl_factor(const double* K, const double* reg, double* L,
                   void* stream) {
   if (bad_shape(B, n, 1)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  static DeviceFlags attr = {};
-  cudaError_t e = allow_smem(ldl_factor_kernel, factor_smem(kMaxN), attr);
+  cudaError_t e = ready_factor();
   if (e != cudaSuccess) return (int)e;
   ldl_factor_kernel<<<B, kFactorThreads, factor_smem(n),
                       (cudaStream_t)stream>>>(K, reg, L, Dinv, ok, n);
@@ -380,20 +550,10 @@ int cc_ldl_solve(const double* L, const double* Dinv, const double* b,
                  double* x, int B, int n, int r, void* stream) {
   if (bad_shape(B, n, r)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  static DeviceFlags attr1 = {}, attr2 = {};
-  cudaError_t e;
-  if (r == 1) {
-    e = allow_smem(ldl_solve_kernel<1>, solve_smem(kMaxN, 1), attr1);
-    if (e != cudaSuccess) return (int)e;
-    ldl_solve_kernel<1><<<B, kSolveThreads, solve_smem(n, 1),
-                          (cudaStream_t)stream>>>(L, Dinv, b, x, n);
-  } else {
-    e = allow_smem(ldl_solve_kernel<2>, solve_smem(kMaxN, 2), attr2);
-    if (e != cudaSuccess) return (int)e;
-    ldl_solve_kernel<2><<<B, kSolveThreads, solve_smem(n, 2),
-                          (cudaStream_t)stream>>>(L, Dinv, b, x, n);
-  }
-  return (int)cudaGetLastError();
+  return with_form(r, n, [&](auto R, auto S) {
+    return launch_solve<decltype(R)::value, decltype(S)::value>(
+        L, Dinv, b, x, B, n, (cudaStream_t)stream);
+  });
 }
 
 int cc_kkt_residual(const double* K, const double* x, const double* b,
@@ -401,10 +561,10 @@ int cc_kkt_residual(const double* K, const double* x, const double* b,
   if (bad_shape(B, n, r)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   if (r == 1)
-    kkt_residual_kernel<1><<<B, kSolveThreads, 0, (cudaStream_t)stream>>>(
+    kkt_residual_kernel<1><<<B, kResidualThreads, 0, (cudaStream_t)stream>>>(
         K, x, b, res, n);
   else
-    kkt_residual_kernel<2><<<B, kSolveThreads, 0, (cudaStream_t)stream>>>(
+    kkt_residual_kernel<2><<<B, kResidualThreads, 0, (cudaStream_t)stream>>>(
         K, x, b, res, n);
   return (int)cudaGetLastError();
 }
@@ -414,22 +574,49 @@ int cc_ldl_solve_refine(const double* K, const double* L, const double* Dinv,
                         int r, int npass, void* stream) {
   if (bad_shape(B, n, r) || npass < 0) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  static DeviceFlags attr1 = {}, attr2 = {};
-  cudaError_t e;
-  if (r == 1) {
-    e = allow_smem(ldl_solve_refine_kernel<1>, refine_smem(kMaxN, 1), attr1);
-    if (e != cudaSuccess) return (int)e;
-    ldl_solve_refine_kernel<1><<<B, kSolveThreads, refine_smem(n, 1),
-                                 (cudaStream_t)stream>>>(K, L, Dinv, b, x,
-                                                         res, n, npass);
-  } else {
-    e = allow_smem(ldl_solve_refine_kernel<2>, refine_smem(kMaxN, 2), attr2);
-    if (e != cudaSuccess) return (int)e;
-    ldl_solve_refine_kernel<2><<<B, kSolveThreads, refine_smem(n, 2),
-                                 (cudaStream_t)stream>>>(K, L, Dinv, b, x,
-                                                         res, n, npass);
+  return with_form(r, n, [&](auto R, auto S) {
+    return launch_refine<decltype(R)::value, decltype(S)::value>(
+        K, L, Dinv, b, x, res, B, n, npass, (cudaStream_t)stream);
+  });
+}
+
+// Resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+// and threads per block of one kernel's launch at N = n, R = r on the
+// current device.  kernel: 0 ldl_factor, 1 ldl_solve, 2 kkt_residual,
+// 3 ldl_solve_refine.
+int cc_occupancy(int kernel, int n, int r, int* blocks, int* threads) {
+  if (bad_shape(1, n, r)) return (int)cudaErrorInvalidValue;
+  switch (kernel) {
+    case 0: {
+      *threads = kFactorThreads;
+      cudaError_t e = ready_factor();
+      if (e != cudaSuccess) return (int)e;
+      return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, ldl_factor_kernel, kFactorThreads, factor_smem(n));
+    }
+    case 1:
+      *threads = kLoadThreads;
+      return with_form(r, n, [&](auto R, auto S) {
+        return occupancy_solve<decltype(R)::value, decltype(S)::value>(
+            n, blocks);
+      });
+    case 2:
+      *threads = kResidualThreads;
+      return (int)(r == 1 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                                blocks, kkt_residual_kernel<1>,
+                                kResidualThreads, 0)
+                          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                                blocks, kkt_residual_kernel<2>,
+                                kResidualThreads, 0));
+    case 3:
+      *threads = refine_threads(r);
+      return with_form(r, n, [&](auto R, auto S) {
+        return occupancy_refine<decltype(R)::value, decltype(S)::value>(
+            n, blocks);
+      });
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,0 +1,317 @@
+"""Times of the f64 LDL^T kernels (`csrc/ldl.cu`) on one card, at the
+main path's shapes.
+
+    python3 -m cuclarabel_torch.kernel_timing
+
+At N = 76 (the KKT dimension of the portfolio SOCP with nass = 32) and
+each width B of WIDTHS, every kernel form of `kkt/ldl.py` -- ldl_factor,
+and ldl_solve, kkt_residual and ldl_solve_refine (npass = 1) with R = 1
+and R = 2 -- is timed:
+
+- ms: the kernel's own duration on the device (torch.profiler), over
+  back-to-back launches on the same operands, so that below about
+  B = 1000 at N = 76 K and L stay warm in the 50 MB L2 (11.8 MB each at
+  B = 256);
+- events_ms, at B = 4096 only: CUDA events around back-to-back calls of
+  the wrapper, the measure of the earlier kernel times (below that width
+  it is the host's rate of calls, not the kernel's time);
+- plain_ms: CUDA events around the plain PyTorch version;
+
+beside its bound (`work`, `bound_ms`) and, where the kernel library
+reports it, the resident blocks and warps per SM.  Run as a script, it
+also times each form with the L2 flushed before every launch (cold_ms),
+to show how much the warm L2 gives.  The module times the kernels of
+the `cuclarabel_torch` it is imported from, and needs nothing of that
+package but `kkt/ldl.py` and `kkt/_build.py`: a copy placed in another
+checkout's package times that checkout's kernels, so that two versions
+can be compared on one card in one run.  Needs a CUDA device.
+"""
+
+import ctypes
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+import torch
+
+from .kkt import _build, ldl
+
+# H100 SXM (NVIDIA data sheet): HBM3 bandwidth and the f64 and f32 rates
+# outside the tensor cores, at the full 700 W power limit
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F64_PER_S = 34e12
+PEAK_F32_PER_S = 67e12
+L2_FLUSH_BYTES = 256 << 20
+
+# the main path's KKT blocks: n = 33 variables, m = 43 constraints
+MAIN_NM = (33, 43)
+WIDTHS = (4096, 256, 1)
+# the width at which CUDA events time the kernel rather than the host
+EVENTS_WIDTH = 4096
+FORMS = (("ldl_factor", 1), ("ldl_solve", 1), ("ldl_solve", 2),
+         ("kkt_residual", 1), ("kkt_residual", 2),
+         ("ldl_solve_refine", 1), ("ldl_solve_refine", 2))
+# the device function of each kernel, as the profiler names it: a
+# prefix, which matches the substitution kernels with or without their
+# second template argument (the slot count)
+KERNEL_NAMES = {"ldl_factor": "ldl_factor_kernel(",
+                "ldl_solve": "ldl_solve_kernel<{R}",
+                "kkt_residual": "kkt_residual_kernel<{R}",
+                "ldl_solve_refine": "ldl_solve_refine_kernel<{R}"}
+OCCUPANCY_ID = {"ldl_factor": 0, "ldl_solve": 1, "kkt_residual": 2,
+                "ldl_solve_refine": 3}
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def make_kkt(rng, B, n, m, spread=4.0):
+    """Quasidefinite KKT matrices with the blocks of the reference's
+    bench (bench.py:299-314): P = G G' shared, A random per problem, Hs
+    spread 10^(+-spread).  They are laid out in the stability order in
+    which the dense backend hands K to the factor (kkt/dense.py: the
+    inequality rows before the x block), [[-Hs, A], [A', P]]: in the
+    bench's x-first order some of these draws lose 1e-8 of accuracy to
+    pivot growth in any pivot-free LDL^T, kernel and plain version
+    alike.  Returns K (B, N, N) and reg (B, N), numpy."""
+    N = n + m
+    A = rng.standard_normal((B, m, n))
+    K = np.zeros((B, N, N))
+    G = rng.standard_normal((n, n)) / np.sqrt(n)
+    Hs = 10.0 ** rng.uniform(-spread, spread, (B, m))
+    K[:, :m, :m] = -Hs[:, :, None] * np.eye(m)
+    K[:, :m, m:] = A
+    K[:, m:, :m] = np.transpose(A, (0, 2, 1))
+    K[:, m:, m:] = G @ G.T
+    dsigns = np.concatenate([-np.ones(m), np.ones(n)])
+    return K, np.broadcast_to(dsigns * 1e-8, (B, N)).copy()
+
+
+def work(name, B, N, R=1, npass=1):
+    """(bytes, operations) the function must move and do: each input
+    read once and each output written once, K and L counted as the
+    triangles the function needs (K is symmetric, and L is strictly
+    lower: no consumer reads the zeros the factor kernels write above
+    the diagonal).  f64 operands, f32 for the *_batched functions."""
+    f8 = 4 if name.endswith("_batched") else 8
+    tri = N * (N + 1) // 2
+    stri = N * (N - 1) // 2
+    solve_ops = 2 * stri * 2 * R + N * R
+    factor_ops = N + sum((N - j - 1) + (N - j - 1) * (N - j)
+                         for j in range(N))
+    if name == "ldl_factor":
+        nbytes = B * f8 * (tri + N + stri + N) + B
+        ops = factor_ops
+    elif name == "ldl_factor_batched":
+        nbytes = B * f8 * (tri + stri + N)
+        ops = factor_ops
+    elif name == "ldl_solve_batched":
+        nbytes = B * f8 * (stri + 3 * N)
+        ops = solve_ops
+    elif name == "ldl_solve":
+        nbytes = B * f8 * (stri + N + 2 * N * R)
+        ops = solve_ops
+    elif name == "kkt_residual":
+        nbytes = B * f8 * (tri + 3 * N * R)
+        ops = 2 * N * N * R
+    else:
+        nbytes = B * f8 * (tri + stri + N + 3 * N * R)
+        ops = (1 + npass) * (solve_ops + 2 * N * N * R) + npass * N * R
+    return nbytes, B * ops
+
+
+def bound_ms(nbytes, flops, peak_flops=PEAK_F64_PER_S):
+    """The least time the card could take: the larger of bytes over the
+    memory rate and operations over the peak rate; and which it is."""
+    tb = nbytes / PEAK_BYTES_PER_S * 1e3
+    tf = flops / peak_flops * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def cuda_ms(fn, reps, warmup=2):
+    """Mean ms per call from CUDA events around `reps` calls, after
+    `warmup` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def kernel_events(prof, path=None):
+    """The device kernels of a finished torch.profiler run, as Chrome
+    trace events (name, ts and dur in us).  The trace is kept at `path`
+    if given."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = path or os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    return [e for e in trace["traceEvents"]
+            if e.get("ph") == "X" and e.get("cat") == "kernel"]
+
+
+def device_ms(fns, reps, flush=None, tries=3):
+    """{key: mean device ms per launch} of the kernel named key[1] that
+    fns[key] launches, over `reps` launches each under torch.profiler;
+    with `flush` (a device tensor), flush.zero_() runs before each
+    launch to push the operands out of the L2.  The profiler may drop
+    events: a kernel is timed by the launches it recorded, at least half
+    of them, and a session that recorded fewer is run again, up to
+    `tries` times."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    out = {}
+    for _ in range(tries):
+        todo = {key: fn for key, fn in fns.items() if key not in out}
+        if not todo:
+            break
+        with torch.profiler.profile(activities=acts) as prof:
+            for fn in todo.values():
+                for _ in range(reps):
+                    if flush is not None:
+                        flush.zero_()
+                    fn()
+            torch.cuda.synchronize()
+        events = kernel_events(prof)
+        for key in todo:
+            durs = [e["dur"] for e in events if key[1] in e["name"]]
+            if reps // 2 <= len(durs) <= reps:
+                out[key] = sum(durs) / len(durs) / 1e3
+    missing = [key[1] for key in fns if key not in out]
+    if missing:
+        raise RuntimeError(f"the profiler recorded too few launches of "
+                           f"{missing} in {tries} sessions")
+    return out
+
+
+def occupancy(name, R, N):
+    """(resident blocks, resident warps) per SM of the kernel's launch at
+    N, from cudaOccupancyMaxActiveBlocksPerMultiprocessor; None where the
+    kernel library has no cc_occupancy."""
+    fn = getattr(_build.load(), "cc_occupancy", None)
+    if fn is None:
+        return None
+    blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
+    rc = fn(OCCUPANCY_ID[name], N, R, ctypes.addressof(blocks),
+            ctypes.addressof(threads))
+    if rc != 0:
+        raise RuntimeError(f"cc_occupancy({name}, r={R}): CUDA error {rc}")
+    return blocks.value, blocks.value * threads.value // 32
+
+
+def operands(B, seed=1, dev="cuda"):
+    """The kernels' inputs at the main path's N = 76, width B: K, reg,
+    the factor L, Dinv, right-hand sides b (B, N) and b2 (B, N, 2), and
+    x, x2 = their solutions."""
+    n, m = MAIN_NM
+    rng = np.random.default_rng(seed)
+    Kn, regn = make_kkt(rng, B, n, m)
+    K = torch.tensor(Kn, device=dev)
+    reg = torch.tensor(regn, device=dev)
+    L, Dinv, _ = ldl.ldl_factor(K, reg)
+    b = torch.tensor(rng.standard_normal((B, n + m)), device=dev)
+    b2 = torch.tensor(rng.standard_normal((B, n + m, 2)), device=dev)
+    return {"K": K, "reg": reg, "L": L, "Dinv": Dinv, "b": b, "b2": b2,
+            "x": ldl.ldl_solve(L, Dinv, b), "x2": ldl.ldl_solve(L, Dinv, b2)}
+
+
+def calls(op):
+    """{(name, R): (kernel call, plain call)} on the operands `op`."""
+    K, reg, L, Dinv = op["K"], op["reg"], op["L"], op["Dinv"]
+    rhs = {1: (op["b"], op["x"]), 2: (op["b2"], op["x2"])}
+    out = {("ldl_factor", 1): (lambda: ldl.ldl_factor(K, reg),
+                               lambda: ldl.ldl_factor_plain(K, reg))}
+    for R, (b, x) in rhs.items():
+        out[("ldl_solve", R)] = (lambda b=b: ldl.ldl_solve(L, Dinv, b),
+                                 lambda b=b: ldl.ldl_solve_plain(L, Dinv, b))
+        out[("kkt_residual", R)] = (
+            lambda b=b, x=x: ldl.kkt_residual(K, x, b),
+            lambda b=b, x=x: ldl.kkt_residual_plain(K, x, b))
+        out[("ldl_solve_refine", R)] = (
+            lambda b=b: ldl.ldl_solve_refine(K, L, Dinv, b, 1),
+            lambda b=b: ldl.ldl_solve_refine_plain(K, L, Dinv, b, 1))
+    return out
+
+
+def time_width(B, reps=20, plain_reps=3, cold=False):
+    """One row per kernel form at (N = 76, B): its device ms (and, with
+    `cold`, cold_ms with the L2 flushed), events_ms at EVENTS_WIDTH,
+    plain_ms, bound and occupancy.  Returns (rows, operands)."""
+    op = operands(B)
+    N = op["b"].shape[1]
+    fns = calls(op)
+    keyed = {(form, KERNEL_NAMES[form[0]].format(R=form[1])): fns[form][0]
+             for form in FORMS}
+    warm = device_ms(keyed, reps)
+    if cold:
+        flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+        flushed = device_ms(keyed, reps, flush)
+        del flush
+    rows = []
+    for (form, kname), kern in keyed.items():
+        name, R = form
+        nbytes, ops = work(name, B, N, R=R)
+        bms, by = bound_ms(nbytes, ops)
+        occ = occupancy(name, R, N)
+        row = {"name": name, "R": R, "N": N, "B": B,
+               "ms": warm[(form, kname)]}
+        if B == EVENTS_WIDTH:
+            row["events_ms"] = cuda_ms(kern, reps)
+        if cold:
+            row["cold_ms"] = flushed[(form, kname)]
+        row.update({
+            "plain_ms": cuda_ms(fns[form][1], plain_reps),
+            "bound_ms": bms, "bound_by": by,
+            "gb": nbytes / 1e9, "gflop": ops / 1e9,
+            "blocks_per_sm": occ[0] if occ else None,
+            "warps_per_sm": occ[1] if occ else None})
+        rows.append(row)
+    return rows, op
+
+
+def row_line(card, row):
+    occ = ("occupancy not reported" if row["blocks_per_sm"] is None else
+           f"{row['blocks_per_sm']} blocks / {row['warps_per_sm']} warps "
+           "per SM")
+    extra = "".join(f", {label} {row[key]:.4f} ms" for key, label in (
+        ("cold_ms", "L2 flushed"), ("events_ms", "by events"))
+        if key in row)
+    return (f"[{card}] {row['name']} r={row['R']} at N={row['N']} "
+            f"B={row['B']}: device {row['ms']:.4f} ms (L2 warm){extra}, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+            f"{row['gb']:.4f} GB, {row['gflop']:.4f} GFLOP), plain "
+            f"{row['plain_ms']:.3f} ms, {occ}")
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("cuclarabel_torch.kernel_timing: no CUDA device",
+              file=sys.stderr)
+        return 1
+    card = card_line()
+    print(card)
+    for B in WIDTHS:
+        for row in time_width(B, cold=True)[0]:
+            print(row_line(card, row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

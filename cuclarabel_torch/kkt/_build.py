@@ -40,7 +40,7 @@ NVCC_FLAGS = ARCH + (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures of csrc/ldl.cu and csrc/ldl_f32.cu (pointers, then ints,
-# then the stream)
+# then the stream; cc_occupancy: ints, then two int pointers)
 SIGNATURES = {
     "cc_ldl_factor": (_P, _P, _P, _P, _P, _I, _I, _P),
     "cc_ldl_solve": (_P, _P, _P, _P, _I, _I, _I, _P),
@@ -48,6 +48,7 @@ SIGNATURES = {
     "cc_ldl_solve_refine": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "cc_ldl_factor_f32": (_P, _P, _P, _I, _I, _P),
     "cc_ldl_solve_f32": (_P, _P, _P, _P, _I, _I, _P),
+    "cc_occupancy": (_I, _I, _I, _P, _P),
 }
 
 

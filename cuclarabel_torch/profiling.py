@@ -18,12 +18,12 @@ import json
 import os
 import subprocess
 import sys
-import tempfile
 import time
 
 import numpy as np
 import torch
 
+from .kernel_timing import kernel_events
 from .kkt import ldl
 from .parallel.batch import BatchSolver
 from .problems import portfolio_socp
@@ -72,14 +72,9 @@ def report(tag, solve, out_dir, iterations):
         solve()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(out_dir or tmp,
-                            f"trace_{tag.replace('=', '').lower()}.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            trace = json.load(f)
-    kern = [e for e in trace["traceEvents"]
-            if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    name = f"trace_{tag.replace('=', '').lower()}.json"
+    kern = kernel_events(prof, os.path.join(out_dir, name) if out_dir
+                         else None)
     by_name = {}
     for e in kern:
         k = e["name"][:60]

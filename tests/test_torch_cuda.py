@@ -9,7 +9,8 @@ The kernels are held against their plain PyTorch versions on the same
 card tensors: the factor and the substitution, f64 and f32, bit for bit
 (the kernels are built with -fmad=false and round every operation as the
 plain versions do), the residual and the refined solve within 1e-12
-relative (other summation orders)."""
+relative (other summation orders), at the main shapes and at the edges
+of the substitution's 32-row panels."""
 
 import numpy as np
 import pytest
@@ -71,6 +72,73 @@ def test_kernels_match_plain(dev, n, m, R):
                                    rtol=0, atol=1e-11)
     torch.cuda.synchronize()
     assert ldl.LAUNCHES[f"ldl_solve_refine/r{R}"] == 3
+
+
+PANEL_EDGES = (1, 2, 31, 32, 33, 63, 64, 65, 76, 96, 127, 128)
+
+
+@pytest.mark.parametrize("N", PANEL_EDGES)
+@pytest.mark.parametrize("B", [1, 3, 300])
+@pytest.mark.parametrize("R", [1, 2])
+def test_warp_kernels_at_panel_edges(dev, N, B, R):
+    """ldl_solve and ldl_solve_refine run one warp per problem, lane l
+    owning rows l + 32 q: N at and around each 32-row panel edge, B = 1
+    and more problems than SMs.  The substitution bit for bit with plain,
+    the refined solve within 1e-12 of plain for npass 0-3 and its r
+    within 1e-11 of b - K x, and bit for bit with kkt_residual's.  K
+    carries junk above the diagonal: only its lower triangle may be
+    read."""
+    from cuclarabel_torch.kkt import ldl
+
+    rng = np.random.default_rng(1000 * N + 10 * B + R)
+    m = (N + 1) // 2
+    K, reg = _kkt(rng, B, N - m, m, dev)
+    L, Dinv, ok = ldl.ldl_factor(K, reg)
+    assert bool(ok.all())
+    Kj = K + torch.triu(torch.tensor(rng.standard_normal((B, N, N)),
+                                     device=dev), 1) * 1e3
+    shape = (B, N) if R == 1 else (B, N, R)
+    b = torch.tensor(rng.standard_normal(shape), device=dev)
+    x = ldl.ldl_solve(L, Dinv, b)
+    assert torch.equal(x, ldl.ldl_solve_plain(L, Dinv, b))
+    for npass in range(4):
+        xr, rr = ldl.ldl_solve_refine(Kj, L, Dinv, b, npass)
+        xp, _ = ldl.ldl_solve_refine_plain(K, L, Dinv, b, npass)
+        torch.testing.assert_close(xr, xp, rtol=1e-12, atol=1e-12)
+        torch.testing.assert_close(rr, ldl.kkt_residual_plain(K, xr, b),
+                                   rtol=0, atol=1e-11)
+        # the fused residual sums in kkt_residual's order
+        assert torch.equal(rr, ldl.kkt_residual(K, xr, b))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("N", [33, 76, 128])
+@pytest.mark.parametrize("R", [1, 2])
+def test_warp_kernels_keep_problems_apart(dev, N, R):
+    """A NaN in one problem's b, or a non-finite D^-1 of one problem,
+    leaves every other problem's x and r as they were."""
+    from cuclarabel_torch.kkt import ldl
+
+    rng = np.random.default_rng(N + R)
+    B, m = 5, (N + 1) // 2
+    K, reg = _kkt(rng, B, N - m, m, dev)
+    L, Dinv, _ = ldl.ldl_factor(K, reg)
+    shape = (B, N) if R == 1 else (B, N, R)
+    b = torch.tensor(rng.standard_normal(shape), device=dev)
+    x0 = ldl.ldl_solve(L, Dinv, b)
+    xr0, rr0 = ldl.ldl_solve_refine(K, L, Dinv, b, 2)
+    b_nan = b.clone()
+    b_nan[2, N // 2] = float("nan")
+    d_inf = Dinv.clone()
+    d_inf[2, N - 1] = float("inf")
+    others = [0, 1, 3, 4]
+    for bb, dd in ((b_nan, Dinv), (b, d_inf)):
+        x = ldl.ldl_solve(L, dd, bb)
+        xr, rr = ldl.ldl_solve_refine(K, L, dd, bb, 2)
+        assert torch.equal(x[others], x0[others])
+        assert torch.equal(xr[others], xr0[others])
+        assert torch.equal(rr[others], rr0[others])
+        assert not bool(torch.isfinite(xr[2]).all())
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):

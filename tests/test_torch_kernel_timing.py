@@ -1,0 +1,46 @@
+"""cuclarabel_torch.kernel_timing off the card: the work and bound it
+charges each kernel, and its kernel calls, which on CPU tensors run the
+plain versions."""
+
+import pytest
+import torch
+
+from cuclarabel_torch import kernel_timing as kt
+from cuclarabel_torch.kkt import ldl
+
+
+def test_work_counts_the_triangles_the_function_needs():
+    N, B = 76, 4096
+    tri, stri = N * (N + 1) // 2, N * (N - 1) // 2
+    assert kt.work("ldl_solve", B, N)[0] == B * 8 * (stri + 3 * N)
+    assert kt.work("kkt_residual", B, N, R=2)[0] == B * 8 * (tri + 6 * N)
+    nbytes, ops = kt.work("ldl_solve_refine", B, N)
+    assert nbytes == B * 8 * (tri + stri + 4 * N)
+    ms, by = kt.bound_ms(nbytes, ops)
+    assert by == "bytes" and ms == pytest.approx(nbytes / 3.35e9)
+
+
+def test_row_line_shows_the_optional_times_only_where_measured():
+    row = {"name": "ldl_solve", "R": 1, "N": 76, "B": 256, "ms": 0.01,
+           "plain_ms": 10.0, "bound_ms": 0.002, "bound_by": "bytes",
+           "gb": 0.006, "gflop": 0.003, "blocks_per_sm": 9,
+           "warps_per_sm": 36}
+    line = kt.row_line("card", row)
+    assert "device 0.0100 ms" in line and "9 blocks / 36 warps" in line
+    assert "flushed" not in line and "events" not in line
+    line = kt.row_line("card", dict(row, cold_ms=0.02, events_ms=0.03))
+    assert "L2 flushed 0.0200 ms" in line and "by events 0.0300 ms" in line
+
+
+def test_calls_cover_every_form_and_agree_with_plain_on_cpu():
+    op = kt.operands(3, dev="cpu")
+    forms = kt.calls(op)
+    assert set(forms) == set(kt.FORMS)
+    ldl.reset_counts()
+    for (name, R), (kern, plain) in forms.items():
+        got, want = kern(), plain()
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(g, w), (name, R)
+    assert not ldl.LAUNCHES
+    assert set(kt.KERNEL_NAMES) == {name for name, _ in kt.FORMS}
