@@ -16,7 +16,10 @@ Phases, in order; any failure exits non-zero:
    f64 solves of a few problems; then the two f32 kernels (ldl_factor_batched,
    ldl_solve_batched) against theirs at (N, B) = (16, 5), (76, 4096),
    (128, 256) and (9, 3), with numpy's reconstruction of K and the
-   inertia of D;
+   inertia of D; then the probe kernels (csrc/probes.cu) against theirs,
+   bit for bit: each P1 variant at (N, B) = (83, 4096) and (13, 256), each
+   P2 (R, streams) of its sweep, on seeded random inputs and on the
+   reference's constants;
 4. main paths, each driven with the launch counters set to 0 just
    before it and read just after, showing its kernels ran and no plain
    version did:
@@ -30,6 +33,10 @@ Phases, in order; any failure exits non-zero:
      then an update_q with a warm-started re-solve, and one verbose
      solve whose table is printed;
    - f32: ldl_factor_batched and ldl_solve_batched at (76, 4096);
+   - probes: the sweeps of the probes' entry points,
+     cuclarabel_torch.probes.mosaic_probe at (83, 4096) and
+     mosaic_probe2 (device time, bound, share of the issue rate, and for
+     P2 ptxas' registers and spills), then each plain version's time;
 5. timing: warm problems/s, iterations and refinement passes of the
    batch; first, repeat and warm-started solve ms of the N = 76 Solver
    problem; each f64 kernel form (R = 1 and 2) at N = 76 and B = 4096,
@@ -106,6 +113,15 @@ REPLACES_F32 = {
     "ldl_solve_batched": "cuclarabel_tpu/kkt/pallas_ldl.py:114",
 }
 SOURCE_F32 = "cuclarabel_torch/csrc/ldl_f32.cu"
+REPLACES_PROBES = {
+    "probe_chain": "scripts/mosaic_probe.py:64",
+    "probe_issue": "scripts/mosaic_probe2.py:14",
+}
+SOURCE_PROBES = "cuclarabel_torch/csrc/probes.cu"
+# P1 at the reference's default and at a ragged small shape; P2 at every
+# (R, streams) of its sweep; seeded random inputs and the constants
+PROBE_SHAPES = ((83, 4096), (13, 256))  # (N, B)
+PROBE_SEEDS = (5, None)
 
 
 class SmokeFailure(RuntimeError):
@@ -497,6 +513,102 @@ def phase_f32_path():
     return launches, (K, b, L, Dinv)
 
 
+def phase_probes():
+    """The probe kernels against their plain versions on the card, bit
+    for bit (-fmad=false: the same rounding of every operation): each P1
+    variant at PROBE_SHAPES, with D's output equal to A's, and each P2
+    (R, streams) of the sweep, on seeded random inputs and on the
+    reference's constants.  Returns the max abs error per kernel."""
+    from cuclarabel_torch.probes import mosaic_probe as p1
+    from cuclarabel_torch.probes import mosaic_probe2 as p2
+
+    errs = {k: 0.0 for k in REPLACES_PROBES}
+
+    def hold(kernel, tag, got, want):
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"{kernel} {tag}: shape {tuple(got.shape)} or non-finite")
+        e = float((got - want).abs().max())
+        check(torch.equal(got, want), f"{kernel} {tag}: {e:.2e} from plain "
+              "(bar: bit for bit)")
+        errs[kernel] = max(errs[kernel], e)
+
+    for seed in PROBE_SEEDS:
+        kind = "constants" if seed is None else f"seed {seed}"
+        for N, B in PROBE_SHAPES:
+            x, y = p1.inputs((N, N, B), seed, "cuda")
+            outs = {}
+            for variant, rows, _ in p1.SWEEP:
+                tag = f"{p1.name(variant, rows)} at N={N} B={B}, {kind}"
+                outs[p1.name(variant, rows)] = o = p1.chain(x, y, variant,
+                                                            rows)
+                torch.cuda.synchronize()
+                hold("probe_chain", tag, o, p1.chain_plain(x, y, variant,
+                                                           rows))
+            for r in p1.CHUNK_ROWS:
+                check(torch.equal(outs[f"D{r}"], outs["A"]),
+                      f"probe_chain D{r} differs from A at N={N} B={B}")
+            print(f"probe_chain ok at N={N} B={B}, {kind}: every variant "
+                  "bit for bit with plain, D equal to A")
+        for R, streams in p2.SWEEP:
+            x, y = p1.inputs((R, p2.LANES), seed, "cuda")
+            o = p2.run(x, y, p2.OPS, streams)
+            torch.cuda.synchronize()
+            hold("probe_issue", f"R={R} s={streams}, {kind}", o,
+                 p2.make_plain(x, y, p2.OPS, streams))
+        print(f"probe_issue ok, {kind}: every (R, streams) of the sweep "
+              "bit for bit with plain")
+    return errs
+
+
+def phase_probes_path(card):
+    """The probes' entry points, P1's sweep at the reference's default
+    (83, 4096) and P2's sweep, with the launch counters; then each plain
+    version's time.  Returns (launches, {kernel: timing row})."""
+    from cuclarabel_torch.probes import mosaic_probe as p1
+    from cuclarabel_torch.probes import mosaic_probe2 as p2
+
+    N, B = PROBE_SHAPES[0]
+    (chain_rows, issue_rows), launches = counted(
+        "probes", lambda: (p1.sweep(N, B), p2.sweep()))
+    for variant, rows, _ in p1.SWEEP:
+        key = f"probe_chain/{p1.name(variant, rows)}"
+        check(launches.get(key, 0) > 0, f"probes: {key} never launched")
+    for R, streams in p2.SWEEP:
+        key = f"probe_issue/{p2.name(R, streams)}"
+        check(launches.get(key, 0) > 0, f"probes: {key} never launched")
+
+    x, y = p1.inputs((N, N, B), device="cuda")
+    plain = {p1.name(v, r): cuda_ms(
+        lambda v=v, r=r: p1.chain_plain(x, y, v, r), 3)
+        for v, r, _ in p1.SWEEP}
+    for R, streams in p2.SWEEP:
+        xi, yi = p1.inputs((R, p2.LANES), device="cuda")
+        plain[p2.name(R, streams)] = cuda_ms(
+            lambda xi=xi, yi=yi, s=streams: p2.make_plain(xi, yi, p2.OPS, s),
+            3)
+    keep = ("ms", "plain_ms", "bound_ms", "bound_by", "op_per_s",
+            "issue_pct", "sm_clock", "ptxas")
+    times = {}
+    for kernel, rows in (("probe_chain", chain_rows),
+                         ("probe_issue", issue_rows)):
+        by_shape = {}
+        for row in rows:
+            row["plain_ms"] = plain[row["name"]]
+            by_shape[row["name"]] = {k: row[k] for k in keep}
+            extra = "stream_ms" if kernel == "probe_chain" else "sm_bound_ms"
+            by_shape[row["name"]][extra] = row[extra]
+            print(f"[{card}] {kernel} {row['name']}: device {row['ms']:.4f} "
+                  f"ms, plain {row['plain_ms']:.3f} ms, bound "
+                  f"{row['bound_ms']:.6f} ms ({row['bound_by']}), "
+                  f"{row['issue_pct']:.1f}% of the issue rate")
+        # the first of the sweep heads the row: P1's A, P2's R = 8
+        head = by_shape[rows[0]["name"]]
+        times[kernel] = {"ms": head["ms"], "plain_ms": head["plain_ms"],
+                         "library_ms": None, "bound_ms": head["bound_ms"],
+                         "bound_by": head["bound_by"], "by_shape": by_shape}
+    return launches, times
+
+
 def phase_timing(card, runs):
     for B, (A, qs, bs, cones, solver, sols, cold) in runs.items():
         reps = 3 if B <= 256 else 2
@@ -672,7 +784,8 @@ def kernel_entries(paths, errs, times):
     rows = []
     for name, replaces, source in (
             [(k, v, SOURCE) for k, v in REPLACES.items()]
-            + [(k, v, SOURCE_F32) for k, v in REPLACES_F32.items()]):
+            + [(k, v, SOURCE_F32) for k, v in REPLACES_F32.items()]
+            + [(k, v, SOURCE_PROBES) for k, v in REPLACES_PROBES.items()]):
         per_path = {path: sum(v for kk, v in launches.items()
                               if kk.split("/")[0] == name)
                     for path, launches in paths.items()}
@@ -711,12 +824,15 @@ def main():
     phase_build()
     errs = phase_kernels()
     errs.update(phase_kernels_f32())
+    errs.update(phase_probes())
     runs, paths = phase_main(card)
     paths["solver"], solver_times = phase_solver(card)
     paths["f32"], f32_data = phase_f32_path()
+    paths["probes"], probe_times = phase_probes_path(card)
     phase_timing(card, runs)
     times = phase_kernel_timing(card)
     times.update(phase_kernel_timing_f32(card, *f32_data))
+    times.update(probe_times)
     print(json.dumps({"solver_n76": solver_times}))
     print(json.dumps({"kernels": kernel_entries(paths, errs, times)}))
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,9 @@ the verbose table) and the batched `BatchSolver`, through the dense KKT
 backend whose LDL^T factorisation, substitution, residual and refined
 solve are hand-written CUDA kernels (`kkt/ldl.py`, `csrc/ldl.cu`), and
 the f32 batched LDL^T entry points `ldl_factor_batched` and
-`ldl_solve_batched` (`kkt/ldl_f32.py`, `csrc/ldl_f32.cu`).  Solves run
+`ldl_solve_batched` (`kkt/ldl_f32.py`, `csrc/ldl_f32.cu`).  The issue-rate
+probes of the JAX package's `scripts/` have counterparts in `probes/`
+(`csrc/probes.cu`), run as their own entry points.  Solves run
 on the CUDA device unless the caller passes device="cpu", where the
 kernels' plain PyTorch versions run instead.
 """

@@ -39,11 +39,17 @@ import torch
 
 from .kkt import _build, ldl
 
-# H100 SXM (NVIDIA data sheet): HBM3 bandwidth and the f64 and f32 rates
-# outside the tensor cores, at the full 700 W power limit
+# H100 SXM (NVIDIA data sheet), at the full 700 W power limit: HBM3
+# bandwidth, and the f64 and f32 rates outside the tensor cores in
+# instructions.  The data sheet's 34 and 67 TFLOP/s count an FMA as two
+# operations; the kernels build with -fmad=false (kkt/_build.py), so each
+# multiply and each add is one instruction: 132 SMs x 64 f64 or 128 f32
+# lanes x the 1.98 GHz boost clock.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_F64_PER_S = 34e12
-PEAK_F32_PER_S = 67e12
+SMS = 132
+SM_CLOCK_HZ = 1.98e9
+PEAK_F64_PER_S = SMS * 64 * SM_CLOCK_HZ
+PEAK_F32_PER_S = SMS * 128 * SM_CLOCK_HZ
 L2_FLUSH_BYTES = 256 << 20
 
 # the main path's KKT blocks: n = 33 variables, m = 43 constraints
@@ -65,10 +71,10 @@ OCCUPANCY_ID = {"ldl_factor": 0, "ldl_solve": 1, "kkt_residual": 2,
                 "ldl_solve_refine": 3}
 
 
-def card_line():
+def card_line(query="name,power.limit"):
+    """nvidia-smi's answer to `query` for the first card, as one line."""
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
 

@@ -14,6 +14,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -22,7 +23,7 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
-SOURCES = (CSRC / "ldl.cu", CSRC / "ldl_f32.cu")
+SOURCES = (CSRC / "ldl.cu", CSRC / "ldl_f32.cu", CSRC / "probes.cu")
 HEADERS = (CSRC / "ldl_core.cuh",)
 BUILD_DIR = PACKAGE_DIR.parent / "build"
 # -fmad=false: no contraction of a multiply and an add into one FMA, so
@@ -39,8 +40,9 @@ NVCC_FLAGS = ARCH + (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures of csrc/ldl.cu and csrc/ldl_f32.cu (pointers, then ints,
-# then the stream; cc_occupancy: ints, then two int pointers)
+# C signatures of csrc/ldl.cu, csrc/ldl_f32.cu and csrc/probes.cu
+# (pointers, then ints, then the stream; cc_occupancy: ints, then two int
+# pointers)
 SIGNATURES = {
     "cc_ldl_factor": (_P, _P, _P, _P, _P, _I, _I, _P),
     "cc_ldl_solve": (_P, _P, _P, _P, _I, _I, _I, _P),
@@ -49,6 +51,8 @@ SIGNATURES = {
     "cc_ldl_factor_f32": (_P, _P, _P, _I, _I, _P),
     "cc_ldl_solve_f32": (_P, _P, _P, _P, _I, _I, _P),
     "cc_occupancy": (_I, _I, _I, _P, _P),
+    "cc_probe_chain": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "cc_probe_issue": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 
@@ -87,15 +91,18 @@ def _run(cmd):
 def build() -> dict:
     """Compile the kernels unless a build of these sources exists.
     Returns {"path", "seconds", "log"} (log: nvcc's and ptxas' report,
-    empty when the build was found)."""
+    kept beside the library, so a found build returns its log too)."""
     path = library_path()
+    log_path = path.with_suffix(".log")
     if path.exists():
-        return {"path": path, "seconds": 0.0, "log": ""}
+        log = log_path.read_text() if log_path.exists() else ""
+        return {"path": path, "seconds": 0.0, "log": log}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     tag = f"{path.stem}.{os.getpid()}"
     objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    tmp_log = log_path.with_name(f"{log_path.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
     try:
         # one nvcc per source, all started together
@@ -105,13 +112,42 @@ def build() -> dict:
                        for src, o in zip(SOURCES, objs)]))
         logs.append(_run([nvcc, *ARCH, "-shared", "-o", str(tmp),
                           *map(str, objs)]))
+        # the log first: a loader that finds the library finds its log
+        tmp_log.write_text("".join(logs))
+        os.replace(tmp_log, log_path)
         os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
     finally:
         tmp.unlink(missing_ok=True)
+        tmp_log.unlink(missing_ok=True)
         for o in objs:
             o.unlink(missing_ok=True)
     return {"path": path, "seconds": time.perf_counter() - t0,
             "log": "".join(logs)}
+
+
+_PTXAS_NAME = re.compile(
+    r"(?:Compiling entry function '|Function properties for )([^'\s]+)")
+_PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(log: str) -> dict:
+    """{mangled kernel name: {"registers", "stack_frame", "spill_stores",
+    "spill_loads"}} (bytes per thread) from ptxas' -v report in a
+    build()'s log; a key is missing where ptxas printed no such line."""
+    out = {}
+    name = None
+    for line in log.splitlines():
+        if m := _PTXAS_NAME.search(line):
+            name = m.group(1)
+            out.setdefault(name, {})
+        elif name is not None and (m := _PTXAS_FRAME.search(line)):
+            out[name].update(zip(("stack_frame", "spill_stores",
+                                  "spill_loads"), map(int, m.groups())))
+        elif name is not None and (m := _PTXAS_REGS.search(line)):
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 @functools.lru_cache(maxsize=1)

@@ -10,7 +10,8 @@ card tensors: the factor and the substitution, f64 and f32, bit for bit
 (the kernels are built with -fmad=false and round every operation as the
 plain versions do), the residual and the refined solve within 1e-12
 relative (other summation orders), at the main shapes and at the edges
-of the substitution's 32-row panels."""
+of the substitution's 32-row panels.  The issue-rate probes' kernels
+(csrc/probes.cu) are held to their plain versions bit for bit."""
 
 import numpy as np
 import pytest
@@ -241,3 +242,54 @@ def test_solver_defaults_to_cuda(dev):
     assert got.status == want.status == ct.SolverStatus.SOLVED
     assert got.iterations == want.iterations
     assert abs(got.obj_val - want.obj_val) <= 1e-7 * abs(want.obj_val)
+
+
+@pytest.mark.parametrize("N,B", [(83, 4096), (13, 256), (7, 130)])
+def test_probe_chain_matches_plain(dev, N, B):
+    """Every P1 variant bit for bit with its plain version, at the
+    reference's default, its small shape and an odd N with a ragged B;
+    D's output equals A's."""
+    from cuclarabel_torch.kkt import ldl
+    from cuclarabel_torch.probes import mosaic_probe as p1
+
+    for seed in (N + B, None):
+        x, y = p1.inputs((N, N, B), seed, dev)
+        ldl.reset_counts()
+        outs = {}
+        for variant, rows, _ in p1.SWEEP:
+            o = p1.chain(x, y, variant, rows)
+            outs[p1.name(variant, rows)] = o
+            assert torch.equal(o, p1.chain_plain(x, y, variant, rows))
+        torch.cuda.synchronize()
+        assert all(torch.equal(outs[f"D{r}"], outs["A"])
+                   for r in p1.CHUNK_ROWS)
+        assert dict(ldl.LAUNCHES) == {f"probe_chain/{k}": 1 for k in outs}
+
+
+@pytest.mark.parametrize("R,streams", [(8, 1), (32, 1), (128, 1), (512, 1),
+                                       (1024, 1), (2048, 1), (8, 4), (32, 4),
+                                       (512, 4)])
+def test_probe_issue_matches_plain(dev, R, streams):
+    from cuclarabel_torch.probes import mosaic_probe as p1
+    from cuclarabel_torch.probes import mosaic_probe2 as p2
+
+    x, y = p1.inputs((R, p2.LANES), R + streams, dev)
+    o = p2.run(x, y, p2.OPS, streams)
+    torch.cuda.synchronize()
+    assert torch.equal(o, p2.make_plain(x, y, p2.OPS, streams))
+
+
+def test_probe_wrappers_reject_mixed_devices_and_dtypes(dev):
+    from cuclarabel_torch.probes import mosaic_probe as p1
+    from cuclarabel_torch.probes import mosaic_probe2 as p2
+
+    x, y = p1.inputs((5, 5, 128), 0, dev)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        p1.chain(x, y.cpu(), "A")
+    with pytest.raises(TypeError):
+        p1.chain(x.double(), y.double(), "B")
+    xi, yi = p1.inputs((8, p2.LANES), 0, dev)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        p2.run(xi.cpu(), yi, p2.OPS, 1)
+    with pytest.raises(TypeError):
+        p2.run(xi.half(), yi.half(), p2.OPS, 1)

@@ -29,11 +29,14 @@ print("LOADED", bad)
 print("PORT", sorted(m for m in sys.modules if m.startswith("cuclarabel_torch")))
 """
 
-# modules added with the single-problem Solver and the f32 LDL^T kernels
+# modules added with the single-problem Solver, the f32 LDL^T kernels and
+# the issue-rate probes
 NEW_MODULES = ("cuclarabel_torch.device", "cuclarabel_torch.equilibration",
                "cuclarabel_torch.info_print", "cuclarabel_torch.json_io",
                "cuclarabel_torch.kkt.ldl_f32", "cuclarabel_torch.presolve",
-               "cuclarabel_torch.solver", "cuclarabel_torch.warmstart")
+               "cuclarabel_torch.solver", "cuclarabel_torch.warmstart",
+               "cuclarabel_torch.probes.mosaic_probe",
+               "cuclarabel_torch.probes.mosaic_probe2")
 
 
 def _env():

@@ -44,3 +44,19 @@ def test_calls_cover_every_form_and_agree_with_plain_on_cpu():
             assert torch.equal(g, w), (name, R)
     assert not ldl.LAUNCHES
     assert set(kt.KERNEL_NAMES) == {name for name, _ in kt.FORMS}
+
+
+def test_rates_count_unfused_instructions():
+    """The kernels build with -fmad=false, so the operations rate is one
+    multiply or add per lane and clock: 16.7 T op/s in f64 and 33.5 in
+    f32 at 1.98 GHz, half the data sheet's FMA-counted rates.  Every f64
+    kernel form stays bound by bytes at the main path's widths, and so do
+    the f32 kernels at (76, 4096)."""
+    assert kt.PEAK_F64_PER_S == pytest.approx(16.7e12, rel=2e-3)
+    assert kt.PEAK_F32_PER_S == pytest.approx(33.5e12, rel=2e-3)
+    for B in kt.WIDTHS:
+        for name, R in kt.FORMS:
+            assert kt.bound_ms(*kt.work(name, B, 76, R=R))[1] == "bytes"
+    for name in ("ldl_factor_batched", "ldl_solve_batched"):
+        assert kt.bound_ms(*kt.work(name, 4096, 76),
+                           kt.PEAK_F32_PER_S)[1] == "bytes"
