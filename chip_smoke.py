@@ -8,12 +8,17 @@ Phases, in order; any failure exits non-zero:
 1. device: requires CUDA; prints the card's name and power limit
    (nvidia-smi) and the torch and CUDA versions;
 2. build: compiles csrc/*.cu with nvcc into build/ (one nvcc per source,
-   started together) and prints the seconds taken;
+   started together) and prints the seconds taken, and ptxas' registers
+   and spill bytes of ldl_factor_kernel and kkt_residual_kernel (a
+   spill fails the run);
 3. kernels: each of the four f64 LDL^T kernels against its plain
    PyTorch version on the card, at (N, B) = (76, 4096), (13, 1024),
    (128, 1024) and the Solver's B = 1 shapes (76, 1), (12, 1), (8, 1),
-   for one and two right-hand sides (ldl_solve bit for bit), plus numpy
-   f64 solves of a few problems; then the two f32 kernels (ldl_factor_batched,
+   for one and two right-hand sides (ldl_factor and ldl_solve bit for
+   bit), plus numpy f64 solves of a few problems, K carrying junk above
+   its diagonal, which no kernel may read; ldl_factor bit for bit at
+   (N, B) = (8, 300), (9, 300), (76, 300) and (128, 300) too, around the
+   edges of its 8-pivot panels and 4 x 4 tiles; then the two f32 kernels (ldl_factor_batched,
    ldl_solve_batched) against theirs at (N, B) = (16, 5), (76, 4096),
    (128, 256) and (9, 3), with numpy's reconstruction of K and the
    inertia of D; then the probe kernels (csrc/probes.cu) against theirs,
@@ -41,7 +46,8 @@ Phases, in order; any failure exits non-zero:
    batch; first, repeat and warm-started solve ms of the N = 76 Solver
    problem; each f64 kernel form (R = 1 and 2) at N = 76 and B = 4096,
    256 and 1 (cuclarabel_torch.kernel_timing: device time, CUDA events
-   at B = 4096, resident blocks and warps per SM) beside its bound, its
+   at B = 4096, resident blocks and warps per SM, ptxas' registers and
+   spill bytes) beside its bound, its
    plain version's time and, where one PyTorch call computes the same
    function, that call's time; the f32 kernels at (76, 4096), and the
    f64 factor and substitution on the f32 K, by device time.  A kernel's
@@ -77,8 +83,13 @@ KERNEL_SHAPES = ((33, 43, 4096), (5, 8, 1024), (56, 72, 1024), (33, 43, 1),
 TIMING_WIDTHS = (4096, 256, 1)
 NUMPY_CHECK = 4
 
-# accuracy bars (tests/test_pallas_dd.py of the reference)
-TOL_FACTOR = 1e-10    # L and D^-1 vs plain, relative to the max entry
+# ldl_factor bit for bit at these too: (n, m, B) around the factor's
+# panel (8) and tile (4) edges, and N = 128
+FACTOR_SHAPES = ((3, 5, 300), (4, 5, 300), (33, 43, 300), (56, 72, 300))
+# junk written above K's diagonal, which the kernels must not read
+JUNK = 1e3
+# accuracy bars (tests/test_pallas_dd.py of the reference); the factor
+# and the substitution are held to plain bit for bit
 TOL_SOLVE = 1e-9      # x vs numpy f64 / plain, relative to max(|x|, 1)
 TOL_RESID = 1e-10     # residual vs plain, relative to max(|r|, 1)
 TOL_RETURNED_R = 1e-11  # refine's r vs b - K x recomputed, absolute
@@ -141,6 +152,10 @@ def rel(a, b, floor=0.0):
 
 
 # ---------------------------------------------------------------------
+# the kernels whose ptxas report is printed, and which must not spill
+NO_SPILL = ("ldl_factor_kernel", "kkt_residual_kernel")
+
+
 def phase_build():
     from cuclarabel_torch.kkt import _build
 
@@ -150,6 +165,17 @@ def phase_build():
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             print(f"  {line.strip()}")
+    report = _build.ptxas_report(info["log"])
+    for func in NO_SPILL:
+        found = {k: v for k, v in report.items()
+                 if f"{len(func)}{func}" in k}
+        check(bool(found), f"ptxas reported no {func}")
+        for name, rec in sorted(found.items()):
+            spill = rec.get("spill_stores", 0) + rec.get("spill_loads", 0)
+            print(f"ptxas {name}: {rec.get('registers')} registers, "
+                  f"{rec.get('spill_stores')} B spill stores, "
+                  f"{rec.get('spill_loads')} B spill loads")
+            check(spill == 0, f"{name} spills {spill} B")
     return info
 
 
@@ -161,25 +187,40 @@ def phase_kernels():
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     errs = {k: 0.0 for k in REPLACES}
-    for n, m, B in KERNEL_SHAPES:
-        N = n + m
-        Kn, regn = make_kkt(rng, B, n, m)
-        K = torch.tensor(Kn, device=dev)
-        reg = torch.tensor(regn, device=dev)
-        tag = f"N={N} B={B}"
 
+    def factor(K, reg, tag):
         L, Dinv, ok = ldl.ldl_factor(K, reg)
         torch.cuda.synchronize()
         Lp, Dinvp, okp = ldl.ldl_factor_plain(K, reg)
-        eL, eD = rel(L, Lp), rel(Dinv, Dinvp)
-        worst = {"ldl_factor": max(eL, eD)}
+        e = max(rel(L, Lp), rel(Dinv, Dinvp))
         check(bool(ok.all()) and bool(okp.all()), f"factor not ok at {tag}")
-        check(eL < TOL_FACTOR and eD < TOL_FACTOR,
-              f"ldl_factor vs plain at {tag}: L {eL:.2e}, Dinv {eD:.2e}")
+        check(torch.equal(L, Lp) and torch.equal(Dinv, Dinvp),
+              f"ldl_factor vs plain at {tag}: {e:.2e} (bar: bit for bit)")
         check(bool((L.triu() == 0).all()), f"L not strictly lower at {tag}")
         errs["ldl_factor"] = max(errs["ldl_factor"],
                                  float((L - Lp).abs().max()),
                                  float((Dinv - Dinvp).abs().max()))
+        return L, Dinv, e
+
+    def with_junk(Kn):
+        junk = np.triu(rng.standard_normal(Kn.shape), 1) * JUNK
+        return torch.tensor(Kn + junk, device=dev)
+
+    for n, m, B in FACTOR_SHAPES:
+        Kn, regn = make_kkt(rng, B, n, m)
+        factor(with_junk(Kn), torch.tensor(regn, device=dev),
+               f"N={n + m} B={B}")
+    print("ldl_factor bit for bit with plain at (N, B) = "
+          + ", ".join(f"({n + m}, {B})" for n, m, B in FACTOR_SHAPES))
+    for n, m, B in KERNEL_SHAPES:
+        N = n + m
+        Kn, regn = make_kkt(rng, B, n, m)
+        K = with_junk(Kn)
+        reg = torch.tensor(regn, device=dev)
+        tag = f"N={N} B={B}"
+
+        L, Dinv, e = factor(K, reg, tag)
+        worst = {"ldl_factor": e}
 
         # refinement runs against the unregularised K: its iterates move
         # from the solution of K + diag(reg) towards that of K
@@ -230,6 +271,10 @@ def phase_kernels():
                       f"ldl_solve_refine r={R} npass={npass} at {tag}: "
                       f"vs plain {e1:.2e}, vs numpy {e2:.2e}, "
                       f"returned r {e3:.2e}")
+                # the two kernels' residual sums are one and the same
+                check(torch.equal(rr, ldl.kkt_residual(K, xr, b)),
+                      f"ldl_solve_refine r={R} npass={npass} at {tag}: its "
+                      "r differs from kkt_residual's (bar: bit for bit)")
                 worst["ldl_solve_refine"] = max(
                     worst.get("ldl_solve_refine", 0.0), e1)
                 errs["ldl_solve_refine"] = max(
@@ -696,7 +741,7 @@ def phase_kernel_timing(card):
     call.  Returns {kernel: {"B<B>_r<R>": numbers}}."""
     out = {}
     for B in TIMING_WIDTHS:
-        rows, op = kt.time_width(B)
+        rows, op = kt.time_width(B, forms=kt.F64_FORMS)
         lib = library_calls(op)
         for row in rows:
             fn = lib.get((row["name"], row["R"]))
@@ -707,7 +752,8 @@ def phase_kernel_timing(card):
             out.setdefault(row["name"], {})[f"B{B}_r{row['R']}"] = {
                 k: row[k] for k in (
                     "ms", "events_ms", "plain_ms", "library_ms", "bound_ms",
-                    "bound_by", "blocks_per_sm", "warps_per_sm") if k in row}
+                    "bound_by", "blocks_per_sm", "warps_per_sm", "registers",
+                    "spill_bytes") if k in row}
     return out
 
 
@@ -747,17 +793,17 @@ def phase_kernel_timing_f32(card, K, b, L, Dinv):
     L64, D64, _ = ldl.ldl_factor(K64, reg0)
     b64 = b.double()
     dev = kt.device_ms({
-        ("f32", "ldl_factor_f32_kernel("):
+        ("f32", "ldl_factor_f32_kernel"):
             lambda: ldl_f32.ldl_factor_batched(K),
         ("f32", "ldl_solve_f32_kernel<"):
             lambda: ldl_f32.ldl_solve_batched(L, Dinv, b),
-        ("f64", "ldl_factor_kernel("): lambda: ldl.ldl_factor(K64, reg0),
+        ("f64", "ldl_factor_kernel"): lambda: ldl.ldl_factor(K64, reg0),
         ("f64", "ldl_solve_kernel<1"): lambda: ldl.ldl_solve(L64, D64, b64)},
         20)
     out = {
         "ldl_factor_batched": time_kernel(
             card, "ldl_factor_batched", B, N,
-            dev[("f32", "ldl_factor_f32_kernel(")],
+            dev[("f32", "ldl_factor_f32_kernel")],
             lambda: ldl_f32.ldl_factor_batched_plain(K),
             lambda: torch.linalg.inv(K)),
         "ldl_solve_batched": time_kernel(
@@ -766,7 +812,7 @@ def phase_kernel_timing_f32(card, K, b, L, Dinv):
             lambda: ldl_f32.ldl_solve_batched_plain(L, Dinv, b),
             lambda: torch.linalg.ldl_solve(LD, piv, b3)),
     }
-    for name, kname in (("ldl_factor_batched", "ldl_factor_kernel("),
+    for name, kname in (("ldl_factor_batched", "ldl_factor_kernel"),
                         ("ldl_solve_batched", "ldl_solve_kernel<1")):
         out[name]["f64_kernel_ms"] = dev[("f64", kname)]
         print(f"[{card}] {name}: f32 {out[name]['ms']:.4f} ms, the f64 "

@@ -16,16 +16,18 @@
 // TPU counterpart; the rounding differs (f64 in place of double-float,
 // and another summation order).
 //
-// Bounds on an H100 SXM (3.35 TB/s HBM3, 34 TFLOP/s f64 outside the
-// tensor cores) at the main path's shape (N = 76, B = 4096): each kernel
-// moves O(N^2) bytes per problem and does O(N^2) (substitution,
-// residual) or O(N^3 / 3) (factor) f64 operations, so all four are
-// memory-bound by their bytes; see the note above each kernel.  The
-// chain of pivot steps inside one problem is sequential, so what they
-// wait on is latency: the factor works through it in shared memory with
-// one __syncthreads() per pivot, the substitution and the refined solve
-// in one warp with one shuffle per step, and the card is filled by
-// running many problems (blocks) at once.
+// Bounds on an H100 SXM (3.35 TB/s HBM3; 16.7 T f64 instructions/s
+// outside the tensor cores, 132 SMs x 64 lanes x 1.98 GHz, each multiply
+// and each add one instruction under -fmad=false) at the main path's
+// shape (N = 76, B = 4096): each kernel moves O(N^2) bytes per problem
+// and does O(N^2) (substitution, residual) or O(N^3 / 3) (factor) f64
+// operations, so all four are memory-bound by their bytes; see the note
+// above each kernel.  The chain of pivot steps inside one problem is
+// sequential, so what they wait on is latency: the factor works through
+// it in shared memory in panels of 8 pivots with two block barriers per
+// panel, the substitution and the refined solve in one warp with one
+// shuffle per step, and the card is filled by running many problems
+// (blocks) at once.
 //
 // The factor and substitution bodies live in ldl_core.cuh, shared with
 // the f32 kernels of ldl_f32.cu.
@@ -38,8 +40,6 @@
 
 namespace {
 
-constexpr int kFactorThreads = 256;
-constexpr int kResidualThreads = 128;
 constexpr int kMaxR = 2;
 
 // max that propagates NaN, like torch.amax and jnp.max: a NaN residual
@@ -48,63 +48,24 @@ __device__ inline double nanmax(double a, double b) {
   return (a > b || a != a) ? a : b;
 }
 
-__device__ inline double warp_sum(double v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 __device__ inline double warp_max(double v) {
   for (int o = 16; o > 0; o >>= 1)
     v = nanmax(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
-// Element (i, k) of a row-major matrix in device memory.
-struct FullRows {
-  const double* p;
-  int n;
-  __device__ double operator()(int i, int k) const {
-    return p[(size_t)i * n + k];
-  }
-};
-
-// r = b - K x for R right-hand sides, one warp per row of K, lanes over
-// the row's columns and a shuffle reduction.  x is in shared memory;
-// b and r may be in shared or device memory.  The caller syncs after.
-template <int R, class KView>
-__device__ void residual_rows(KView kv, const double* x, const double* b,
-                              double* r, int n) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  for (int i = warp; i < n; i += nw) {
-    double acc[R];
-#pragma unroll
-    for (int t = 0; t < R; ++t) acc[t] = 0.0;
-    for (int k = lane; k < n; k += 32) {
-      const double kik = kv(i, k);
-#pragma unroll
-      for (int t = 0; t < R; ++t) acc[t] += kik * x[k * R + t];
-    }
-#pragma unroll
-    for (int t = 0; t < R; ++t) acc[t] = warp_sum(acc[t]);
-    if (lane == 0) {
-#pragma unroll
-      for (int t = 0; t < R; ++t) r[i * R + t] = b[i * R + t] - acc[t];
-    }
-  }
-}
-
-// r = b - K x by the calling warp, for the symmetric K held as its
-// packed lower triangle ks (row i at tri(i), diagonal included); x, b
-// and r are the lane's rows (ldl_core.cuh's warp layout).
+// r = b - K x for the symmetric K held as its packed lower triangle ks
+// (row i at tri(i), diagonal included), by warps; x, b and r are the
+// lane's rows (ldl_core.cuh's warp layout).  kkt_residual deals the
+// groups of rows out to its warps, ldl_solve_refine runs them all in
+// one warp; both sum in one order, so their residuals agree bit for bit.
 //
-// The sums are those of residual_rows, bit for bit, so r equals
-// kkt_residual's: for row i, lane l sums K_ik x_k over its own
-// k = l + 32 q in ascending q, and the 32 partial sums are added along
-// the butterfly tree of warp_sum (lane l with lane l ^ 16, then ^ 8, ^ 4,
-// ^ 2, ^ 1).  K_ik is read from row i (k <= i, lanes on consecutive
-// columns) or from column i of row k (k > i, lanes on rows tri(k) + i,
-// conflict-free as in the forward sweep).
+// For row i, lane l sums K_ik x_k over its own k = l + 32 q in ascending
+// q, and the 32 partial sums are added along a butterfly tree (lane l
+// with lane l ^ 16, then ^ 8, ^ 4, ^ 2, ^ 1).  K_ik is read from row i
+// (k <= i, lanes on consecutive columns) or from column i of row k
+// (k > i, lanes on rows tri(k) + i, conflict-free as in the forward
+// sweep).
 //
 // Rows go in groups of kRowGroup = 8, and the first three levels of the
 // tree are transposed: at level o each lane keeps the half of its rows
@@ -131,65 +92,88 @@ __device__ inline void transpose_level(double (&v)[kRowGroup][R], int o) {
   }
 }
 
-template <int R, int S>
-__device__ void warp_residual(const double* ks, const double (&x)[S][R],
-                              const double (&b)[S][R],
-                              double (&r)[S][R], int n) {
+// tri(k) of the lane's columns k = 32 q + lane (k >= n: 0).
+template <int S>
+__device__ inline void column_offsets(int (&off)[S], int n) {
   const int lane = threadIdx.x & 31;
-  int off[S];  // tri(k) of the lane's columns k = 32 q + lane
 #pragma unroll
   for (int q = 0; q < S; ++q) {
     const int k = kWarp * q + lane;
     off[q] = k < n ? tri(k) : 0;
   }
+}
+
+// The sums of one group of rows, i = 32 p + i0 + g, g < kRowGroup, by
+// the calling warp: on return lane l, i0 <= l < min(i0 + 8, rows), holds
+// sum[t] = (K x)_it of row i = 32 p + l (rows = the rows of panel p).
+template <int R, int S>
+__device__ inline void residual_group(const double* ks,
+                                      const double (&x)[S][R],
+                                      const int (&off)[S], int n, int p,
+                                      int i0, int rows, double (&sum)[R]) {
+  const int lane = threadIdx.x & 31;
   // the lane holding row g of a group after the transposed levels
   const int g = lane & (kRowGroup - 1);
   const int src = ((g >> 2) & 1) << 4 | ((g >> 1) & 1) << 3 | (g & 1) << 2;
+  double kik[kRowGroup][S];  // K_ik, i = 32 p + i0 + gg
+#pragma unroll
+  for (int gg = 0; gg < kRowGroup; ++gg) {
+    const int i = kWarp * p + min(i0 + gg, rows - 1);
+    const int ti = tri(i);
+#pragma unroll
+    for (int q = 0; q < S; ++q) {
+      // two adds and a select, no branch (k >= n: off[q] = 0, index i)
+      const int k = kWarp * q + lane;
+      kik[gg][q] = ks[k <= i ? ti + k : off[q] + i];
+    }
+  }
+  __syncwarp();  // every load of the group issued before the sums
+  double v[kRowGroup][R];
+#pragma unroll
+  for (int gg = 0; gg < kRowGroup; ++gg) {
+#pragma unroll
+    for (int t = 0; t < R; ++t) {
+      v[gg][t] = 0.0;
+#pragma unroll
+      for (int q = 0; q < S; ++q) {
+        const double w = v[gg][t] + kik[gg][q] * x[q][t];
+        v[gg][t] = kWarp * q + lane < n ? w : v[gg][t];
+      }
+    }
+  }
+  transpose_level<8, R>(v, 16);
+  transpose_level<4, R>(v, 8);
+  transpose_level<2, R>(v, 4);
+#pragma unroll
+  for (int t = 0; t < R; ++t) {
+    double s = v[0][t];
+    s += __shfl_xor_sync(kFullMask, s, 2);
+    s += __shfl_xor_sync(kFullMask, s, 1);
+    sum[t] = __shfl_sync(kFullMask, s, src);
+  }
+}
+
+// Every group by the calling warp (ldl_solve_refine).
+template <int R, int S>
+__device__ void warp_residual(const double* ks, const double (&x)[S][R],
+                              const double (&b)[S][R],
+                              double (&r)[S][R], int n) {
+  const int lane = threadIdx.x & 31;
+  int off[S];
+  column_offsets(off, n);
 #pragma unroll 1
   for (int p = 0; p < S; ++p) {
     const int rows = min(kWarp, n - kWarp * p);  // may be <= 0
 #pragma unroll 1
     for (int i0 = 0; i0 < rows; i0 += kRowGroup) {
-      double kik[kRowGroup][S];  // K_ik, i = 32 p + i0 + gg
-#pragma unroll
-      for (int gg = 0; gg < kRowGroup; ++gg) {
-        const int i = kWarp * p + min(i0 + gg, rows - 1);
-        const int ti = tri(i);
-#pragma unroll
-        for (int q = 0; q < S; ++q) {
-          // two adds and a select, no branch (k >= n: off[q] = 0, index i)
-          const int k = kWarp * q + lane;
-          kik[gg][q] = ks[k <= i ? ti + k : off[q] + i];
-        }
-      }
-      __syncwarp();  // every load of the group issued before the sums
-      double v[kRowGroup][R];
-#pragma unroll
-      for (int gg = 0; gg < kRowGroup; ++gg) {
-#pragma unroll
-        for (int t = 0; t < R; ++t) {
-          v[gg][t] = 0.0;
-#pragma unroll
-          for (int q = 0; q < S; ++q) {
-            const double w = v[gg][t] + kik[gg][q] * x[q][t];
-            v[gg][t] = kWarp * q + lane < n ? w : v[gg][t];
-          }
-        }
-      }
-      transpose_level<8, R>(v, 16);
-      transpose_level<4, R>(v, 8);
-      transpose_level<2, R>(v, 4);
+      double sum[R];
+      residual_group<R, S>(ks, x, off, n, p, i0, rows, sum);
       const bool mine = lane >= i0 && lane < min(i0 + kRowGroup, rows);
 #pragma unroll
-      for (int t = 0; t < R; ++t) {
-        double sum = v[0][t];
-        sum += __shfl_xor_sync(kFullMask, sum, 2);
-        sum += __shfl_xor_sync(kFullMask, sum, 1);
-        sum = __shfl_sync(kFullMask, sum, src);
+      for (int q = 0; q < S; ++q)  // r[p] with p a runtime index
 #pragma unroll
-        for (int q = 0; q < S; ++q)  // r[p] with p a runtime index
-          if (q == p && mine) r[q][t] = b[q][t] - sum;
-      }
+        for (int t = 0; t < R; ++t)
+          if (q == p && mine) r[q][t] = b[q][t] - sum[t];
     }
   }
 }
@@ -222,16 +206,25 @@ __device__ void warp_absmax(const double (&v)[S][R], int n,
 //
 // Bound: reads K's lower triangle and reg, writes L's strict lower
 // triangle, D^-1 and ok: about 0.19 GB at (76, 4096), 0.058 ms at
-// 3.35 TB/s, against 0.6 GFLOP (18 us at 34 TFLOP/s): memory-bound.
-// The kernel writes L whole, zeros included (0.29 GB in all), so the
-// (B, N, N) tensor holds no junk above the diagonal; no consumer reads
-// those zeros.
-// Design: the packed lower triangle of one problem (23 KB at N = 76,
-// 66 KB at N = 128) stays in shared memory for the whole elimination,
-// so K is read once and L written once, both coalesced by rows; the
-// small footprint lets several problems share an SM.  Each pivot step
-// scales the pivot column, then applies the rank-1 update to the
-// trailing lower triangle with one warp per row.
+// 3.35 TB/s, against 0.61 G multiplies and adds (0.037 ms of f64 issue
+// at 16.7 T/s): memory-bound.  The kernel writes L whole, zeros included
+// (0.29 GB in all, 0.085 ms), so the (B, N, N) tensor holds no junk
+// above the diagonal; no consumer reads those zeros.
+// Design: the blocked right-looking factor of ldl_core.cuh
+// (factor_blocked): the lower triangle of one problem (25 KB at N = 76,
+// 68 KB at N = 128, plus 10-18 KB of panel buffers) stays in shared
+// memory for the whole elimination, so K is read once and L written
+// once, both coalesced by rows; four warps per problem, so several
+// problems share an SM.  Per panel of 8 pivots the strip warps factor
+// the strip in registers, then every thread updates the trailing
+// triangle in 4 x 4 register tiles: two block barriers per panel (a
+// rank-1 update per pivot takes two per pivot), 0.75 shared accesses per
+// update (it takes 3), 16 independent updates per thread and pivot.  Bit
+// for bit with the plain version.
+// Measured (H100 80GB HBM3, 700 W, device time): 0.263 ms at (76, 4096)
+// against the 0.058 ms bound, 0.027 ms at (76, 256), 0.021 ms at
+// (76, 1); what holds it back is each panel's strip, a chain of shuffle,
+// divide and multiply per pivot (ldl_core.cuh).
 // ---------------------------------------------------------------------
 __global__ void __launch_bounds__(kFactorThreads)
     ldl_factor_kernel(const double* __restrict__ K,
@@ -239,19 +232,10 @@ __global__ void __launch_bounds__(kFactorThreads)
                       double* __restrict__ Dinv, unsigned char* __restrict__ ok,
                       int n) {
   extern __shared__ double smem[];
-  double* a = smem;              // packed lower triangle, tri(n)
-  double* acol = a + tri(n);     // pivot column before scaling, n
-  double* lcol = acol + n;       // pivot column of L, n
   const size_t b = blockIdx.x;
-
-  load_lower_packed(K + b * n * n, a, n);
-  __syncthreads();
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    a[tri(i) + i] += reg[b * n + i];
-  __syncthreads();
-  const bool finite = factor_packed(a, acol, lcol, Dinv + b * n, n);
-  store_strict_lower(a, L + b * n * n, n);
-  if (threadIdx.x == 0) ok[b] = finite ? 1 : 0;
+  const bool finite = factor_blocked<double>(
+      K + b * n * n, reg + b * n, L + b * n * n, Dinv + b * n, smem, n);
+  if (threadIdx.x == kWarp * strip_warp()) ok[b] = finite ? 1 : 0;
 }
 
 // ---------------------------------------------------------------------
@@ -300,33 +284,64 @@ __global__ void __launch_bounds__(kLoadThreads, 1)
 }
 
 // ---------------------------------------------------------------------
-// kkt_residual: r = b - K x for a full (B, N, N) K.
+// kkt_residual: r = b - K x.  K must be symmetric; its lower triangle is
+// read.
 //
 // Replaces pallas_dd.py::_residual_impl (bodies _residual_kernel_c, the
 // default, and _residual_kernel).  Those contract over K's leading axis,
-// which equals K x only for symmetric K; this kernel contracts over
-// rows, so it is right for any full K and equals them on the symmetric
-// KKT matrices.
+// which equals K x for symmetric K, the only K the solver passes (the
+// scaled, symmetrically permuted KKT matrix of kkt/dense.py).
 //
-// Bound: the function needs one triangle of the symmetric K, about
-// 0.10 GB at (76, 4096): 0.031 ms.  This kernel reads K whole (0.19 GB,
-// 0.057 ms), since it assumes no more than a full K.
-// Design: one warp per row of K, lanes over consecutive columns
-// (coalesced), x staged in shared memory, a shuffle reduction per row.
+// Bound: reads K's lower triangle, x and b and writes r, about 0.10 GB
+// at (76, 4096): 0.031 ms; 2 N^2 R operations per problem are
+// negligible.
+// Design: four warps request the triangle at once with cp.async into a
+// packed triangle in shared memory (23.4 KB at N = 76), as
+// ldl_solve_refine copies K, and then share its row groups: each warp
+// sums its groups of 8 rows with ldl_solve_refine's residual sums
+// (residual_group), x in registers, so r equals the residual that
+// ldl_solve_refine returns, bit for bit.  A kernel that reads K whole
+// moves 0.19 GB.
+// Measured (H100 80GB HBM3, 700 W, device time): R = 1 0.057 ms at
+// (76, 4096), 0.0060 ms at (76, 256), 0.0051 ms at (76, 1); R = 2 0.074,
+// 0.0070 and 0.0059 ms.
 // ---------------------------------------------------------------------
-template <int R>
-__global__ void __launch_bounds__(kResidualThreads)
+template <int R, int S>
+__global__ void __launch_bounds__(kLoadThreads)
     kkt_residual_kernel(const double* __restrict__ K,
                         const double* __restrict__ xg,
                         const double* __restrict__ bg, double* __restrict__ rg,
                         int n) {
-  __shared__ double x[kMaxN * kMaxR];
+  extern __shared__ double ks[];  // tri(n), packed lower
   const size_t b = blockIdx.x;
-  for (int i = threadIdx.x; i < n * R; i += blockDim.x)
-    x[i] = xg[b * n * R + i];
+  load_lower_async(K + b * n * n, ks, n, true);
+  cp_async_commit();
+  double x[S][R], bv[S][R];
+  load_rows<double, R>(xg + b * n * R, x, n);
+  load_rows<double, R>(bg + b * n * R, bv, n);
+  int off[S];
+  column_offsets(off, n);
+  cp_async_wait<0>();
   __syncthreads();
-  residual_rows<R>(FullRows{K + b * n * n, n}, x, bg + b * n * R,
-                   rg + b * n * R, n);
+  const int warp = threadIdx.x >> 5;
+  constexpr int kGroups = kWarp / kRowGroup;  // groups of a 32-row panel
+#pragma unroll 1
+  for (int gi = warp; gi < kGroups * S; gi += blockDim.x >> 5) {
+    const int p = gi / kGroups, i0 = (gi % kGroups) * kRowGroup;
+    const int rows = min(kWarp, n - kWarp * p);
+    if (i0 >= rows) continue;  // warp-uniform
+    double sum[R];
+    residual_group<R, S>(ks, x, off, n, p, i0, rows, sum);
+    const int lane = threadIdx.x & 31;
+    if (lane >= i0 && lane < min(i0 + kRowGroup, rows)) {
+      const int i = kWarp * p + lane;
+#pragma unroll
+      for (int q = 0; q < S; ++q)
+#pragma unroll
+        for (int t = 0; t < R; ++t)
+          if (q == p) rg[(b * n + i) * R + t] = bv[q][t] - sum[t];
+    }
+  }
 }
 
 // ---------------------------------------------------------------------
@@ -432,44 +447,30 @@ __global__ void __launch_bounds__(refine_threads(R), 1)
   store_rows<double, R>(r, rg + b * n * R, n);
 }
 
-size_t factor_smem(int n) { return sizeof(double) * (tri(n) + 2 * n); }
+size_t factor_smem(int n) {
+  return sizeof(double) * FactorLayout<double>(n).smem();
+}
 size_t solve_smem(int n) { return sizeof(double) * tri(n); }
 size_t refine_smem(int n) { return sizeof(double) * 2 * tri(n); }
 
-// Raise a kernel's dynamic shared memory cap to what N = kMaxN needs,
-// once per kernel and device: the attribute belongs to the current
-// device's context, and above 48 KB a launch (and an occupancy query)
-// needs it.
-constexpr int kMaxDevices = 64;
-using DeviceFlags = bool[kMaxDevices];
-
-template <class F>
-cudaError_t allow_smem(F* kernel, size_t bytes, DeviceFlags& done) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  bool known = dev >= 0 && dev < kMaxDevices;
-  if (known && done[dev]) return cudaSuccess;
-  e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e == cudaSuccess && known) done[dev] = true;
-  return e;
-}
+// The one-warp kernels are instantiated per slot count S = 1..4, the
+// slots a lane needs at N (ldl_core.cuh::slots), so that a lane computes
+// no slot that holds no row.  Each form's launch: its function, shared
+// memory cap raised once per device to what N = kMaxN needs.
 
 cudaError_t ready_factor() {
   static DeviceFlags done = {};
   return allow_smem(ldl_factor_kernel, factor_smem(kMaxN), done);
 }
-
-// The one-warp kernels are instantiated for S = 1..4 slots, the slots a
-// lane needs at N (ldl_core.cuh::slots), so that a lane computes no slot
-// that holds no row.  Each form's launch: its function, shared memory
-// cap raised once per device.
-
 template <int R, int S>
 cudaError_t ready_solve() {
   static DeviceFlags done = {};
   return allow_smem(ldl_solve_kernel<R, S>, solve_smem(kMaxN), done);
+}
+template <int R, int S>
+cudaError_t ready_residual() {
+  static DeviceFlags done = {};
+  return allow_smem(kkt_residual_kernel<R, S>, solve_smem(kMaxN), done);
 }
 template <int R, int S>
 cudaError_t ready_refine() {
@@ -484,6 +485,16 @@ int launch_solve(const double* L, const double* Dinv, const double* b,
   if (e != cudaSuccess) return (int)e;
   ldl_solve_kernel<R, S><<<B, kLoadThreads, solve_smem(n), stream>>>(
       L, Dinv, b, x, n);
+  return (int)cudaGetLastError();
+}
+
+template <int R, int S>
+int launch_residual(const double* K, const double* x, const double* b,
+                    double* res, int B, int n, cudaStream_t stream) {
+  cudaError_t e = ready_residual<R, S>();
+  if (e != cudaSuccess) return (int)e;
+  kkt_residual_kernel<R, S><<<B, kLoadThreads, solve_smem(n), stream>>>(
+      K, x, b, res, n);
   return (int)cudaGetLastError();
 }
 
@@ -510,20 +521,12 @@ int with_form(int r, int n, F&& f) {
 
 // Resident blocks per SM of one form at N = n, by
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor.
-template <int R, int S>
-int occupancy_solve(int n, int* blocks) {
-  cudaError_t e = ready_solve<R, S>();
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, ldl_solve_kernel<R, S>, kLoadThreads, solve_smem(n));
-}
-template <int R, int S>
-int occupancy_refine(int n, int* blocks) {
-  cudaError_t e = ready_refine<R, S>();
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, ldl_solve_refine_kernel<R, S>, refine_threads(R),
-      refine_smem(n));
+template <class F>
+int occupancy(F* kernel, cudaError_t ready, int threads, size_t smem,
+              int* blocks) {
+  if (ready != cudaSuccess) return (int)ready;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                            threads, smem);
 }
 
 bool bad_shape(int B, int n, int r) {
@@ -560,13 +563,10 @@ int cc_kkt_residual(const double* K, const double* x, const double* b,
                     double* res, int B, int n, int r, void* stream) {
   if (bad_shape(B, n, r)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  if (r == 1)
-    kkt_residual_kernel<1><<<B, kResidualThreads, 0, (cudaStream_t)stream>>>(
-        K, x, b, res, n);
-  else
-    kkt_residual_kernel<2><<<B, kResidualThreads, 0, (cudaStream_t)stream>>>(
-        K, x, b, res, n);
-  return (int)cudaGetLastError();
+  return with_form(r, n, [&](auto R, auto S) {
+    return launch_residual<decltype(R)::value, decltype(S)::value>(
+        K, x, b, res, B, n, (cudaStream_t)stream);
+  });
 }
 
 int cc_ldl_solve_refine(const double* K, const double* L, const double* Dinv,
@@ -586,37 +586,31 @@ int cc_ldl_solve_refine(const double* K, const double* L, const double* Dinv,
 // 3 ldl_solve_refine.
 int cc_occupancy(int kernel, int n, int r, int* blocks, int* threads) {
   if (bad_shape(1, n, r)) return (int)cudaErrorInvalidValue;
-  switch (kernel) {
-    case 0: {
-      *threads = kFactorThreads;
-      cudaError_t e = ready_factor();
-      if (e != cudaSuccess) return (int)e;
-      return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          blocks, ldl_factor_kernel, kFactorThreads, factor_smem(n));
+  return with_form(r, n, [&](auto R, auto S) {
+    constexpr int kR = decltype(R)::value, kS = decltype(S)::value;
+    switch (kernel) {
+      case 0:
+        *threads = kFactorThreads;
+        return occupancy(ldl_factor_kernel, ready_factor(), kFactorThreads,
+                         factor_smem(n), blocks);
+      case 1:
+        *threads = kLoadThreads;
+        return occupancy(ldl_solve_kernel<kR, kS>, ready_solve<kR, kS>(),
+                         kLoadThreads, solve_smem(n), blocks);
+      case 2:
+        *threads = kLoadThreads;
+        return occupancy(kkt_residual_kernel<kR, kS>,
+                         ready_residual<kR, kS>(), kLoadThreads,
+                         solve_smem(n), blocks);
+      case 3:
+        *threads = refine_threads(kR);
+        return occupancy(ldl_solve_refine_kernel<kR, kS>,
+                         ready_refine<kR, kS>(), refine_threads(kR),
+                         refine_smem(n), blocks);
+      default:
+        return (int)cudaErrorInvalidValue;
     }
-    case 1:
-      *threads = kLoadThreads;
-      return with_form(r, n, [&](auto R, auto S) {
-        return occupancy_solve<decltype(R)::value, decltype(S)::value>(
-            n, blocks);
-      });
-    case 2:
-      *threads = kResidualThreads;
-      return (int)(r == 1 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                                blocks, kkt_residual_kernel<1>,
-                                kResidualThreads, 0)
-                          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                                blocks, kkt_residual_kernel<2>,
-                                kResidualThreads, 0));
-    case 3:
-      *threads = refine_threads(r);
-      return with_form(r, n, [&](auto R, auto S) {
-        return occupancy_refine<decltype(R)::value, decltype(S)::value>(
-            n, blocks);
-      });
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  });
 }
 
 }  // extern "C"

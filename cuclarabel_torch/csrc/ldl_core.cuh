@@ -1,11 +1,13 @@
 // Device routines shared by the f64 KKT kernels (ldl.cu) and the f32
 // batched LDL^T kernels (ldl_f32.cu), templated on the scalar type.
 //
-// One thread block works on one problem: the factors with 256 threads,
-// the substitutions with one warp.  Matrices come in row-major (N, N)
-// per problem, N <= kMaxN, and live in shared memory as packed lower
-// triangles: row i holds columns 0..i at offset tri(i).  None of these
-// routines synchronises on entry; each says what it needs.
+// One thread block works on one problem: the factors with four warps
+// that share each panel's trailing update, the substitutions with one
+// warp.  Matrices come in row-major (N, N) per problem, N <= kMaxN, and
+// live in shared memory as lower triangles: packed by rows for the
+// substitutions (row i holds columns 0..i at offset tri(i)), in 4 x 4
+// blocks for the factor (FactorLayout).  None of these routines
+// synchronises on entry; each says what it needs.
 
 #pragma once
 
@@ -19,73 +21,6 @@ constexpr int kMaxN = 128;
 
 // Offset of row i of a packed lower triangle (row i holds columns 0..i).
 __host__ __device__ inline int tri(int i) { return i * (i + 1) / 2; }
-
-// Copy the lower triangle (diagonal included) of a row-major (N, N)
-// matrix in device memory into a packed triangle in shared memory.  One
-// warp per row, lanes over consecutive columns: coalesced reads.
-template <class T>
-__device__ void load_lower_packed(const T* __restrict__ g, T* s, int n) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  for (int i = warp; i < n; i += nw) {
-    const T* row = g + (size_t)i * n;
-    T* srow = s + tri(i);
-    for (int k = lane; k <= i; k += 32) srow[k] = row[k];
-  }
-}
-
-// Pivot-free LDL^T of the packed lower triangle `a` in place: on return
-// its strict lower part holds L (unit diagonal implied), and dinv[j] =
-// 1 / D_j has been written to device memory.  acol and lcol are n
-// entries of shared scratch each.  Each pivot step scales the pivot
-// column, then applies the rank-1 update to the trailing lower triangle
-// with one warp per row: a_ik -= a_ij * (a_kj / a_jj), the rounding of
-// the plain PyTorch versions.  The caller syncs before the call; the
-// routine returns synced.  Returns (in thread 0) whether every D^-1 is
-// finite.
-template <class T>
-__device__ bool factor_packed(T* a, T* acol, T* lcol, T* __restrict__ dinv,
-                              int n) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  bool finite = true;
-  for (int j = 0; j < n; ++j) {
-    const T dj = T(1) / a[tri(j) + j];
-    for (int k = j + 1 + threadIdx.x; k < n; k += blockDim.x) {
-      const T v = a[tri(k) + j];
-      const T l = v * dj;
-      acol[k] = v;
-      lcol[k] = l;
-      a[tri(k) + j] = l;
-    }
-    if (threadIdx.x == 0) {
-      dinv[j] = dj;
-      finite = finite && isfinite(dj);
-    }
-    __syncthreads();
-    for (int i = j + 1 + warp; i < n; i += nw) {
-      const T ai = acol[i];
-      T* row = a + tri(i);
-      for (int k = j + 1 + lane; k <= i; k += 32) row[k] -= ai * lcol[k];
-    }
-    __syncthreads();
-  }
-  return finite;
-}
-
-// Write the strict lower part of the packed triangle `a` to a row-major
-// (N, N) matrix in device memory, zeros on and above the diagonal, so
-// the tensor holds no junk.  Coalesced by rows.
-template <class T>
-__device__ void store_strict_lower(const T* a, T* __restrict__ g, int n) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  for (int i = warp; i < n; i += nw) {
-    const T* srow = a + tri(i);
-    for (int k = lane; k < n; k += 32)
-      g[(size_t)i * n + k] = k < i ? srow[k] : T(0);
-  }
-}
 
 // ---------------------------------------------------------------------
 // One warp per problem: the substitution of ldl_solve (f64) and
@@ -115,7 +50,7 @@ constexpr int kLoadThreads = kWarp * kLoadWarps;
 constexpr unsigned kFullMask = 0xffffffffu;
 
 // The slots S a lane needs at N: ceil(N / 32), 1..4 for N <= kMaxN.
-inline int slots(int n) { return (n + kWarp - 1) / kWarp; }
+__host__ __device__ inline int slots(int n) { return (n + kWarp - 1) / kWarp; }
 
 // f(std::integral_constant<int, S>{}) for S = slots(n): the one-warp
 // kernels are instantiated per slot count, so that a lane computes no
@@ -380,6 +315,354 @@ __device__ void store_rows(const T (&v)[S][R], T* __restrict__ g,
       for (int t = 0; t < R; ++t) g[i * R + t] = v[q][t];
     }
   }
+}
+
+// ---------------------------------------------------------------------
+// The blocked pivot-free LDL^T factor of ldl_factor (f64) and
+// ldl_factor_batched (f32): K + diag(reg) = (I + L) D (I + L)^T.
+//
+// Right-looking, in panels of kPanel pivots, by the block's four warps.
+// For each panel j0:
+//  (a) the strip, rows >= j0 of columns j0 .. j0 + 7, is factored in
+//      registers by as many warps as it has 32-row slots, pivot by
+//      pivot: D^-1 = 1 / a_jj, l_ij = a_ij * D^-1, the strip's later
+//      columns updated.  Each strip warp factors the panel's own 8 rows
+//      itself (factor_strip), so the warps exchange nothing; they write
+//      D^-1, L into the triangle, and each pivot's unscaled column a_ij
+//      and scaled column l_kj into two panel buffers;
+//  (b) one block barrier;
+//  (c) every thread updates the trailing triangle, columns >= j0 + 8,
+//      one 4 x 4 register tile at a time, tiles dealt out afresh each
+//      panel as the triangle shrinks: the tile is loaded once, takes the
+//      panel's 8 updates a_ik -= a_ij * l_kj in pivot order, each a
+//      multiply then a subtract, and is stored once;
+//  (d) one block barrier.
+// So every element receives the subtractions of the plain version
+// (kkt/ldl.py::_factor), in its order and with its rounding (the
+// kernels build with -fmad=false): the two agree bit for bit.  2 N / 8
+// barriers in place of 2 N, and per update 2 / 8 shared accesses for the
+// tile plus 8 / 16 for the panel columns, in place of 3.
+// The strips take the most time at every width: each pivot waits on a
+// shuffle, a divide and a multiply, in every strip warp.
+//
+// Layout (FactorLayout): the lower triangle in 4 x 4 blocks, block
+// (I, K), K <= I, numbered tri(I) + K; element (i, k) lives in array
+// (i % 4) * 4 + k % 4 at the block's number, each of the 16 arrays ntp
+// elements long.  Threads on consecutive tiles of a block row read
+// consecutive words of each array, free of bank conflicts; ntp * sizeof(T)
+// is 32 mod 128 bytes, so that the 16 lanes (f64) or 32 lanes (f32) of a
+// row-wise access -- the copy of K, the store of L -- fall on distinct
+// banks too.  The panel buffers hold row i of pivot p at
+// (p * 4 + i % 4) * nbp + i / 4: a tile's four column entries are
+// consecutive words across threads, its four row entries one broadcast.
+// Slots outside the triangle (above the diagonal of a diagonal block,
+// rows >= n) hold junk that flows only into such slots.
+// ---------------------------------------------------------------------
+constexpr int kPanel = 8;
+constexpr int kFactorThreads = 128;
+
+// The least count >= c of T whose bytes are 32 mod 128.
+template <class T>
+__host__ __device__ inline int bank_pad(int c) {
+  constexpr int m = 128 / sizeof(T), r = 32 / sizeof(T);
+  return c + ((r - c % m) % m + m) % m;
+}
+
+template <class T>
+struct FactorLayout {
+  int n, nb, ntp, nbp;
+  int ba, bl, dinv, sink;  // offsets of the panel buffers, D^-1, the sink
+  __host__ __device__ explicit FactorLayout(int n_)
+      : n(n_), nb((n_ + 3) / 4), ntp(bank_pad<T>(tri((n_ + 3) / 4))),
+        nbp(bank_pad<T>((n_ + 3) / 4)), ba(16 * ntp),
+        bl(ba + kPanel * 4 * nbp), dinv(bl + kPanel * 4 * nbp),
+        sink(dinv + n_) {}
+  // element (i, k) of the triangle
+  __device__ int at(int i, int k) const {
+    return ((i & 3) * 4 + (k & 3)) * ntp + tri(i >> 2) + (k >> 2);
+  }
+  // row i of pivot p in a panel buffer, from the buffer's offset
+  __device__ int buf(int p, int i) const {
+    return (p * 4 + (i & 3)) * nbp + (i >> 2);
+  }
+  // the triangle, the two panel buffers, D^-1 and a slot per lane that
+  // takes the stores a lane makes of nothing, in elements
+  __host__ __device__ int smem() const { return sink + kWarp; }
+};
+
+// Request the lower triangle of the row-major (N, N) matrix g into the
+// blocked triangle a with cp.async, one warp per row, lanes on
+// consecutive columns (coalesced, and free of bank conflicts).  Commits
+// nothing and waits for nothing.
+template <class T>
+__device__ void load_factor_input(const T* __restrict__ g, T* a,
+                                  const FactorLayout<T>& f) {
+  const unsigned s0 = static_cast<unsigned>(__cvta_generic_to_shared(a));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  for (int i = warp; i < f.n; i += nw) {
+    const T* row = g + (size_t)i * f.n;
+    for (int k = lane; k <= i; k += kWarp)
+      cp_async(s0 + sizeof(T) * f.at(i, k), row + k);
+  }
+}
+
+// Named barrier 2 over the strip warps (`warps` of them): each has read
+// the panel's head rows before warp 0 writes L over them.
+__device__ inline void strip_warps_sync(int warps) {
+  asm volatile("bar.sync 2, %0;\n" ::"r"(warps * kWarp) : "memory");
+}
+
+// The first of the warps that factor the strips: rotated over the
+// block's warps from block to block, so that the strips of the blocks
+// resident on an SM are spread over its four schedulers.
+__device__ inline int strip_warp() {
+  return blockIdx.x % (kFactorThreads / kWarp);
+}
+
+// (a): strip warp w (w = 0, 1, ... from strip_warp()) factors rows
+// j0 + 32 w .. j0 + 32 w + 31 of the strip of panel j0 (columns j0 ..
+// j0 + 7).  Its slot 0 holds the panel's head, rows j0 + lane, so that
+// every strip warp factors the panel's own rows itself (warp 0 for its
+// stores, the others redundantly, with the same operations): D^-1 and
+// l_cj come from its own lanes and no warp waits on another.  S = 1 for
+// warp 0; S = 2 for the others, slot 1 holding their own rows.  The
+// entries are indexed by compile-time constants only (the pivots
+// unrolled).  For each pivot every shuffle of l_cj is requested before
+// the updates, so that all of them wait on the shuffles together; the
+// next pivot's a_jj is computed in its own lane from its own l, off the
+// shuffles' path, with the operations of the general update.  No branch
+// between the pivots: every store is unconditional, a lane that stores
+// nothing writing its sink slot (D^-1 too, kept in shared memory until
+// the end), and pivots j >= n run on junk.  An entry above the diagonal
+// or of a row >= n is junk that reaches only junk.  `warps` strip warps
+// take part.  Returns `finite` and whether every D^-1 of the panel is
+// finite, in every lane.
+template <class T, int S>
+__device__ bool factor_strip(T* sm, const FactorLayout<T>& f, int j0,
+                             int w, int warps, bool finite) {
+  const int lane = threadIdx.x & 31;
+  const int n = f.n, t0 = j0 + kPanel, sink = f.sink + lane;
+  int row[S];  // the slots' rows
+  bool own[S];  // whether this warp stores the slot
+  row[0] = j0 + lane;
+  own[0] = w == 0;
+  if constexpr (S == 2) {
+    row[1] = j0 + kWarp * w + lane;
+    own[1] = true;
+  }
+  T s[S][kPanel];
+#pragma unroll
+  for (int q = 0; q < S; ++q) {
+    const int i = row[q];
+#pragma unroll
+    for (int c = 0; c < kPanel; ++c)
+      s[q][c] = i < n && j0 + c <= i ? sm[f.at(i, j0 + c)] : T(0);
+  }
+  if (warps > 1) strip_warps_sync(warps);
+  T ajj = s[0][0];  // in lane p at pivot p: the pivot
+#pragma unroll
+  for (int p = 0; p < kPanel; ++p) {
+    const int j = j0 + p;
+    const T dj = T(1) / __shfl_sync(kFullMask, ajj, p);
+    sm[own[0] && j < n && lane == 0 ? f.dinv + j : sink] = dj;
+    finite = finite && (j >= n || isfinite(dj));
+    T lv[S];
+#pragma unroll
+    for (int q = 0; q < S; ++q) lv[q] = s[q][p] * dj;
+    T lc[kPanel];
+#pragma unroll
+    for (int c = p + 1; c < kPanel; ++c)
+      lc[c] = __shfl_sync(kFullMask, lv[0], c);
+    if (p + 1 < kPanel) ajj = s[0][p + 1] - s[0][p] * lv[0];
+    // the strip's later columns: a_ic -= a_ij * l_cj
+#pragma unroll
+    for (int c = p + 1; c < kPanel; ++c)
+#pragma unroll
+      for (int q = 0; q < S; ++q) s[q][c] = s[q][c] - s[q][p] * lc[c];
+#pragma unroll
+    for (int q = 0; q < S; ++q) {
+      const int i = row[q];
+      const bool low = own[q] && i > j && i < n, trail = low && i >= t0;
+      sm[low ? f.at(i, j) : sink] = lv[q];
+      sm[trail ? f.ba + f.buf(p, i) : sink] = s[q][p];
+      sm[trail ? f.bl + f.buf(p, i) : sink] = lv[q];
+    }
+  }
+  return finite;
+}
+
+// (c): the trailing triangle, block rows and columns >= t0 / 4, one 4 x 4
+// tile per thread and round.  The next pivot's panel entries are loaded
+// while the current pivot's updates run.
+template <class T>
+__device__ void factor_trailing(T* a, const FactorLayout<T>& f, int t0) {
+  const T* ba = a + f.ba;
+  const T* bl = a + f.bl;
+  const int b0 = t0 >> 2;
+  const int tiles = tri(f.nb - b0);
+  for (int t = threadIdx.x; t < tiles; t += blockDim.x) {
+    int I, K;
+    tri_index(t, I, K);
+    I += b0;
+    K += b0;
+    T* tile = a + tri(I) + K;
+    T v[4][4], av[2][4], lv[2][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      av[0][r] = ba[r * f.nbp + I];
+      lv[0][r] = bl[r * f.nbp + K];
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) v[r][c] = tile[(r * 4 + c) * f.ntp];
+#pragma unroll
+    for (int p = 0; p < kPanel; ++p) {
+      const int cur = p & 1, nxt = cur ^ 1;
+      if (p + 1 < kPanel) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          av[nxt][r] = ba[((p + 1) * 4 + r) * f.nbp + I];
+          lv[nxt][r] = bl[((p + 1) * 4 + r) * f.nbp + K];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          v[r][c] = v[r][c] - av[cur][r] * lv[cur][c];
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) tile[(r * 4 + c) * f.ntp] = v[r][c];
+  }
+}
+
+template <class T> struct Pair;
+template <> struct Pair<double> { using type = double2; };
+template <> struct Pair<float> { using type = float2; };
+
+// Write the strict lower part of the blocked triangle to the row-major
+// (N, N) matrix g, zeros on and above the diagonal, coalesced by rows:
+// W columns per lane and store (W = 2 at even N: 16 bytes in f64), two
+// rows at a time per warp, every shared load of both rows issued before
+// their stores.
+// W consecutive values as one store.
+template <class T>
+__device__ inline T pack(const T (&v)[1]) { return v[0]; }
+template <class T>
+__device__ inline typename Pair<T>::type pack(const T (&v)[2]) {
+  typename Pair<T>::type p;
+  p.x = v[0];
+  p.y = v[1];
+  return p;
+}
+
+template <class T, int W>
+__device__ void store_factor_rows(const T* a, T* __restrict__ g,
+                                  const FactorLayout<T>& f) {
+  constexpr int kIts = kMaxN / (kWarp * W);  // column steps to cover a row
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const int n = f.n;
+  for (int i0 = warp; i0 < n; i0 += 2 * nw) {
+    T v[2][kIts][W];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = i0 + h * nw;
+#pragma unroll
+      for (int it = 0; it < kIts; ++it)
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+          const int k = W * (lane + kWarp * it) + w;
+          v[h][it][w] = i < n && k < i ? a[f.at(i, k)] : T(0);
+        }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = i0 + h * nw;
+#pragma unroll
+      for (int it = 0; it < kIts; ++it) {
+        const int k = W * (lane + kWarp * it);
+        if (i < n && k < n)
+          *reinterpret_cast<decltype(pack(v[h][it]))*>(g + (size_t)i * n + k) =
+              pack(v[h][it]);
+      }
+    }
+  }
+}
+
+template <class T>
+__device__ void store_factor(const T* a, T* __restrict__ g,
+                             const FactorLayout<T>& f) {
+  if (f.n % 2 == 0)
+    store_factor_rows<T, 2>(a, g, f);
+  else
+    store_factor_rows<T, 1>(a, g, f);
+}
+
+// The whole factor of one problem by the calling block (kFactorThreads
+// threads, at least one per row): K (N, N) row-major, of which the lower
+// triangle is read; reg (N) or nullptr; L (N, N) and dinv (N) written.
+// smem holds FactorLayout(n).smem() elements.  Returns, in the lanes of
+// strip_warp(), whether every D^-1 is finite.
+template <class T>
+__device__ bool factor_blocked(const T* __restrict__ K,
+                               const T* __restrict__ reg, T* __restrict__ L,
+                               T* __restrict__ dinv, T* smem, int n) {
+  static_assert(kFactorThreads >= kMaxN, "a thread per row for reg");
+  const FactorLayout<T> f(n);
+  T* a = smem;
+  constexpr int kWarps = kFactorThreads / kWarp;
+  // this warp's rank among the strip warps
+  const int w = ((threadIdx.x >> 5) - strip_warp() + kWarps) % kWarps;
+  const int i = threadIdx.x;
+  load_factor_input(K, a, f);
+  cp_async_commit();
+  const T ri = reg != nullptr && i < n ? reg[i] : T(0);  // while K arrives
+  cp_async_wait<0>();
+  __syncthreads();
+  if (reg != nullptr && i < n) a[f.at(i, i)] += ri;  // K + diag(reg)
+  __syncthreads();
+  bool finite = true;
+#pragma unroll 1
+  for (int j0 = 0; j0 < n; j0 += kPanel) {
+    const int warps = slots(n - j0);
+    if (w == 0)
+      finite = factor_strip<T, 1>(a, f, j0, 0, warps, finite);
+    else if (w < warps)
+      factor_strip<T, 2>(a, f, j0, w, warps, finite);
+    __syncthreads();
+    if (j0 + kPanel < n) {
+      factor_trailing(a, f, j0 + kPanel);
+      __syncthreads();
+    }
+  }
+  store_factor(a, L, f);
+  for (int k = threadIdx.x; k < n; k += blockDim.x) dinv[k] = a[f.dinv + k];
+  return finite;
+}
+
+// Raise a kernel's dynamic shared memory cap to `bytes` (what N = kMaxN
+// needs), once per kernel and device: the attribute belongs to the
+// current device's context, and above 48 KB a launch (and an occupancy
+// query) needs it.
+constexpr int kMaxDevices = 64;
+using DeviceFlags = bool[kMaxDevices];
+
+template <class F>
+cudaError_t allow_smem(F* kernel, size_t bytes, DeviceFlags& done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  bool known = dev >= 0 && dev < kMaxDevices;
+  if (known && done[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess && known) done[dev] = true;
+  return e;
 }
 
 }  // namespace

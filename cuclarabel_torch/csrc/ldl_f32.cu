@@ -12,15 +12,17 @@
 // bodies are those of the f64 kernels (ldl_core.cuh) with T = float and
 // no regularisation.
 //
-// Bounds on an H100 SXM (3.35 TB/s HBM3, 67 TFLOP/s f32 outside the
-// tensor cores) at N = 76, B = 4096: the factor reads K's lower triangle
-// and writes L's strict lower triangle and D^-1, about 0.096 GB (0.029
-// ms), against 0.61 GFLOP (9 us); the solve reads L's strict lower
-// triangle, D^-1 and b and writes x, about 0.050 GB (0.015 ms), against
-// 2 N^2 operations per problem.  Both are memory-bound, and the chain of
-// N pivot (2N substitution) steps inside one problem is sequential, so a
-// block keeps its problem in shared memory (34 KB at N = 128, under the
-// 48 KB that needs no opt-in) and the card is filled with problems.
+// Bounds on an H100 SXM (3.35 TB/s HBM3, 33.5 T f32 instructions/s
+// outside the tensor cores, each multiply and each add one instruction
+// under -fmad=false) at N = 76, B = 4096: the factor reads K's lower
+// triangle and writes L's strict lower triangle and D^-1, about 0.096 GB
+// (0.029 ms), against 0.61 G operations (0.018 ms); the solve reads L's
+// strict lower triangle, D^-1 and b and writes x, about 0.050 GB (0.015
+// ms), against 2 N^2 operations per problem.  Both are memory-bound, and
+// the chain of N pivot (2N substitution) steps inside one problem is
+// sequential, so a block keeps its problem in shared memory (20 KB at
+// N = 76 for the factor, 46 KB at N = 128, under the 48 KB that needs no
+// opt-in) and the card is filled with problems.
 //
 // Host interface: plain C functions returning cudaGetLastError() after
 // the launch, called through ctypes.  No kernel allocates or
@@ -30,8 +32,6 @@
 
 namespace {
 
-constexpr int kFactorThreads = 256;
-
 // ---------------------------------------------------------------------
 // K = (I + L) D (I + L)^T, no pivoting, no regularisation.
 //
@@ -40,21 +40,17 @@ constexpr int kFactorThreads = 256;
 // is the lower triangle of K; this one reads only that triangle too, so
 // both assume a symmetric K.  It writes L whole: the strict lower
 // factor, zeros on and above the diagonal (the reference leaves junk
-// there; no consumer reads it).
+// there; no consumer reads it).  The body is the f64 ldl_factor's
+// blocked factor (ldl_core.cuh::factor_blocked) with T = float and no
+// regularisation, bit for bit with the plain version as that one is.
 // ---------------------------------------------------------------------
 __global__ void __launch_bounds__(kFactorThreads)
     ldl_factor_f32_kernel(const float* __restrict__ K, float* __restrict__ L,
                           float* __restrict__ Dinv, int n) {
   extern __shared__ float smem[];
-  float* a = smem;           // packed lower triangle, tri(n)
-  float* acol = a + tri(n);  // pivot column before scaling, n
-  float* lcol = acol + n;    // pivot column of L, n
   const size_t b = blockIdx.x;
-
-  load_lower_packed(K + b * n * n, a, n);
-  __syncthreads();
-  factor_packed(a, acol, lcol, Dinv + b * n, n);
-  store_strict_lower(a, L + b * n * n, n);
+  factor_blocked<float>(K + b * n * n, nullptr, L + b * n * n,
+                           Dinv + b * n, smem, n);
 }
 
 // ---------------------------------------------------------------------
@@ -89,7 +85,14 @@ __global__ void __launch_bounds__(kLoadThreads, 1)
   store_rows<float, 1>(x, xg + b * n, n);
 }
 
-size_t factor_smem(int n) { return sizeof(float) * (tri(n) + 2 * n); }
+size_t factor_smem(int n) {
+  return sizeof(float) * FactorLayout<float>(n).smem();
+}
+
+cudaError_t ready_factor() {
+  static DeviceFlags done = {};
+  return allow_smem(ldl_factor_f32_kernel, factor_smem(kMaxN), done);
+}
 size_t solve_smem(int n) { return sizeof(float) * tri(n); }
 
 bool bad_shape(int B, int n) { return B < 0 || n < 1 || n > kMaxN; }
@@ -102,6 +105,8 @@ int cc_ldl_factor_f32(const float* K, float* L, float* Dinv, int B, int n,
                       void* stream) {
   if (bad_shape(B, n)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
+  cudaError_t e = ready_factor();
+  if (e != cudaSuccess) return (int)e;
   ldl_factor_f32_kernel<<<B, kFactorThreads, factor_smem(n),
                           (cudaStream_t)stream>>>(K, L, Dinv, n);
   return (int)cudaGetLastError();
@@ -117,6 +122,17 @@ int cc_ldl_solve_f32(const float* L, const float* Dinv, const float* b,
             L, Dinv, b, x, n);
     return (int)cudaGetLastError();
   });
+}
+
+// Resident blocks per SM and threads per block of ldl_factor_f32's
+// launch at N = n on the current device.
+int cc_occupancy_f32(int n, int* blocks, int* threads) {
+  if (bad_shape(1, n)) return (int)cudaErrorInvalidValue;
+  *threads = kFactorThreads;
+  cudaError_t e = ready_factor();
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, ldl_factor_f32_kernel, kFactorThreads, factor_smem(n));
 }
 
 }  // extern "C"

@@ -6,7 +6,8 @@ main path's shapes.
 At N = 76 (the KKT dimension of the portfolio SOCP with nass = 32) and
 each width B of WIDTHS, every kernel form of `kkt/ldl.py` -- ldl_factor,
 and ldl_solve, kkt_residual and ldl_solve_refine (npass = 1) with R = 1
-and R = 2 -- is timed:
+and R = 2 -- and the f32 ldl_factor_batched of `kkt/ldl_f32.py`, on the
+same K in f32, is timed:
 
 - ms: the kernel's own duration on the device (torch.profiler), over
   back-to-back launches on the same operands, so that below about
@@ -17,19 +18,22 @@ and R = 2 -- is timed:
   it is the host's rate of calls, not the kernel's time);
 - plain_ms: CUDA events around the plain PyTorch version;
 
-beside its bound (`work`, `bound_ms`) and, where the kernel library
-reports it, the resident blocks and warps per SM.  Run as a script, it
-also times each form with the L2 flushed before every launch (cold_ms),
-to show how much the warm L2 gives.  The module times the kernels of
-the `cuclarabel_torch` it is imported from, and needs nothing of that
-package but `kkt/ldl.py` and `kkt/_build.py`: a copy placed in another
-checkout's package times that checkout's kernels, so that two versions
-can be compared on one card in one run.  Needs a CUDA device.
+beside its bound (`work`, `bound_ms`), ptxas' registers and spill bytes
+per thread from the build's log and, where the kernel library reports
+it, the resident blocks and warps per SM.  Run as a script, it also
+times each form with the L2 flushed before every launch (cold_ms), to
+show how much the warm L2 gives.  The module times the kernels of the
+`cuclarabel_torch` it is imported from, and needs nothing of that
+package but `kkt/ldl.py`, `kkt/ldl_f32.py` and `kkt/_build.py`: a copy
+placed in another checkout's package times that checkout's kernels, so
+that two versions can be compared on one card in one run.  Needs a CUDA
+device.
 """
 
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -37,7 +41,7 @@ import tempfile
 import numpy as np
 import torch
 
-from .kkt import _build, ldl
+from .kkt import _build, ldl, ldl_f32
 
 # H100 SXM (NVIDIA data sheet), at the full 700 W power limit: HBM3
 # bandwidth, and the f64 and f32 rates outside the tensor cores in
@@ -57,16 +61,18 @@ MAIN_NM = (33, 43)
 WIDTHS = (4096, 256, 1)
 # the width at which CUDA events time the kernel rather than the host
 EVENTS_WIDTH = 4096
-FORMS = (("ldl_factor", 1), ("ldl_solve", 1), ("ldl_solve", 2),
-         ("kkt_residual", 1), ("kkt_residual", 2),
-         ("ldl_solve_refine", 1), ("ldl_solve_refine", 2))
+F64_FORMS = (("ldl_factor", 1), ("ldl_solve", 1), ("ldl_solve", 2),
+             ("kkt_residual", 1), ("kkt_residual", 2),
+             ("ldl_solve_refine", 1), ("ldl_solve_refine", 2))
+FORMS = F64_FORMS + (("ldl_factor_batched", 1),)
 # the device function of each kernel, as the profiler names it: a
-# prefix, which matches the substitution kernels with or without their
-# second template argument (the slot count)
-KERNEL_NAMES = {"ldl_factor": "ldl_factor_kernel(",
+# prefix, which matches the kernels with or without their last template
+# argument (the slot count)
+KERNEL_NAMES = {"ldl_factor": "ldl_factor_kernel",
                 "ldl_solve": "ldl_solve_kernel<{R}",
                 "kkt_residual": "kkt_residual_kernel<{R}",
-                "ldl_solve_refine": "ldl_solve_refine_kernel<{R}"}
+                "ldl_solve_refine": "ldl_solve_refine_kernel<{R}",
+                "ldl_factor_batched": "ldl_factor_f32_kernel"}
 OCCUPANCY_ID = {"ldl_factor": 0, "ldl_solve": 1, "kkt_residual": 2,
                 "ldl_solve_refine": 3}
 
@@ -210,22 +216,49 @@ def device_ms(fns, reps, flush=None, tries=3):
 def occupancy(name, R, N):
     """(resident blocks, resident warps) per SM of the kernel's launch at
     N, from cudaOccupancyMaxActiveBlocksPerMultiprocessor; None where the
-    kernel library has no cc_occupancy."""
-    fn = getattr(_build.load(), "cc_occupancy", None)
+    kernel library does not report it."""
+    lib = _build.load()
+    blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
+    out = (ctypes.addressof(blocks), ctypes.addressof(threads))
+    if name in OCCUPANCY_ID:
+        fn = getattr(lib, "cc_occupancy", None)
+        args = (OCCUPANCY_ID[name], N, R) + out
+    else:
+        fn = getattr(lib, "cc_occupancy_f32", None)
+        args = (N,) + out
     if fn is None:
         return None
-    blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
-    rc = fn(OCCUPANCY_ID[name], N, R, ctypes.addressof(blocks),
-            ctypes.addressof(threads))
+    rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"cc_occupancy({name}, r={R}): CUDA error {rc}")
     return blocks.value, blocks.value * threads.value // 32
 
 
+def ptxas(name, R, N, report):
+    """ptxas' {"registers", "spill_stores", "spill_loads", ...} of the
+    instantiation that kernel form (name, R) launches at N, from a
+    build's `_build.ptxas_report`: the device function whose template
+    arguments agree with (R, slots) -- (slots) for the factors -- as far
+    as it has any; None where the report has none."""
+    func = re.match(r"\w+", KERNEL_NAMES[name]).group(0)
+    slots = (N + 31) // 32
+    want = [slots] if "factor" in name else [R, slots]
+    tag = f"{len(func)}{func}"
+    for mangled, rec in report.items():
+        at = mangled.find(tag)
+        if at < 0:
+            continue
+        m = re.match(r"I((?:Li-?\d+E)+)E", mangled[at + len(tag):])
+        got = [int(v) for v in re.findall(r"Li(-?\d+)E", m.group(1))] if m else []
+        if got == want[:len(got)]:
+            return rec
+    return None
+
+
 def operands(B, seed=1, dev="cuda"):
     """The kernels' inputs at the main path's N = 76, width B: K, reg,
     the factor L, Dinv, right-hand sides b (B, N) and b2 (B, N, 2), and
-    x, x2 = their solutions."""
+    x, x2 = their solutions; Kf = K in f32."""
     n, m = MAIN_NM
     rng = np.random.default_rng(seed)
     Kn, regn = make_kkt(rng, B, n, m)
@@ -235,15 +268,20 @@ def operands(B, seed=1, dev="cuda"):
     b = torch.tensor(rng.standard_normal((B, n + m)), device=dev)
     b2 = torch.tensor(rng.standard_normal((B, n + m, 2)), device=dev)
     return {"K": K, "reg": reg, "L": L, "Dinv": Dinv, "b": b, "b2": b2,
-            "x": ldl.ldl_solve(L, Dinv, b), "x2": ldl.ldl_solve(L, Dinv, b2)}
+            "x": ldl.ldl_solve(L, Dinv, b), "x2": ldl.ldl_solve(L, Dinv, b2),
+            "Kf": K.float()}
 
 
 def calls(op):
     """{(name, R): (kernel call, plain call)} on the operands `op`."""
     K, reg, L, Dinv = op["K"], op["reg"], op["L"], op["Dinv"]
     rhs = {1: (op["b"], op["x"]), 2: (op["b2"], op["x2"])}
+    Kf = op["Kf"]
     out = {("ldl_factor", 1): (lambda: ldl.ldl_factor(K, reg),
-                               lambda: ldl.ldl_factor_plain(K, reg))}
+                               lambda: ldl.ldl_factor_plain(K, reg)),
+           ("ldl_factor_batched", 1): (
+               lambda: ldl_f32.ldl_factor_batched(Kf),
+               lambda: ldl_f32.ldl_factor_batched_plain(Kf))}
     for R, (b, x) in rhs.items():
         out[("ldl_solve", R)] = (lambda b=b: ldl.ldl_solve(L, Dinv, b),
                                  lambda b=b: ldl.ldl_solve_plain(L, Dinv, b))
@@ -256,15 +294,17 @@ def calls(op):
     return out
 
 
-def time_width(B, reps=20, plain_reps=3, cold=False):
-    """One row per kernel form at (N = 76, B): its device ms (and, with
-    `cold`, cold_ms with the L2 flushed), events_ms at EVENTS_WIDTH,
-    plain_ms, bound and occupancy.  Returns (rows, operands)."""
+def time_width(B, forms=FORMS, reps=20, plain_reps=3, cold=False):
+    """One row per kernel form of `forms` at (N = 76, B): its device ms
+    (and, with `cold`, cold_ms with the L2 flushed), events_ms at
+    EVENTS_WIDTH, plain_ms, bound, ptxas' registers and spills, and
+    occupancy.  Returns (rows, operands)."""
     op = operands(B)
     N = op["b"].shape[1]
     fns = calls(op)
+    report = _build.ptxas_report(_build.build()["log"])
     keyed = {(form, KERNEL_NAMES[form[0]].format(R=form[1])): fns[form][0]
-             for form in FORMS}
+             for form in forms}
     warm = device_ms(keyed, reps)
     if cold:
         flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
@@ -274,8 +314,10 @@ def time_width(B, reps=20, plain_reps=3, cold=False):
     for (form, kname), kern in keyed.items():
         name, R = form
         nbytes, ops = work(name, B, N, R=R)
-        bms, by = bound_ms(nbytes, ops)
+        bms, by = bound_ms(nbytes, ops, PEAK_F32_PER_S
+                           if name.endswith("_batched") else PEAK_F64_PER_S)
         occ = occupancy(name, R, N)
+        reg = ptxas(name, R, N, report) or {}
         row = {"name": name, "R": R, "N": N, "B": B,
                "ms": warm[(form, kname)]}
         if B == EVENTS_WIDTH:
@@ -287,7 +329,10 @@ def time_width(B, reps=20, plain_reps=3, cold=False):
             "bound_ms": bms, "bound_by": by,
             "gb": nbytes / 1e9, "gflop": ops / 1e9,
             "blocks_per_sm": occ[0] if occ else None,
-            "warps_per_sm": occ[1] if occ else None})
+            "warps_per_sm": occ[1] if occ else None,
+            "registers": reg.get("registers"),
+            "spill_bytes": (reg["spill_stores"] + reg["spill_loads"]
+                            if "spill_stores" in reg else None)})
         rows.append(row)
     return rows, op
 
@@ -299,6 +344,9 @@ def row_line(card, row):
     extra = "".join(f", {label} {row[key]:.4f} ms" for key, label in (
         ("cold_ms", "L2 flushed"), ("events_ms", "by events"))
         if key in row)
+    if row.get("registers") is not None:
+        occ += (f", ptxas {row['registers']} registers, "
+                f"{row['spill_bytes']} B spilled")
     return (f"[{card}] {row['name']} r={row['R']} at N={row['N']} "
             f"B={row['B']}: device {row['ms']:.4f} ms (L2 warm){extra}, "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "

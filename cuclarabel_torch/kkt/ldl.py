@@ -12,7 +12,9 @@ batch-first: K and L are (B, N, N), D^-1 is (B, N), right-hand sides are
 
 L is the strict-lower unit factor (zeros on and above the diagonal) of
 K + diag(reg) = (I + L) D (I + L)^T, and Dinv holds D^-1, as in the
-reference.  Each wrapper takes its plain version when its tensors lie on
+reference.  K is symmetric: ldl_factor, kkt_residual and
+ldl_solve_refine read only its lower triangle, kernels and plain
+versions alike.  Each wrapper takes its plain version when its tensors lie on
 the CPU and launches its CUDA kernel when they lie on a CUDA device;
 there is no fallback from one to the other.  `LAUNCHES` counts kernel
 launches and `PLAIN_CALLS` calls of the plain versions, keyed by
@@ -42,7 +44,8 @@ def reset_counts() -> None:
 
 def _sym_from_lower(K):
     """The symmetric matrix whose lower triangle is K's (the kernels of
-    ldl_factor and ldl_solve_refine read only that triangle)."""
+    ldl_factor, kkt_residual and ldl_solve_refine read only that
+    triangle)."""
     return torch.tril(K) + torch.tril(K, -1).transpose(1, 2)
 
 
@@ -120,7 +123,7 @@ def ldl_solve_plain(L, Dinv, b):
 
 def kkt_residual_plain(K, x, b):
     PLAIN_CALLS[f"kkt_residual/r{_r(b)}"] += 1
-    return _residual(K, x, b)
+    return _residual(_sym_from_lower(K), x, b)
 
 
 def ldl_solve_refine_plain(K, L, Dinv, b, npass):
@@ -226,7 +229,8 @@ def ldl_solve(L, Dinv, b):
 
 
 def kkt_residual(K, x, b):
-    """r = b - K x for a full K (B, N, N); x, b (B, N) or (B, N, R)."""
+    """r = b - K x; K (B, N, N) symmetric, of which only the lower
+    triangle is read; x, b (B, N) or (B, N, R)."""
     if _on_cpu(K, x, b):
         return kkt_residual_plain(K, x, b)
     B, N = _dims(K, "K")

@@ -1,0 +1,61 @@
+"""Digests of the main paths' results on one card, to show that two
+versions of the kernels leave the solves unchanged to the bit.
+
+    python3 -m cuclarabel_torch.solve_digest
+
+Runs the main paths of `chip_smoke.py` -- BatchSolver on the portfolio
+SOCP (nass = 32, seed 7) at B = 256 and 4096, and Solver on that
+problem's first instance (N = 76, the f64 kernels at B = 1) -- and
+prints one JSON line per path: the SHA-256 of the solutions' x, s and z
+(float64 bytes, problem after problem), the IPM iterations and the
+statuses.  Equal digests from two versions mean bitwise-equal
+solutions.  The module needs nothing of `cuclarabel_torch` that an
+earlier version lacks: a copy placed in another checkout's package
+digests that checkout's solves, so that two versions can be compared in
+one run.  Needs a CUDA device.
+"""
+
+import hashlib
+import json
+import sys
+
+import numpy as np
+import torch
+
+NASS = 32
+WIDTHS = (256, 4096)
+
+
+def digest(sols):
+    """{"sha256", "iterations", "statuses"} of a list of solutions."""
+    h = hashlib.sha256()
+    for s in sols:
+        for v in (s.x, s.s, s.z):
+            h.update(np.ascontiguousarray(v, dtype=np.float64).tobytes())
+    return {"sha256": h.hexdigest(),
+            "iterations": [int(s.iterations) for s in sols],
+            "statuses": sorted({s.status.name for s in sols})}
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("cuclarabel_torch.solve_digest: no CUDA device",
+              file=sys.stderr)
+        return 1
+    import cuclarabel_torch as ct
+    from cuclarabel_torch.problems import portfolio_socp
+
+    for B in WIDTHS:
+        A, qs, bs, cones = portfolio_socp(NASS, B, seed=7)
+        d = digest(ct.BatchSolver(None, qs, A, bs, cones).solve())
+        iters = d.pop("iterations")
+        d.update(iterations_sum=sum(iters), iterations_max=max(iters))
+        print(json.dumps({"path": f"batch_B{B}", **d}), flush=True)
+    A, qs, bs, cones = portfolio_socp(NASS, 1, seed=7)
+    d = digest([ct.Solver(None, qs[0], A, bs[0], cones).solve()])
+    print(json.dumps({"path": "solver_n76", **d}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -9,8 +9,9 @@ The kernels are held against their plain PyTorch versions on the same
 card tensors: the factor and the substitution, f64 and f32, bit for bit
 (the kernels are built with -fmad=false and round every operation as the
 plain versions do), the residual and the refined solve within 1e-12
-relative (other summation orders), at the main shapes and at the edges
-of the substitution's 32-row panels.  The issue-rate probes' kernels
+relative (other summation orders), at the main shapes, at the edges of
+the substitution's 32-row panels and around the factor's 8-pivot panels
+and 4 x 4 tiles; the residual bit for bit with the refined solve's.  The issue-rate probes' kernels
 (csrc/probes.cu) are held to their plain versions bit for bit."""
 
 import numpy as np
@@ -140,6 +141,87 @@ def test_warp_kernels_keep_problems_apart(dev, N, R):
         assert torch.equal(xr[others], xr0[others])
         assert torch.equal(rr[others], rr0[others])
         assert not bool(torch.isfinite(xr[2]).all())
+
+
+FACTOR_EDGES = (1, 2, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63, 64, 65, 76, 96,
+                127, 128)
+
+
+def _junk(rng, K):
+    """K with 1e3-scale junk above the diagonal, which the kernels that
+    take a symmetric K must not read."""
+    junk = torch.tensor(rng.standard_normal(tuple(K.shape)), device=K.device)
+    return K + torch.triu(junk, 1) * 1e3
+
+
+@pytest.mark.parametrize("N", FACTOR_EDGES)
+@pytest.mark.parametrize("B", [1, 3, 300])
+def test_factor_at_panel_and_tile_edges(dev, N, B):
+    """ldl_factor eliminates in panels of 8 pivots and updates in 4 x 4
+    tiles: N at and around each edge, B = 1 and more problems than SMs.
+    Bit for bit with plain on a K with junk above the diagonal, and the
+    same factor as without the junk."""
+    from cuclarabel_torch.kkt import ldl
+
+    rng = np.random.default_rng(100 * N + B)
+    m = (N + 1) // 2
+    K, reg = _kkt(rng, B, N - m, m, dev)
+    Kj = _junk(rng, K)
+    L, Dinv, ok = ldl.ldl_factor(Kj, reg)
+    Lp, Dinvp, okp = ldl.ldl_factor_plain(Kj, reg)
+    assert torch.equal(L, Lp) and torch.equal(Dinv, Dinvp)
+    assert torch.equal(ok, okp) and bool(ok.all())
+    assert bool((L.triu() == 0).all())
+    L0, Dinv0, _ = ldl.ldl_factor(K, reg)
+    assert torch.equal(L, L0) and torch.equal(Dinv, Dinv0)
+
+
+@pytest.mark.parametrize("N", [1, 9, 76, 128])
+def test_factor_zero_pivot_stays_in_its_problem(dev, N):
+    """A zero pivot in one problem (row j of its lower triangle and reg_j
+    zero, so D_j = 0 exactly) sets ok false there alone; every other
+    problem's L and D^-1 are as without it."""
+    from cuclarabel_torch.kkt import ldl
+
+    rng = np.random.default_rng(N)
+    B, m, bad, j = 5, (N + 1) // 2, 2, N // 2
+    K, reg = _kkt(rng, B, N - m, m, dev)
+    L0, Dinv0, _ = ldl.ldl_factor(K, reg)
+    K[bad, j, :j + 1] = 0.0
+    reg[bad, j] = 0.0
+    L, Dinv, ok = ldl.ldl_factor(K, reg)
+    others = [i for i in range(B) if i != bad]
+    assert not bool(ok[bad]) and bool(ok[others].all())
+    assert torch.equal(ok, ldl.ldl_factor_plain(K, reg)[2])
+    assert not bool(torch.isfinite(Dinv[bad, j]))
+    assert torch.equal(L[others], L0[others])
+    assert torch.equal(Dinv[others], Dinv0[others])
+
+
+@pytest.mark.parametrize("N", FACTOR_EDGES)
+@pytest.mark.parametrize("B", [1, 3, 300])
+@pytest.mark.parametrize("R", [1, 2])
+def test_residual_reads_the_lower_triangle(dev, N, B, R):
+    """kkt_residual takes a symmetric K and reads its lower triangle:
+    junk above the diagonal changes nothing; r within 1e-12 of plain, and
+    bit for bit the residual that ldl_solve_refine returns."""
+    from cuclarabel_torch.kkt import ldl
+
+    rng = np.random.default_rng(10 * N + B + R)
+    m = (N + 1) // 2
+    K, reg = _kkt(rng, B, N - m, m, dev)
+    Kj = _junk(rng, K)
+    L, Dinv, _ = ldl.ldl_factor(K, reg)
+    shape = (B, N) if R == 1 else (B, N, R)
+    b = torch.tensor(rng.standard_normal(shape), device=dev)
+    x = torch.tensor(rng.standard_normal(shape), device=dev)
+    r = ldl.kkt_residual(Kj, x, b)
+    assert torch.equal(r, ldl.kkt_residual(K, x, b))
+    torch.testing.assert_close(r, ldl.kkt_residual_plain(Kj, x, b),
+                               rtol=1e-12, atol=1e-12)
+    xr, rr = ldl.ldl_solve_refine(Kj, L, Dinv, b, 1)
+    assert torch.equal(rr, ldl.kkt_residual(Kj, xr, b))
+    torch.cuda.synchronize()
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):

@@ -29,14 +29,15 @@ print("LOADED", bad)
 print("PORT", sorted(m for m in sys.modules if m.startswith("cuclarabel_torch")))
 """
 
-# modules added with the single-problem Solver, the f32 LDL^T kernels and
-# the issue-rate probes
+# modules added with the single-problem Solver, the f32 LDL^T kernels,
+# the issue-rate probes and the solve digests
 NEW_MODULES = ("cuclarabel_torch.device", "cuclarabel_torch.equilibration",
                "cuclarabel_torch.info_print", "cuclarabel_torch.json_io",
                "cuclarabel_torch.kkt.ldl_f32", "cuclarabel_torch.presolve",
                "cuclarabel_torch.solver", "cuclarabel_torch.warmstart",
                "cuclarabel_torch.probes.mosaic_probe",
-               "cuclarabel_torch.probes.mosaic_probe2")
+               "cuclarabel_torch.probes.mosaic_probe2",
+               "cuclarabel_torch.solve_digest")
 
 
 def _env():

@@ -55,8 +55,42 @@ def test_rates_count_unfused_instructions():
     assert kt.PEAK_F64_PER_S == pytest.approx(16.7e12, rel=2e-3)
     assert kt.PEAK_F32_PER_S == pytest.approx(33.5e12, rel=2e-3)
     for B in kt.WIDTHS:
-        for name, R in kt.FORMS:
+        for name, R in kt.F64_FORMS:
             assert kt.bound_ms(*kt.work(name, B, 76, R=R))[1] == "bytes"
     for name in ("ldl_factor_batched", "ldl_solve_batched"):
         assert kt.bound_ms(*kt.work(name, 4096, 76),
                            kt.PEAK_F32_PER_S)[1] == "bytes"
+
+
+def test_ptxas_finds_the_instantiation_each_form_launches():
+    """ptxas' numbers of the device function a form runs at N = 76
+    (slots 3): matched by its template arguments (R, slots), or by as
+    many as an older build's kernel has."""
+    def rec(regs):
+        return {"registers": regs, "spill_stores": 0, "spill_loads": 0}
+
+    new = {
+        "_ZN12_GLOBAL__N_117ldl_factor_kernelILi3EEEvPKdS2_PdS3_Phi":
+            rec(80),
+        "_ZN12_GLOBAL__N_117ldl_factor_kernelILi4EEEvPKdS2_PdS3_Phi":
+            rec(90),
+        "_ZN12_GLOBAL__N_119kkt_residual_kernelILi1ELi3EEEvPKdS2_S2_Pdi":
+            rec(60),
+        "_ZN12_GLOBAL__N_119kkt_residual_kernelILi2ELi3EEEvPKdS2_S2_Pdi":
+            rec(70),
+        "_ZN12_GLOBAL__N_121ldl_factor_f32_kernelILi3EEEvPKfPfS3_i":
+            rec(50),
+    }
+    assert kt.ptxas("ldl_factor", 1, 76, new)["registers"] == 80
+    assert kt.ptxas("ldl_factor", 1, 128, new)["registers"] == 90
+    assert kt.ptxas("kkt_residual", 2, 76, new)["registers"] == 70
+    assert kt.ptxas("ldl_factor_batched", 1, 76, new)["registers"] == 50
+    assert kt.ptxas("ldl_solve", 1, 76, new) is None
+    old = {
+        "_ZN12_GLOBAL__N_117ldl_factor_kernelEPKdS1_PdS2_Phi": rec(40),
+        "_ZN12_GLOBAL__N_119kkt_residual_kernelILi1EEEvPKdS1_S1_Pdi":
+            rec(30),
+    }
+    assert kt.ptxas("ldl_factor", 1, 76, old)["registers"] == 40
+    assert kt.ptxas("kkt_residual", 1, 76, old)["registers"] == 30
+    assert kt.ptxas("kkt_residual", 2, 76, old) is None

@@ -163,6 +163,20 @@ def test_residual_matches_reference(case):
     assert _rel(r, r_np) < 1e-13
 
 
+def test_residual_reads_the_lower_triangle(case):
+    """kkt_residual takes a symmetric K and reads only its lower
+    triangle, as its kernel does: with junk above the diagonal, r is
+    b - sym(K) x, the r of the symmetric K."""
+    K, x0, b = case["K"], case["x0"], case["b1"]
+    rng = np.random.default_rng(7)
+    Kj = K + np.triu(rng.standard_normal(K.shape), 1) * 1e3
+    r = ldl.kkt_residual(_t(Kj), _t(x0), _t(b)).numpy()
+    Ks = np.tril(Kj) + np.transpose(np.tril(Kj, -1), (0, 2, 1))
+    assert np.array_equal(r, ldl.kkt_residual(_t(K), _t(x0), _t(b)).numpy())
+    assert _rel(r, b - np.einsum("bij,bj->bi", Ks, x0)) < 1e-13
+    assert _rel(r, case["ref_resid"]) < TOL
+
+
 @pytest.mark.parametrize("npass", [0, 1, 2])
 @pytest.mark.parametrize("R", [1, 2])
 def test_refine_returns_true_residual(case, R, npass):

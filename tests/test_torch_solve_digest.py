@@ -1,0 +1,37 @@
+"""cuclarabel_torch.solve_digest off the card: its digest changes with
+any bit of x, s or z and with nothing else, and its entry point needs a
+CUDA device."""
+
+import numpy as np
+import pytest
+import torch
+
+import cuclarabel_torch as ct
+from cuclarabel_torch import solve_digest
+from cuclarabel_torch.problems import portfolio_socp
+
+
+@pytest.fixture(scope="module")
+def sols():
+    A, q, b, cones = portfolio_socp(nass=4, batch=3, seed=7)
+    return ct.BatchSolver(None, q, A, b, cones, device="cpu").solve()
+
+
+def test_digest_is_bitwise(sols):
+    d = solve_digest.digest(sols)
+    assert d == solve_digest.digest(sols)
+    assert d["statuses"] == ["SOLVED"] and len(d["iterations"]) == 3
+    for field in ("x", "s", "z"):
+        v = getattr(sols[1], field)
+        old = v[0]
+        v[0] = np.nextafter(old, np.inf)  # one bit
+        assert solve_digest.digest(sols)["sha256"] != d["sha256"], field
+        v[0] = old
+    assert solve_digest.digest(sols) == d
+
+
+def test_main_needs_cuda(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert solve_digest.main() == 1
+    assert "no CUDA device" in capsys.readouterr().err
