@@ -29,22 +29,39 @@ Phases, in order; any failure exits non-zero:
    before it and read just after, showing its kernels ran and no plain
    version did:
    - batch: cuclarabel_torch.BatchSolver on the portfolio SOCP with
-     nass = 32 (KKT dimension 76) at B = 256 and B = 4096: every problem
-     SOLVED, the first 8 agreeing with the port's CPU solve;
+     nass = 32 (KKT dimension 76) at B = 256 and B = 4096 with default
+     settings -- B = 4096 compacts (auto batch_compaction 0.9 at
+     B >= 1024): its last_compaction, with stage 2 run, and its launches
+     split between the stages are printed -- and at B = 4096 with
+     batch_compaction=0.0 (batch_B4096_plain): every problem SOLVED; the
+     staged path equal to the plain one in status and iterations with
+     the objective within 1e-9 relative (the largest |dx|, |ds|, |dz|
+     printed, and, where the two are not bitwise equal, the loop
+     operations whose per-problem result depends on the batch width);
+     the first 8 problems at B = 256 agreeing with the port's CPU solve;
+   - batch_B256_warm: update_data(q=1.01 q) at B = 256, then a solve
+     warm-started from the previous solutions: every problem SOLVED,
+     within 1e-6 of a cold re-solve, in fewer iterations summed;
    - solver: cuclarabel_torch.Solver on the QP, LP and SOCP goldens and
      the portfolio SOCP at nass = 32 (N = 76, "pallas": the f64 kernels
      at B = 1) and nass = 64 (N = 148, "lu"): every problem SOLVED with
      the objective and iteration count of Solver(..., device="cpu");
      then an update_q with a warm-started re-solve, and one verbose
-     solve whose table is printed;
+     solve whose table is printed; then the same problems under
+     kkt_solve_method "qr" and "inverse" (library calls, no kernel):
+     SOLVED, the objective within 1e-7 relative of "lu" on the card, the
+     CPU's iterations; and profile_phases() of the N = 76 Solver;
    - f32: ldl_factor_batched and ldl_solve_batched at (76, 4096);
    - probes: the sweeps of the probes' entry points,
      cuclarabel_torch.probes.mosaic_probe at (83, 4096) and
      mosaic_probe2 (device time, bound, share of the issue rate, and for
      P2 ptxas' registers and spills), then each plain version's time;
 5. timing: warm problems/s, iterations and refinement passes of the
-   batch; first, repeat and warm-started solve ms of the N = 76 Solver
-   problem; each f64 kernel form (R = 1 and 2) at N = 76 and B = 4096,
+   batch at B = 256, and at B = 4096 staged and plain in turns (5 warm
+   solves each: median and spread, and the device busy ms of one
+   profiled warm solve of each); first, repeat and warm-started solve ms
+   of the N = 76 Solver problem; each f64 kernel form (R = 1 and 2) at
+   N = 76 and B = 4096,
    256 and 1 (cuclarabel_torch.kernel_timing: device time, CUDA events
    at B = 4096, resident blocks and warps per SM, ptxas' registers and
    spill bytes) beside its bound, its
@@ -72,7 +89,6 @@ from cuclarabel_torch.kernel_timing import card_line, cuda_ms, make_kkt
 
 # the portfolio SOCP of the main path
 NASS = 32
-MAIN_WIDTHS = (256, 4096)
 CPU_CHECK = 8
 # (n, m, B): the batch widths, then the Solver's B = 1 at N = 76 and at
 # the sizes of the goldens (SOCP N = 12, QP N = 8)
@@ -107,6 +123,16 @@ F32_SHAPES = ((16, 5), (76, 4096), (128, 256), (9, 3))  # (N, B)
 F32_CHECK = 8
 # Solver problems: (name, nass) of the portfolio SOCP, or the goldens
 SOLVER_PORTFOLIOS = (32, 64)
+# the library KKT backends of the Solver phase, held against "lu" on the
+# card and against their own CPU solve
+LIBRARY_METHODS = ("qr", "inverse")
+# the batch main paths: (path, B, BatchSolver settings); B = 4096 with
+# default settings compacts (auto: 0.9 at B >= 1024)
+MAIN_PATHS = (("batch_B256", 256, {}), ("batch_B4096", 4096, {}),
+              ("batch_B4096_plain", 4096, {"batch_compaction": 0.0}))
+TOL_STAGED = 1e-9     # staged vs plain objective, relative
+TOL_WARM = 1e-6       # warm vs cold re-solve objective, absolute
+TIMING_REPS = 5       # warm solves of each B = 4096 path, alternating
 
 REPLACES = {
     "ldl_factor": "cuclarabel_tpu/kkt/pallas_dd.py:1318",
@@ -284,42 +310,161 @@ def phase_kernels():
     return errs
 
 
+def compare_staged(card, staged, plain):
+    """The staged B = 4096 path against the plain one, problem by
+    problem: status and iterations equal, objective within TOL_STAGED
+    relative; prints the largest |dx|, |ds|, |dz| and whether the two are
+    bitwise equal, and if not, which of the loop's operations give a
+    problem a result that depends on the batch width."""
+    worst = {"x": 0.0, "s": 0.0, "z": 0.0}
+    obj = 0.0
+    for i, (g, w) in enumerate(zip(staged, plain)):
+        check(g.status == w.status, f"staged problem {i}: {g.status.name}, "
+              f"plain {w.status.name}")
+        check(g.iterations == w.iterations, f"staged problem {i}: "
+              f"{g.iterations} iterations, plain {w.iterations}")
+        obj = max(obj, abs(g.obj_val - w.obj_val) / abs(w.obj_val))
+        for f in worst:
+            worst[f] = max(worst[f], float(np.abs(getattr(g, f)
+                                                  - getattr(w, f)).max()))
+    check(obj <= TOL_STAGED, f"staged vs plain: objective {obj:.2e} "
+          f"relative (bar {TOL_STAGED:g})")
+    bitwise = not any(worst.values())
+    print(f"[{card}] batch_B4096 staged vs plain: statuses and iterations "
+          f"equal, objective within {obj:.3e} relative, max |dx| "
+          f"{worst['x']:.3e}, |ds| {worst['s']:.3e}, |dz| {worst['z']:.3e}, "
+          f"bitwise equal: {bitwise}")
+    if not bitwise:
+        print("operations whose per-problem result depends on the batch "
+              f"width on this card: {width_dependent_ops() or 'none found'}")
+    return {"bitwise": bitwise, "max_abs_diff": worst, "obj_rel": obj}
+
+
+def width_dependent_ops(B=4096, keep=300, reps=2, dev="cuda"):
+    """The loop's reductions and products at the main path's shapes
+    (n = 33, m = 43, the SOC segment sums of the portfolio layout), on B
+    rows and on `keep` of them gathered as stage 2 gathers them: the
+    names of those whose gathered rows differ from the same rows of the
+    full-width result, or from another run at the same width."""
+    from cuclarabel_torch.cones.layout import build_layout
+    from cuclarabel_torch.cones.ops import plan
+    from cuclarabel_torch.problems import portfolio_socp
+
+    _, _, _, cones = portfolio_socp(NASS, 1, seed=7)
+    layout = build_layout(tuple(cones))
+    seg = plan(layout, dev).soc_seg
+    n, m = 33, layout.m
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev,
+                           dtype=torch.float64)
+
+    A, x, z, v = rnd(B, m, n), rnd(B, n, 1), rnd(B, m, 1), rnd(B, m)
+    w = rnd(B, len(seg))
+    ops = {
+        "torch.bmm (A x)": lambda t: torch.bmm(t["A"], t["x"]),
+        "torch.bmm (A' z)": lambda t: torch.bmm(t["A"].transpose(1, 2),
+                                                t["z"]),
+        "sum(dim=1)": lambda t: t["v"].sum(dim=1),
+        "linalg.vector_norm(dim=1)": lambda t: torch.linalg.vector_norm(
+            t["v"], dim=1),
+        "index_add_ (SOC segment sums)": lambda t: t["w"].new_zeros(
+            t["w"].shape[0], layout.nsoc).index_add_(1, seg, t["w"]),
+    }
+    full = {"A": A, "x": x, "z": z, "v": v, "w": w}
+    idx = torch.randperm(B, generator=g, device=dev)[:keep].sort().values
+    part = {k: t.index_select(0, idx) for k, t in full.items()}
+    found = []
+    for name, op in ops.items():
+        ref = op(full)
+        same = all(torch.equal(op(full), ref) for _ in range(reps))
+        if not (same and torch.equal(ref.index_select(0, idx), op(part))):
+            found.append(name)
+    return found
+
+
+class StageLaunches:
+    """Splits a staged solve's kernel launches between its stages: the
+    launch counters are read where each run_passes call of
+    parallel/batch.py returns; the first call is stage 1 (the loop's
+    init before it counts with it), the second stage 2."""
+
+    def __init__(self):
+        from cuclarabel_torch.kkt import ldl
+        from cuclarabel_torch.parallel import batch
+
+        self.batch, self.ldl, self.ends = batch, ldl, []
+        self.inner = batch.run_passes
+
+    def __enter__(self):
+        def observed(*args, **kw):
+            out = self.inner(*args, **kw)
+            self.ends.append(dict(self.ldl.LAUNCHES))
+            return out
+
+        self.batch.run_passes = observed
+        return self
+
+    def __exit__(self, *exc):
+        self.batch.run_passes = self.inner
+
+    def split(self):
+        total = dict(self.ldl.LAUNCHES)
+        stage1 = self.ends[0] if self.ends else total
+        return {"stage1": stage1,
+                "stage2": {k: v - stage1.get(k, 0) for k, v in total.items()
+                           if v - stage1.get(k, 0)}}
+
+
 def phase_main(card):
     import cuclarabel_torch as ct
-    from cuclarabel_torch.kkt import ldl
     from cuclarabel_torch.problems import portfolio_socp
 
     runs = {}
     paths = {}
-    for B in MAIN_WIDTHS:
+    for path, B, settings in MAIN_PATHS:
         A, qs, bs, cones = portfolio_socp(NASS, B, seed=7)
-        ldl.reset_counts()
-        t0 = time.perf_counter()
-        solver = ct.BatchSolver(None, qs, A, bs, cones)
-        sols = solver.solve()
-        cold = time.perf_counter() - t0
+        stages = StageLaunches()
+
+        def drive():
+            t0 = time.perf_counter()
+            solver = ct.BatchSolver(None, qs, A, bs, cones, **settings)
+            with stages:
+                sols = solver.solve()
+            return solver, sols, time.perf_counter() - t0
+
+        (solver, sols, cold), launches = counted(path, drive)
         check(solver.device.type == "cuda", "BatchSolver did not run on CUDA")
         status = [s.status for s in sols]
         check(all(s == ct.SolverStatus.SOLVED for s in status),
-              f"B={B}: not all SOLVED: "
+              f"{path}: not all SOLVED: "
               f"{sorted(set(s.name for s in status))}")
         for s in sols:
             check(s.x.shape == (qs.shape[1],) and np.isfinite(s.x).all()
-                  and np.isfinite(s.obj_val), f"B={B}: non-finite result")
-        launches = dict(ldl.LAUNCHES)
-        plain = dict(ldl.PLAIN_CALLS)
-        runs[B] = (A, qs, bs, cones, solver, sols, cold)
-        print(f"B={B} launches: {json.dumps(launches, sort_keys=True)}")
-        print(f"B={B} plain calls: {json.dumps(plain, sort_keys=True)}")
-        check(not plain, f"B={B}: plain versions ran on the main path: "
-              f"{plain}")
+                  and np.isfinite(s.obj_val), f"{path}: non-finite result")
         for key in ("ldl_factor/r1", "ldl_solve_refine/r1",
                     "ldl_solve_refine/r2"):
-            check(launches.get(key, 0) > 0, f"B={B}: {key} never launched")
-        paths[f"batch_B{B}"] = launches
+            check(launches.get(key, 0) > 0, f"{path}: {key} never launched")
+        quorum = solver.settings.batch_compaction
+        want = settings.get("batch_compaction", 0.9 if B >= 1024 else 0.0)
+        check(quorum == want, f"{path}: batch_compaction resolved to "
+              f"{quorum}, not {want}")
+        if quorum > 0.0:
+            comp = solver.last_compaction
+            check(comp["remainder"] > 0, f"{path}: stage 2 did not run: "
+                  f"{comp}")
+            split = stages.split()
+            print(f"{path} compaction: {json.dumps(comp)}; launches by "
+                  f"stage: {json.dumps(split, sort_keys=True)}")
+        runs[path] = (A, qs, bs, cones, solver, sols, cold)
+        paths[path] = launches
+
+    staged = compare_staged(card, runs["batch_B4096"][5],
+                            runs["batch_B4096_plain"][5])
 
     # the first problems against the port's CPU solve (plain versions)
-    A, qs, bs, cones, _, sols, _ = runs[MAIN_WIDTHS[0]]
+    A, qs, bs, cones, _, sols, _ = runs["batch_B256"]
     cpu = ct.BatchSolver(None, qs[:CPU_CHECK], A, bs[:CPU_CHECK], cones,
                          device="cpu").solve()
     worst = 0.0
@@ -329,7 +474,39 @@ def phase_main(card):
     check(worst <= TOL_OBJ, f"objective vs CPU: {worst:.2e} relative")
     print(f"[{card}] first {CPU_CHECK} problems match the CPU solve: "
           f"max objective difference {worst:.3e} relative")
-    return runs, paths
+    return runs, paths, staged
+
+
+def phase_warm(card, runs):
+    """The batch warm path at B = 256: after update_data(q=1.01 q) a
+    re-solve warm-started from the previous solutions, every problem
+    SOLVED, within TOL_WARM of a cold re-solve, in fewer iterations
+    summed.  Returns (launches, record)."""
+    import cuclarabel_torch as ct
+
+    _, qs, _, _, solver, prev, _ = runs["batch_B256"]
+    solver.update_data(q=qs * 1.01)
+    start = tuple(np.stack([getattr(s, f) for s in prev])
+                  for f in ("x", "s", "z"))
+    warm, launches = counted("batch_B256_warm",
+                             lambda: solver.solve(warm_start=start))
+    check(launches.get("ldl_factor/r1", 0) > 0,
+          "batch_B256_warm: ldl_factor never launched")
+    cold = solver.solve()
+    solver.update_data(q=qs)
+    check(all(s.status == ct.SolverStatus.SOLVED for s in warm),
+          "batch_B256_warm: not all SOLVED")
+    gap = max(abs(w.obj_val - c.obj_val) for w, c in zip(warm, cold))
+    check(gap <= TOL_WARM, f"batch_B256_warm: objective {gap:.2e} from the "
+          f"cold re-solve (bar {TOL_WARM:g})")
+    iw = sum(s.iterations for s in warm)
+    ic = sum(s.iterations for s in cold)
+    check(iw < ic, f"batch_B256_warm: {iw} iterations, cold {ic}")
+    print(f"[{card}] batch_B256_warm: all SOLVED, {iw} iterations summed "
+          f"against {ic} cold, objectives within {gap:.3e} of the cold "
+          "re-solve")
+    return launches, {"iterations_warm": iw, "iterations_cold": ic,
+                      "max_obj_diff": gap}
 
 
 def counted(name, fn):
@@ -464,6 +641,46 @@ def phase_solver(card):
           f"after update_q {timing['warm_start_ms']:.1f} ms (median of 3, "
           f"{timing['warm_start_iterations']} iterations)")
     return launches, timing
+
+
+def phase_solver_backends(card):
+    """The Solver's library KKT backends ("qr", "inverse") on the card,
+    on the problems of the Solver phase: SOLVED, the objective within
+    TOL_OBJ relative of "lu" on the card, and the iterations of the same
+    method on the CPU.  Then the N = 76 Solver's profile_phases()."""
+    import cuclarabel_torch as ct
+
+    problems = dict(solver_problems())
+    for name, data in problems.items():
+        lu = ct.Solver(*data, kkt_solve_method="lu").solve()
+        for method in LIBRARY_METHODS:
+            solver = ct.Solver(*data, kkt_solve_method=method)
+            check(solver.device.type == "cuda", "Solver did not run on CUDA")
+            got = solver.solve()
+            want = ct.Solver(*data, kkt_solve_method=method,
+                             device="cpu").solve()
+            err = abs(got.obj_val - lu.obj_val) / abs(lu.obj_val)
+            check(got.status == ct.SolverStatus.SOLVED,
+                  f"solver {name} {method}: {got.status.name}")
+            check(err <= TOL_OBJ, f"solver {name} {method}: objective "
+                  f"{err:.2e} relative from lu")
+            check(got.iterations == want.iterations, f"solver {name} "
+                  f"{method}: {got.iterations} iterations, "
+                  f"{want.iterations} on the CPU")
+            check(solver.get_info()["linear_solver"]["method"] == method,
+                  f"solver {name}: {method} not taken")
+            print(f"solver {name} {method}: SOLVED in {got.iterations} "
+                  f"iterations (CPU {want.iterations}, lu {lu.iterations}),"
+                  f" objective {err:.2e} relative from lu")
+    main = f"portfolio{SOLVER_PORTFOLIOS[0]}"
+    solver = ct.Solver(*problems[main])
+    solver.solve()
+    phases = {k: v * 1e3 for k, v in solver.profile_phases().items()}
+    check(all(v > 0.0 for v in phases.values()),
+          f"profile_phases: {phases}")
+    print(f"[{card}] Solver {main} (N=76) profile_phases, ms per call: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in phases.items()))
+    return phases
 
 
 def make_qd_kkt(rng, B, N):
@@ -654,23 +871,72 @@ def phase_probes_path(card):
     return launches, times
 
 
+def solve_ms(solver, qs, r):
+    """One warm solve's wall ms, on q nudged by r (so that nothing is
+    reused), the host clock around a call that ends in a host copy."""
+    solver.update_data(q=qs * (1.0 + 1e-9 * (r + 1)))
+    t0 = time.perf_counter()
+    solver.solve()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def busy(solver):
+    """(device busy ms, kernel launches, wall ms) of one warm solve under
+    torch.profiler (device activity): the union of the kernels'
+    intervals (profiling.busy_ms)."""
+    from cuclarabel_torch.kernel_timing import kernel_events
+    from cuclarabel_torch.profiling import busy_ms
+
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        solver.solve()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = kernel_events(prof)
+    return busy_ms(kern), len(kern), wall
+
+
 def phase_timing(card, runs):
-    for B, (A, qs, bs, cones, solver, sols, cold) in runs.items():
-        reps = 3 if B <= 256 else 2
-        ts = []
-        for r in range(reps):
-            solver.update_data(q=qs * (1.0 + 1e-9 * (r + 1)))
-            t0 = time.perf_counter()
-            solver.solve()
-            ts.append(time.perf_counter() - t0)
-        it = solver.raw["iterations"]
-        ir = solver.raw["ir_count"]
-        warm = float(np.median(ts))
-        print(f"[{card}] B={B}: warm {B / warm:.1f} problems/s "
-              f"(median of {reps}: {warm * 1e3:.1f} ms; first solve "
-              f"{cold:.2f} s), IPM iterations mean {it.mean():.2f} max "
-              f"{it.max()}, {it.sum() / warm:.0f} problem-iterations/s, "
-              f"refinement passes per iteration {ir.sum() / it.sum():.3f}")
+    """Warm problems/s: B = 256 (median of 3), then the B = 4096 staged
+    and plain paths in turns (TIMING_REPS each, the first of each pair
+    alternating), with the median and the spread (min to max), and the
+    device busy time of one profiled warm solve of each."""
+    out = {}
+    A, qs, _, _, solver, _, cold = runs["batch_B256"]
+    ts = [solve_ms(solver, qs, r) for r in range(3)]
+    it, ir = solver.raw["iterations"], solver.raw["ir_count"]
+    warm = float(np.median(ts))
+    print(f"[{card}] B=256: warm {solver.B * 1e3 / warm:.1f} problems/s "
+          f"(median of 3:"
+          f" {warm:.1f} ms; first solve {cold:.2f} s), IPM iterations mean "
+          f"{it.mean():.2f} max {it.max()}, {it.sum() / warm * 1e3:.0f} "
+          "problem-iterations/s, refinement passes per iteration "
+          f"{ir.sum() / it.sum():.3f}")
+    pair = ("batch_B4096", "batch_B4096_plain")
+    ms = {p: [] for p in pair}
+    for r in range(TIMING_REPS):
+        for p in (pair if r % 2 == 0 else pair[::-1]):
+            ms[p].append(solve_ms(runs[p][4], runs[p][1], r))
+    for p in pair:
+        solver, cold = runs[p][4], runs[p][6]
+        it, ir = solver.raw["iterations"], solver.raw["ir_count"]
+        med = float(np.median(ms[p]))
+        b, launches, wall = busy(solver)
+        rate = [solver.B * 1e3 / t for t in ms[p]]
+        out[p] = {"problems_per_s_median": solver.B * 1e3 / med,
+                  "problems_per_s": rate, "wall_ms": ms[p],
+                  "device_busy_ms": b, "kernel_launches": launches,
+                  "profiled_wall_ms": wall}
+        print(f"[{card}] {p}: warm {solver.B * 1e3 / med:.1f} problems/s "
+              f"(median of "
+              f"{TIMING_REPS}: {med:.1f} ms; spread {min(rate):.1f} to "
+              f"{max(rate):.1f} problems/s; first solve {cold:.2f} s), one "
+              f"profiled warm solve: device busy {b:.2f} ms of {wall:.1f} "
+              f"ms in {launches} launches; IPM iterations mean "
+              f"{it.mean():.2f} max {it.max()}, refinement passes per "
+              f"iteration {ir.sum() / it.sum():.3f}")
+    return out
 
 
 def ldl_library_operands(L, Dinv):
@@ -759,9 +1025,9 @@ def phase_kernel_timing(card):
 
 def time_kernel(card, name, B, N, ms, plain, lib):
     """An f32 kernel's device ms beside its bound, its plain version's ms
-    and its library call's ms."""
+    and its library call's ms (a slow library call's warm-up is the
+    check against the kernel that its caller made)."""
     plain_ms = cuda_ms(plain, 3)
-    lib()
     lib_ms = library_ms(lib)
     nbytes, ops = kt.work(name, B, N)
     bms, by = kt.bound_ms(nbytes, ops, kt.PEAK_F32_PER_S)
@@ -871,15 +1137,20 @@ def main():
     errs = phase_kernels()
     errs.update(phase_kernels_f32())
     errs.update(phase_probes())
-    runs, paths = phase_main(card)
+    runs, paths, staged = phase_main(card)
+    paths["batch_B256_warm"], warm = phase_warm(card, runs)
     paths["solver"], solver_times = phase_solver(card)
+    solver_times["phases_ms"] = phase_solver_backends(card)
     paths["f32"], f32_data = phase_f32_path()
     paths["probes"], probe_times = phase_probes_path(card)
-    phase_timing(card, runs)
+    batch_times = phase_timing(card, runs)
     times = phase_kernel_timing(card)
     times.update(phase_kernel_timing_f32(card, *f32_data))
     times.update(probe_times)
     print(json.dumps({"solver_n76": solver_times}))
+    print(json.dumps({"batch_B4096": {"staged_vs_plain": staged,
+                                      "timing": batch_times},
+                      "batch_B256_warm": warm}))
     print(json.dumps({"kernels": kernel_entries(paths, errs, times)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

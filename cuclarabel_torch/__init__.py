@@ -39,6 +39,18 @@ from .statuscodes import SolverStatus
 
 __version__ = "0.1.0"
 
+
+def solver_name() -> str:
+    """Solver name string, as the verbose banner prints it (reference:
+    src/version.jl solver_name())."""
+    return "cuclarabel_torch"
+
+
+def version() -> str:
+    """Package version string (reference: src/version.jl version())."""
+    return __version__
+
+
 __all__ = [
     "BatchSolver",
     "DefaultSolution",
@@ -58,4 +70,6 @@ __all__ = [
     "ldl_factor_batched",
     "ldl_solve_batched",
     "set_infinity",
+    "solver_name",
+    "version",
 ]

@@ -135,4 +135,15 @@ int cc_occupancy_f32(int n, int* blocks, int* threads) {
       blocks, ldl_factor_f32_kernel, kFactorThreads, factor_smem(n));
 }
 
+// The same for ldl_solve_f32's launch at N = n.
+int cc_occupancy_f32_solve(int n, int* blocks, int* threads) {
+  if (bad_shape(1, n)) return (int)cudaErrorInvalidValue;
+  *threads = kLoadThreads;
+  return with_slots(n, [&](auto S) {
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, ldl_solve_f32_kernel<decltype(S)::value>, kLoadThreads,
+        solve_smem(n));
+  });
+}
+
 }  // extern "C"

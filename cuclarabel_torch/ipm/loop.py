@@ -11,8 +11,15 @@ dimension, the body is computed for every problem, and its result is
 committed only where the problem was still UNSOLVED before the body
 (`torch.where(active, new, old)`), which is exactly the reference's
 batching of its while_loop.  The loop stops when no problem is UNSOLVED;
-that test is one host sync per iteration.  The result of each problem is
-therefore that of a solve of that problem alone.
+the count of unsolved problems is one host sync per loop pass
+(`run_passes`).  The result of each problem is therefore that of a solve
+of that problem alone.
+
+As in the reference (`make_solve_fn(parts=True)`), the loop comes in
+pieces, `build(dev) -> (state0, loop_pass, post)`, so that a caller can
+drive the passes itself: the staged batch compaction of
+`parallel/batch.py` stops at a quorum and resumes the stragglers from
+their mid-loop state in a narrower batch.
 """
 
 import math
@@ -77,8 +84,18 @@ def _vdot(u, v):
     return (u * v).sum(dim=1)
 
 
+def run_passes(state, loop_pass, more=lambda n_unsolved: n_unsolved > 0):
+    """Loop passes over `state` while more(number of UNSOLVED problems);
+    that count is the one host sync of a pass."""
+    while True:
+        unsolved = state["status"] == int(S.UNSOLVED)
+        if not more(int(unsolved.sum())):
+            return state
+        state = loop_pass(state, unsolved)
+
+
 def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
-                  device=None):
+                  device=None, stream: bool = False, parts: bool = False):
     """Builds the batched solve function for this (layout, settings,
     dims) signature.  The returned fn maps a dict of batched tensors
     {P, q, A, b, d, dinv, e, einv, cscale, normq, normb[, t_start]
@@ -86,10 +103,14 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
     host-equilibrated data at B = 1) to a dict of batched results.  With
     ws_x/ws_s/ws_z (iterates in the equilibrated space) the solve starts
     warm instead of cold.  Runs on `device` (device.resolve_device: CUDA
-    unless the caller passes device="cpu").  With settings.verbose and a
-    batch of one (the single-problem Solver), every loop pass prints its
-    status row, as the reference streams it (one host sync per pass);
-    wider batches print none, as in the reference."""
+    unless the caller passes device="cpu").  With `stream` (the
+    single-problem Solver under settings.verbose) every loop pass prints
+    the status row of problem 0, as the reference streams it (one host
+    sync per pass); batches print none, as in the reference.  With
+    parts=True returns `build(dev) -> (state0, loop_pass, post)`:
+    state0() is the initial state, loop_pass(state, unsolved) one pass
+    committed where `unsolved`, post(state) the results; `run_passes`
+    drives the passes."""
     cone_ops.require_supported(layout)
     if not layout.is_symmetric:
         raise NotImplementedError("nonsymmetric cones are not ported yet")
@@ -111,7 +132,7 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
     has_time_limit = math.isfinite(st.time_limit)
     n_corr = int(st.centrality_correctors)
 
-    def solve(dev: Dict[str, torch.Tensor]):
+    def build(dev: Dict[str, torch.Tensor]):
         q, b = dev["q"], dev["b"]
         P, A = dev["P"], dev["A"]
         d, dinv = dev["d"], dev["dinv"]
@@ -119,7 +140,6 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
         cinv = 1.0 / dev["cscale"]
         normq, normb = dev["normq"], dev["normb"]
         B = q.shape[0]
-        stream = st.verbose and B == 1
         AT = A.transpose(1, 2)
 
         def full(v):
@@ -622,12 +642,13 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
                 "scaling": final["scaling"],
             }
 
-        state = make_state0()
-        while True:
-            unsolved = state["status"] == int(S.UNSOLVED)
-            if not bool(unsolved.any()):  # the one host sync per iteration
-                break
-            state = where_tree(unsolved, loop_body(state), state)
-        return post(state)
+        def loop_pass(state, unsolved):
+            return where_tree(unsolved, loop_body(state), state)
 
-    return solve
+        return make_state0, loop_pass, post
+
+    def solve(dev: Dict[str, torch.Tensor]):
+        make_state0, loop_pass, post = build(dev)
+        return post(run_passes(make_state0(), loop_pass))
+
+    return build if parts else solve

@@ -6,8 +6,8 @@ main path's shapes.
 At N = 76 (the KKT dimension of the portfolio SOCP with nass = 32) and
 each width B of WIDTHS, every kernel form of `kkt/ldl.py` -- ldl_factor,
 and ldl_solve, kkt_residual and ldl_solve_refine (npass = 1) with R = 1
-and R = 2 -- and the f32 ldl_factor_batched of `kkt/ldl_f32.py`, on the
-same K in f32, is timed:
+and R = 2 -- and the f32 ldl_factor_batched and ldl_solve_batched of
+`kkt/ldl_f32.py`, on the same K in f32, is timed:
 
 - ms: the kernel's own duration on the device (torch.profiler), over
   back-to-back launches on the same operands, so that below about
@@ -64,7 +64,7 @@ EVENTS_WIDTH = 4096
 F64_FORMS = (("ldl_factor", 1), ("ldl_solve", 1), ("ldl_solve", 2),
              ("kkt_residual", 1), ("kkt_residual", 2),
              ("ldl_solve_refine", 1), ("ldl_solve_refine", 2))
-FORMS = F64_FORMS + (("ldl_factor_batched", 1),)
+FORMS = F64_FORMS + (("ldl_factor_batched", 1), ("ldl_solve_batched", 1))
 # the device function of each kernel, as the profiler names it: a
 # prefix, which matches the kernels with or without their last template
 # argument (the slot count)
@@ -72,9 +72,12 @@ KERNEL_NAMES = {"ldl_factor": "ldl_factor_kernel",
                 "ldl_solve": "ldl_solve_kernel<{R}",
                 "kkt_residual": "kkt_residual_kernel<{R}",
                 "ldl_solve_refine": "ldl_solve_refine_kernel<{R}",
-                "ldl_factor_batched": "ldl_factor_f32_kernel"}
+                "ldl_factor_batched": "ldl_factor_f32_kernel",
+                "ldl_solve_batched": "ldl_solve_f32_kernel<"}
 OCCUPANCY_ID = {"ldl_factor": 0, "ldl_solve": 1, "kkt_residual": 2,
                 "ldl_solve_refine": 3}
+OCCUPANCY_F32 = {"ldl_factor_batched": "cc_occupancy_f32",
+                 "ldl_solve_batched": "cc_occupancy_f32_solve"}
 
 
 def card_line(query="name,power.limit"):
@@ -224,7 +227,7 @@ def occupancy(name, R, N):
         fn = getattr(lib, "cc_occupancy", None)
         args = (OCCUPANCY_ID[name], N, R) + out
     else:
-        fn = getattr(lib, "cc_occupancy_f32", None)
+        fn = getattr(lib, OCCUPANCY_F32[name], None)
         args = (N,) + out
     if fn is None:
         return None
@@ -238,11 +241,13 @@ def ptxas(name, R, N, report):
     """ptxas' {"registers", "spill_stores", "spill_loads", ...} of the
     instantiation that kernel form (name, R) launches at N, from a
     build's `_build.ptxas_report`: the device function whose template
-    arguments agree with (R, slots) -- (slots) for the factors -- as far
-    as it has any; None where the report has none."""
+    arguments agree with (R, slots) -- (slots) for the factors and the
+    f32 kernels -- as far as it has any; None where the report has
+    none."""
     func = re.match(r"\w+", KERNEL_NAMES[name]).group(0)
     slots = (N + 31) // 32
-    want = [slots] if "factor" in name else [R, slots]
+    one = "factor" in name or name.endswith("_batched")
+    want = [slots] if one else [R, slots]
     tag = f"{len(func)}{func}"
     for mangled, rec in report.items():
         at = mangled.find(tag)
@@ -258,7 +263,8 @@ def ptxas(name, R, N, report):
 def operands(B, seed=1, dev="cuda"):
     """The kernels' inputs at the main path's N = 76, width B: K, reg,
     the factor L, Dinv, right-hand sides b (B, N) and b2 (B, N, 2), and
-    x, x2 = their solutions; Kf = K in f32."""
+    x, x2 = their solutions; Kf = K in f32, its f32 factor Lf, Dinvf,
+    and bf = b in f32."""
     n, m = MAIN_NM
     rng = np.random.default_rng(seed)
     Kn, regn = make_kkt(rng, B, n, m)
@@ -267,21 +273,26 @@ def operands(B, seed=1, dev="cuda"):
     L, Dinv, _ = ldl.ldl_factor(K, reg)
     b = torch.tensor(rng.standard_normal((B, n + m)), device=dev)
     b2 = torch.tensor(rng.standard_normal((B, n + m, 2)), device=dev)
+    Kf = K.float()
+    Lf, Dinvf = ldl_f32.ldl_factor_batched(Kf)
     return {"K": K, "reg": reg, "L": L, "Dinv": Dinv, "b": b, "b2": b2,
             "x": ldl.ldl_solve(L, Dinv, b), "x2": ldl.ldl_solve(L, Dinv, b2),
-            "Kf": K.float()}
+            "Kf": Kf, "Lf": Lf, "Dinvf": Dinvf, "bf": b.float()}
 
 
 def calls(op):
     """{(name, R): (kernel call, plain call)} on the operands `op`."""
     K, reg, L, Dinv = op["K"], op["reg"], op["L"], op["Dinv"]
     rhs = {1: (op["b"], op["x"]), 2: (op["b2"], op["x2"])}
-    Kf = op["Kf"]
+    Kf, Lf, Dinvf, bf = op["Kf"], op["Lf"], op["Dinvf"], op["bf"]
     out = {("ldl_factor", 1): (lambda: ldl.ldl_factor(K, reg),
                                lambda: ldl.ldl_factor_plain(K, reg)),
            ("ldl_factor_batched", 1): (
                lambda: ldl_f32.ldl_factor_batched(Kf),
-               lambda: ldl_f32.ldl_factor_batched_plain(Kf))}
+               lambda: ldl_f32.ldl_factor_batched_plain(Kf)),
+           ("ldl_solve_batched", 1): (
+               lambda: ldl_f32.ldl_solve_batched(Lf, Dinvf, bf),
+               lambda: ldl_f32.ldl_solve_batched_plain(Lf, Dinvf, bf))}
     for R, (b, x) in rhs.items():
         out[("ldl_solve", R)] = (lambda b=b: ldl.ldl_solve(L, Dinv, b),
                                  lambda b=b: ldl.ldl_solve_plain(L, Dinv, b))

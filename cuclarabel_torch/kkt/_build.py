@@ -41,8 +41,8 @@ NVCC_FLAGS = ARCH + (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures of csrc/ldl.cu, csrc/ldl_f32.cu and csrc/probes.cu
-# (pointers, then ints, then the stream; cc_occupancy and
-# cc_occupancy_f32: ints, then two int pointers)
+# (pointers, then ints, then the stream; the cc_occupancy* functions:
+# ints, then two int pointers)
 SIGNATURES = {
     "cc_ldl_factor": (_P, _P, _P, _P, _P, _I, _I, _P),
     "cc_ldl_solve": (_P, _P, _P, _P, _I, _I, _I, _P),
@@ -52,6 +52,7 @@ SIGNATURES = {
     "cc_ldl_solve_f32": (_P, _P, _P, _P, _I, _I, _P),
     "cc_occupancy": (_I, _I, _I, _P, _P),
     "cc_occupancy_f32": (_I, _P, _P),
+    "cc_occupancy_f32_solve": (_I, _P, _P),
     "cc_probe_chain": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "cc_probe_issue": (_P, _P, _P, _I, _I, _I, _P),
 }

@@ -17,11 +17,19 @@ Methods (`resolve_kkt_method`):
   * "pallas": the hand-written LDL^T kernels of `kkt/ldl.py` on the
     scaled, permuted K (N <= 128).  The name stays for parity with the
     reference `Settings`; the kernels are CUDA, not Pallas.
-  * "lu": pivoted LU (`torch.linalg.lu_factor`) of the scaled K with
-    iterative refinement in f64 against the unregularised K.  The factor
-    is f64, or f32 under kkt_factor_precision="float32" (reference
-    dense.py:564-577); "pallas" ignores the factor precision, as the
-    reference's does.
+  * "lu", "qr", "inverse": a library factorisation of the regularised,
+    row-scaled K at the factor precision (f64, or f32 under
+    kkt_factor_precision="float32"; reference dense.py:507-577), then
+    iterative refinement in f64 against the unregularised K:
+      - "lu": pivoted LU (`torch.linalg.lu_factor`);
+      - "qr": Householder QR (`torch.linalg.qr`) and a triangular solve;
+      - "inverse": `torch.linalg.inv_ex` and one Newton-Schulz step,
+        Kinv (2I - K Kinv), so that every solve is one batched product.
+        The reference inverts an f64 K without pivoting (its
+        `pivotfree_inv`, on the stability-ordered K) because XLA on a TPU
+        has no f64 LU; CUDA has one, so both precisions take the pivoted
+        inverse of the unpermuted K, as the reference's f32 does.
+    "pallas" ignores the factor precision, as the reference's does.
 """
 
 import numpy as np
@@ -39,10 +47,6 @@ def resolve_kkt_method(settings, N: int) -> str:
     method = settings.kkt_solve_method
     if method == "auto":
         method = "pallas" if N <= MAX_N else "lu"
-    if method in ("qr", "inverse"):
-        raise NotImplementedError(
-            f"kkt_solve_method={method!r} is not ported to cuclarabel_torch "
-            f"yet; use 'pallas' (N <= {MAX_N}) or 'lu'")
     if method == "pallas" and N > MAX_N:
         raise NotImplementedError(
             f"kkt_solve_method='pallas' covers KKT dims N <= {MAX_N}, got "
@@ -218,9 +222,37 @@ def make_dense_kkt(n: int, m: int, settings, layout=None, device=None):
         solve.pair = solve_pair
         return factorize, solve
 
-    # ---------------------------------------------------------------- lu
+    # ------------------------------------------------ lu, qr and inverse
     factor_dtype = (torch.float32 if settings.kkt_factor_precision == "float32"
                     else f64)
+
+    if method == "lu":
+        def factor(Ks):
+            lu, piv, _ = torch.linalg.lu_factor_ex(Ks)
+            return {"lu": lu, "piv": piv}, lu
+
+        def raw(fac, r):
+            return torch.linalg.lu_solve(fac["lu"], fac["piv"], r)
+    elif method == "qr":
+        def factor(Ks):
+            Q, R = torch.linalg.qr(Ks)
+            return {"Q": Q, "R": R}, R
+
+        def raw(fac, r):
+            return torch.linalg.solve_triangular(
+                fac["R"], torch.bmm(fac["Q"].transpose(1, 2), r), upper=True)
+    else:  # "inverse"
+        eye2 = 2.0 * torch.eye(N, dtype=factor_dtype, device=device)
+
+        def factor(Ks):
+            # inv_ex: inv without its error check, which syncs the host;
+            # a singular K leaves non-finite entries, which clear `ok`
+            Kinv = torch.linalg.inv_ex(Ks)[0]
+            Kinv = torch.bmm(Kinv, eye2 - torch.bmm(Ks, Kinv))
+            return {"Kinv": Kinv}, Kinv
+
+        def raw(fac, r):
+            return torch.bmm(fac["Kinv"], r)
 
     def factorize(P, A, Hs):
         K = _assemble_K(P, A, Hs)
@@ -231,9 +263,10 @@ def make_dense_kkt(n: int, m: int, settings, layout=None, device=None):
         rn = Kreg.abs().amax(dim=2)
         dj = 1.0 / torch.sqrt(torch.where(rn > 1e-300, rn, 1.0))
         Ks = Kreg * (dj[:, :, None] * dj[:, None, :])
-        lu, piv, _ = torch.linalg.lu_factor_ex(Ks.to(factor_dtype))
-        ok = torch.isfinite(lu).flatten(1).all(dim=1)
-        return {"lu": lu, "piv": piv, "K": K, "dj": dj[:, :, None]}, ok
+        fac, out = factor(Ks.to(factor_dtype))
+        ok = torch.isfinite(out).flatten(1).all(dim=1)
+        fac.update(K=K, dj=dj[:, :, None])
+        return fac, ok
 
     def solve(fac, rx, rz):
         """-> (x, z, ok, nir); refinement against the unregularised K
@@ -242,9 +275,7 @@ def make_dense_kkt(n: int, m: int, settings, layout=None, device=None):
         K, dj = fac["K"], fac["dj"]
 
         def raw_solve(r):
-            y = torch.linalg.lu_solve(fac["lu"], fac["piv"],
-                                      (dj * r).to(factor_dtype))
-            return dj * y.to(f64)
+            return dj * raw(fac, (dj * r).to(factor_dtype)).to(f64)
 
         def step(x, e):
             xn = x + raw_solve(e)

@@ -6,8 +6,23 @@ numeric data solve together, every tensor carrying a leading batch
 dimension.  Ruiz equilibration runs on the device, per problem.  The
 batched path skips presolve (row elimination would give ragged shapes).
 
-Not ported yet: sharding over several devices, warm starts and staged
-batch compaction.
+Staged batch compaction (settings.batch_compaction in (0, 1); auto
+resolves to 0.9 at B >= batch_compaction_min_batch, as in the
+reference): stage 1 runs the batched loop while more than a share
+1 - quorum of the batch is UNSOLVED; stage 2 gathers the stragglers'
+rows of the loop state and of the equilibrated data (`index_select` on
+dim 0), resumes them to the end in a batch of their own width, and
+scatters them back; `post` then runs once over the whole batch.  Each
+problem's result is that of the plain path, which computes every
+problem until the last one finishes.  Two pieces of the reference's
+staged path exist only for XLA on a TPU and are left out: padding the
+straggler list (and a chunked batch's tail chunk) to a power of two,
+which bounds its compile cache, and re-running equilibration on the
+gathered data in stage 2, which avoids moving the equilibrated data
+between two compiled programs.  Here both stages run eagerly on the same
+tensors.
+
+Not ported yet: sharding over several devices.
 """
 
 import time
@@ -20,11 +35,12 @@ from ..cones import api
 from ..cones.layout import build_layout
 from ..infinity import get_infinity
 from ..interop import batchify, problem_from_numpy, symmetrize_triu
-from ..ipm.loop import make_solve_fn
+from ..ipm.loop import make_solve_fn, run_passes
 from ..settings import Settings
 from ..device import resolve_device
 from ..solver import DefaultSolution
 from ..statuscodes import SolverStatus
+from ..warmstart import scale_warm_start, validate_warm_start
 
 
 def _rect_plan(layout):
@@ -128,18 +144,59 @@ def device_equilibrate(P, A, q, b, layout, settings, has_P=True):
     }
 
 
+def _tree_map(fn, *trees):
+    """fn over the leaves of matching dicts of tensors."""
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
 def make_batch_solve_fn(layout, settings: Settings, n: int, m: int,
                         has_P: bool, device=None):
-    """Batched solve: (P, A, q, b, t_start) with a leading batch axis ->
-    batched solution dict of tensors, on `device` (CUDA unless the
-    caller passes device="cpu")."""
-    base = make_solve_fn(layout, settings, n, m, has_P, device)
+    """Batched solve: (P, A, q, b, t_start[, warm_start]) with a leading
+    batch axis -> (batched solution dict of tensors, compaction record),
+    on `device` (CUDA unless the caller passes device="cpu").
+    warm_start=(X, S, Z) holds (B, n), (B, m), (B, m) tensors of iterates
+    in the original problem space.  The record is None on the plain path
+    and {"remainder", "stage1_iterations"} on the staged one (see the
+    module docstring), with settings.batch_compaction resolved against
+    the call's width."""
+    build = make_solve_fn(layout, settings, n, m, has_P, device, parts=True)
+    unsolved_code = int(SolverStatus.UNSOLVED)
 
-    def solve_batch(P, A, q, b, t_start):
+    def solve_batch(P, A, q, b, t_start, warm_start=None):
         b = torch.clamp(b, max=get_infinity())  # problemdata.jl:58-62
         dev = device_equilibrate(P, A, q, b, layout, settings, has_P=has_P)
         dev["t_start"] = t_start
-        return base(dev)
+        if warm_start is not None:
+            # cscale is (B,) here, one per problem: it scales (B, m) rows
+            dev["ws_x"], dev["ws_s"], dev["ws_z"] = scale_warm_start(
+                *warm_start, dev["d"], dev["e"], dev["cscale"][:, None])
+        state0, loop_pass, post = build(dev)
+        B = q.shape[0]
+        quorum = settings.resolved_batch_compaction(B)
+        if quorum <= 0.0:
+            return post(run_passes(state0(), loop_pass)), None
+
+        # stage 1: while the unsolved share is above 1 - quorum, as the
+        # reference's f64 test (parallel/batch.py:304-308) puts it
+        state = run_passes(state0(), loop_pass,
+                           lambda left: left / B > 1.0 - quorum)
+        idx = torch.nonzero(state["status"] == unsolved_code).flatten()
+        comp = {"remainder": int(idx.numel()),
+                "stage1_iterations": int(state["iter"].max())}
+        if idx.numel():
+            # stage 2: the stragglers alone, from their mid-loop state
+            def take(a):
+                return a.index_select(0, idx)
+
+            dev2 = {k: take(v) if torch.is_tensor(v) else v
+                    for k, v in dev.items()}
+            _, loop_pass2, _ = build(dev2)
+            done = run_passes(_tree_map(take, state), loop_pass2)
+            state = _tree_map(lambda a, a2: a.index_copy(0, idx, a2),
+                              state, done)
+        return post(state), comp
 
     return solve_batch
 
@@ -150,7 +207,11 @@ class BatchSolver:
     P: (n,n) or (B,n,n); A: (m,n) or (B,m,n); q: (B,n); b: (B,m).
     All problems share the cone layout; numeric data varies freely.
     Runs on `device` (default: the current CUDA device; with no CUDA
-    device this raises unless device="cpu" is passed)."""
+    device this raises unless device="cpu" is passed).  With staged
+    compaction or chunking, `last_compaction` records the last solve:
+    {"remainder": stragglers resumed in stage 2, "stage1_iterations":
+    the most iterations at the end of stage 1} when staged, plus
+    {"chunks": chunk count} when chunked."""
 
     def __init__(
         self,
@@ -171,17 +232,14 @@ class BatchSolver:
         settings = settings.replace(presolve_enable=False)
         settings.validate()
         if n_devices != 1:
+            if settings.batch_compaction > 0.0:
+                raise ValueError(
+                    "batch_compaction resumes stragglers in a narrower "
+                    "single-device batch and cannot combine with "
+                    "n_devices > 1; shard the batch OR compact it")
             raise NotImplementedError(
                 "cuclarabel_torch runs a batch on one device; sharding "
                 "over n_devices > 1 is not ported yet")
-        if settings.batch_compaction > 0.0:
-            raise NotImplementedError(
-                "staged batch compaction is not ported to cuclarabel_torch "
-                "yet; use batch_compaction=0.0 or -1.0 (auto)")
-        # auto resolves to 0: staged compaction is not ported, and it
-        # changes no problem's result (the reference's own contract)
-        settings = settings.replace(batch_compaction=0.0)
-        self.settings = settings
         self.device = resolve_device(device)
 
         prob = problem_from_numpy(P, q, A, b, cones)
@@ -190,6 +248,11 @@ class BatchSolver:
         self.layout = build_layout(tuple(prob["cones"]))
         if self.layout.m != m:
             raise ValueError("cone dimensions inconsistent with b")
+        # resolve the auto sentinel against the whole batch's width
+        settings = settings.replace(
+            batch_compaction=settings.resolved_batch_compaction(B))
+        self.settings = settings
+        self._staged = settings.batch_compaction > 0.0
         self._has_P = bool(np.any(prob["P"] != 0.0))
         self.B, self.n, self.m = B, n, m
         self._chunk = settings.resolved_batch_chunk(B)
@@ -226,34 +289,52 @@ class BatchSolver:
             bd = self._put(b)
         self._args = (Pd, Ad, qd, bd)
 
-    def _solve_chunked(self, t):
+    def _solve_chunked(self, t, ws):
         """Chunked wide-batch solve (settings.batch_chunk_size): the
         batch splits into chunk-wide solves run one after another, which
-        bounds the live device memory by the chunk width."""
+        bounds the live device memory by the chunk width.  A staged
+        solve compacts each chunk on its own."""
         C = self._chunk
         merged = None
+        comp = {"chunks": 0, "remainder": 0, "stage1_iterations": 0}
         for i in range(0, self.B, C):
-            out = self._fn(*(a[i:i + C] for a in self._args), t)
+            sl = slice(i, i + C)
+            out, c = self._fn(*(a[sl] for a in self._args), t,
+                              tuple(w[sl] for w in ws) if ws else None)
             out = {k: v.cpu().numpy() for k, v in out.items()}
             if merged is None:
                 merged = {k: np.empty((self.B,) + v.shape[1:], v.dtype)
                           for k, v in out.items()}
             for k, v in out.items():
                 merged[k][i:i + v.shape[0]] = v
-        return merged
+            comp["chunks"] += 1
+            if c is not None:
+                comp["remainder"] += c["remainder"]
+                comp["stage1_iterations"] = max(comp["stage1_iterations"],
+                                                c["stage1_iterations"])
+        if not self._staged:
+            comp = {"chunks": comp["chunks"]}
+        return merged, comp
 
     def solve(self, warm_start=None):
         """Solve every problem of the batch; returns a list of
-        DefaultSolution and keeps the batched result dict in self.raw."""
+        DefaultSolution and keeps the batched result dict in self.raw.
+        warm_start=(X, S, Z) with shapes (B, n), (B, m), (B, m) in the
+        original problem space (e.g. stacked fields of the previous
+        batch's solutions) seeds every problem's iterates, as
+        Solver.solve(warm_start=...) does; symmetric-cone layouts only."""
+        ws = ()
         if warm_start is not None:
-            raise NotImplementedError(
-                "warm starts are not ported to cuclarabel_torch yet")
+            ws = tuple(self._put(w) for w in validate_warm_start(
+                self.layout, warm_start, self.n, self.m, batch=self.B))
         t = time.time()
         if self._chunk:
-            out = self._solve_chunked(t)
+            out, comp = self._solve_chunked(t, ws)
         else:
-            out = {k: v.cpu().numpy()
-                   for k, v in self._fn(*self._args, t).items()}
+            res, comp = self._fn(*self._args, t, ws or None)
+            out = {k: v.cpu().numpy() for k, v in res.items()}
+        if comp is not None:
+            self.last_compaction = comp
         sols = []
         for i in range(self.B):
             sols.append(

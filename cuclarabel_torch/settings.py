@@ -14,14 +14,17 @@ in this package:
     kernels (`kkt/ldl.py`, `csrc/ldl.cu`) for KKT dims N <= 128; the
     name stays for parity with the reference `Settings`.  "auto" picks
     "pallas" for N <= 128 and "lu" (f64 `torch.linalg.lu_factor`)
-    above; "qr" and "inverse" are not ported yet.
-  * `kkt_factor_precision="float32"` factors in f32 under "lu" and
-    refines in f64, as in the reference; "pallas" factors in f64
-    whatever it says, as the reference's "pallas" does.
+    above; "qr" and "inverse" take `torch.linalg`'s QR and inverse
+    (`kkt/dense.py`).
+  * `kkt_factor_precision="float32"` factors in f32 under "lu", "qr"
+    and "inverse" and refines in f64, as in the reference; "pallas"
+    factors in f64 whatever it says, as the reference's "pallas" does.
   * `host_solve` is accepted and has no effect: the port never moves a
     solve off the device it was given.
-  * `batch_compaction` auto resolves to 0 (staged compaction is not
-    ported); an explicit value > 0 raises NotImplementedError.
+  * `batch_compaction` resolves as in the reference: auto is 0.9 at
+    B >= batch_compaction_min_batch and 0 below, and BatchSolver runs
+    staged compaction (`parallel/batch.py`, without the power-of-two
+    padding of the field comment) whenever it is > 0.
 """
 
 import dataclasses

@@ -1,18 +1,23 @@
 """Digests of the main paths' results on one card, to show that two
-versions of the kernels leave the solves unchanged to the bit.
+versions of the code leave the solves unchanged to the bit.
 
     python3 -m cuclarabel_torch.solve_digest
 
 Runs the main paths of `chip_smoke.py` -- BatchSolver on the portfolio
-SOCP (nass = 32, seed 7) at B = 256 and 4096, and Solver on that
-problem's first instance (N = 76, the f64 kernels at B = 1) -- and
-prints one JSON line per path: the SHA-256 of the solutions' x, s and z
-(float64 bytes, problem after problem), the IPM iterations and the
-statuses.  Equal digests from two versions mean bitwise-equal
-solutions.  The module needs nothing of `cuclarabel_torch` that an
-earlier version lacks: a copy placed in another checkout's package
-digests that checkout's solves, so that two versions can be compared in
-one run.  Needs a CUDA device.
+SOCP (nass = 32, seed 7) at B = 256 and 4096 with default settings, the
+same at B = 4096 with batch_compaction=0.0 (the plain loop:
+`batch_B4096_plain`), and Solver on that problem's first instance
+(N = 76, the f64 kernels at B = 1) -- and prints one JSON line per path:
+the SHA-256 of the solutions' x, s and z (float64 bytes, problem after
+problem), the IPM iterations and the statuses.  Equal digests from two
+versions mean bitwise-equal solutions.  Default settings compact the
+B = 4096 batch since staged compaction was ported, where earlier
+versions did not, so that path's digest is reported (`"compare":
+false`) and `batch_B4096_plain` is the one to compare.  The module
+needs nothing of `cuclarabel_torch` that an earlier version lacks: a
+copy placed in another checkout's package digests that checkout's
+solves, so that two versions can be compared in one run.  Needs a CUDA
+device.
 """
 
 import hashlib
@@ -23,7 +28,10 @@ import numpy as np
 import torch
 
 NASS = 32
-WIDTHS = (256, 4096)
+# (path, B, BatchSolver settings, compared across versions)
+BATCH_PATHS = (("batch_B256", 256, {}, True),
+               ("batch_B4096", 4096, {}, False),
+               ("batch_B4096_plain", 4096, {"batch_compaction": 0.0}, True))
 
 
 def digest(sols):
@@ -45,15 +53,18 @@ def main():
     import cuclarabel_torch as ct
     from cuclarabel_torch.problems import portfolio_socp
 
-    for B in WIDTHS:
+    for path, B, settings, compare in BATCH_PATHS:
         A, qs, bs, cones = portfolio_socp(NASS, B, seed=7)
-        d = digest(ct.BatchSolver(None, qs, A, bs, cones).solve())
+        d = digest(ct.BatchSolver(None, qs, A, bs, cones,
+                                  **settings).solve())
         iters = d.pop("iterations")
         d.update(iterations_sum=sum(iters), iterations_max=max(iters))
-        print(json.dumps({"path": f"batch_B{B}", **d}), flush=True)
+        print(json.dumps({"path": path, "compare": compare, **d}),
+              flush=True)
     A, qs, bs, cones = portfolio_socp(NASS, 1, seed=7)
     d = digest([ct.Solver(None, qs[0], A, bs[0], cones).solve()])
-    print(json.dumps({"path": "solver_n76", **d}), flush=True)
+    print(json.dumps({"path": "solver_n76", "compare": True, **d}),
+          flush=True)
     return 0
 
 

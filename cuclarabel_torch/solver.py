@@ -17,13 +17,15 @@ Differences from the reference:
     moves small single solves off a TPU to the host CPU, which this port
     never does, and `get_info()["linear_solver"]["host_solve"]` is always
     False;
-  * `profile_phases` is not ported yet and raises NotImplementedError;
+  * `solve(profile_dir=...)` writes a torch.profiler trace (Chrome trace
+    JSON, host and device activity) where the reference writes a
+    jax.profiler one;
   * PSD cones (and with them chordal decomposition) and the exponential,
     power and generalised power cones are not ported yet: `setup` raises
-    NotImplementedError for them;
-  * `solve` takes no `profile_dir` (the reference's jax.profiler trace).
+    NotImplementedError for them.
 """
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -214,15 +216,20 @@ class Solver:
     def _refresh_solve_fn(self):
         self._solve_fn = make_solve_fn(
             self.layout, self.settings, self.n, self.m, self._has_P,
-            self.device)
+            self.device, stream=self.settings.verbose)
 
     # ------------------------------------------------------------------
-    def solve(self, warm_start=None) -> DefaultSolution:
-        """Run the IPM.  warm_start=(x, s, z) seeds the iterates
-        (original problem space, e.g. a previous DefaultSolution's fields
-        after an update_data) instead of the cold start, as the reference
-        does (no Clarabel counterpart); symmetric-cone problems without
-        presolve reductions only."""
+    def solve(self, profile_dir: Optional[str] = None,
+              warm_start=None) -> DefaultSolution:
+        """Run the IPM.  With profile_dir set, the solve runs under
+        torch.profiler (host activity, and the card's where the solver
+        runs on one), which writes a Chrome trace JSON file into that
+        directory: the counterpart of the reference's jax.profiler trace.
+        warm_start=(x, s, z) seeds the iterates (original problem space,
+        e.g. a previous DefaultSolution's fields after an update_data)
+        instead of the cold start, as the reference does (no Clarabel
+        counterpart); symmetric-cone problems without presolve reductions
+        only."""
         dev = dict(self._dev)
         if warm_start is not None:
             self._check_update_allowed()  # the same presolve guard
@@ -242,8 +249,19 @@ class Solver:
             # host-clock origin of the in-loop MAX_TIME check
             # (settings.jl:73, info.jl:110-115)
             dev["t_start"] = time.time()
+        trace = contextlib.nullcontext()
+        if profile_dir is not None:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            trace = torch.profiler.profile(
+                activities=acts,
+                on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                    profile_dir))
         t0 = time.perf_counter()
-        out = {k: v[0].cpu().numpy() for k, v in self._solve_fn(dev).items()}
+        with trace:
+            out = {k: v[0].cpu().numpy()
+                   for k, v in self._solve_fn(dev).items()}
         solve_time = time.perf_counter() - t0
 
         self.timers["solve"]["solve"] = solve_time
@@ -294,13 +312,20 @@ class Solver:
         return self.info
 
     def profile_phases(self, reps: int = 3) -> dict:
-        raise NotImplementedError(
-            "profile_phases is not ported to cuclarabel_torch yet; "
-            "`python3 -m cuclarabel_torch.profiling` profiles a batch solve")
+        """Seconds per call of each IPM phase at this problem's shapes on
+        the solver's device (scale cones, Hs assembly, KKT factor,
+        refined KKT solve and its paired form, residual products, step
+        length): the device-level counterpart of the reference's solve!
+        timer sections (types.jl:362-372).  Results land in
+        timers["device"] and print_timers() reports them."""
+        from .profiling import phase_breakdown  # profiling imports Solver
+
+        return phase_breakdown(self, reps=reps)
 
     def print_timers(self) -> None:
         """Hierarchical wall-clock report (print_timers(solver),
-        solver.jl:534)."""
+        solver.jl:534), with the phases of profile_phases() under
+        "device" once it has run."""
         for section, entries in self.timers.items():
             total = sum(entries.values())
             print(f"{section:<16s} {total*1e3:10.3f} ms")

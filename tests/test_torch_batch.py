@@ -177,11 +177,7 @@ def test_update_data_resolves():
 def test_unported_options_raise():
     data = _data("socp", ct)
     with pytest.raises(NotImplementedError):
-        ct.BatchSolver(*data, device="cpu", batch_compaction=0.5)
-    with pytest.raises(NotImplementedError):
         ct.BatchSolver(*data, device="cpu", n_devices=2)
-    with pytest.raises(NotImplementedError):
-        ct.BatchSolver(*data, device="cpu").solve(warm_start=(0, 0, 0))
     _, q, A, b, _ = data
     with pytest.raises(NotImplementedError):
         ct.BatchSolver(None, q[:, :3], A[:3, :3], b[:, :3],

@@ -326,6 +326,73 @@ def test_solver_defaults_to_cuda(dev):
     assert abs(got.obj_val - want.obj_val) <= 1e-7 * abs(want.obj_val)
 
 
+def test_staged_compaction_on_card_matches_plain(dev):
+    """Staged compaction at B = 300 on the portfolio SOCP: every problem
+    with the plain path's status and iterations, stage 2 run."""
+    import cuclarabel_torch as ct
+    from cuclarabel_torch.problems import portfolio_socp
+
+    A, q, b, cones = portfolio_socp(nass=32, batch=300, seed=7)
+    plain = ct.BatchSolver(None, q, A, b, cones, batch_compaction=0.0)
+    staged = ct.BatchSolver(None, q, A, b, cones, batch_compaction=0.9)
+    want, got = plain.solve(), staged.solve()
+    assert staged.last_compaction["remainder"] > 0
+    for g, w in zip(got, want):
+        assert g.status == w.status == ct.SolverStatus.SOLVED
+        assert g.iterations == w.iterations
+        assert abs(g.obj_val - w.obj_val) <= 1e-9 * abs(w.obj_val)
+
+
+@pytest.mark.parametrize("quorum", [0.0, 0.5])
+def test_batch_warm_start_on_card(dev, quorum):
+    """A warm re-solve after q *= 1.01 takes fewer iterations in total
+    than a cold one, to the same objectives."""
+    import cuclarabel_torch as ct
+    from cuclarabel_torch.problems import portfolio_socp
+
+    A, q, b, cones = portfolio_socp(nass=32, batch=64, seed=3)
+    slv = ct.BatchSolver(None, q, A, b, cones, batch_compaction=quorum)
+    prev = slv.solve()
+    slv.update_data(q=q * 1.01)
+    warm = slv.solve(warm_start=tuple(
+        np.stack([getattr(s, f) for s in prev]) for f in ("x", "s", "z")))
+    cold = slv.solve()
+    assert all(s.status == ct.SolverStatus.SOLVED for s in warm)
+    for w, c in zip(warm, cold):
+        assert abs(w.obj_val - c.obj_val) <= 1e-6 * max(abs(c.obj_val), 1)
+    assert sum(s.iterations for s in warm) < sum(s.iterations for s in cold)
+
+
+@pytest.mark.parametrize("method", ["qr", "inverse"])
+@pytest.mark.parametrize("nass", [32, 64])
+def test_qr_and_inverse_on_card(dev, method, nass):
+    """The library backends on the card take the CPU's iterations."""
+    import cuclarabel_torch as ct
+    from cuclarabel_torch.problems import portfolio_socp
+
+    A, q, b, cones = portfolio_socp(nass=nass, batch=1, seed=7)
+    data = (None, q[0], A, b[0], cones)
+    got = ct.Solver(*data, kkt_solve_method=method).solve()
+    want = ct.Solver(*data, kkt_solve_method=method, device="cpu").solve()
+    assert got.status == want.status == ct.SolverStatus.SOLVED
+    assert got.iterations == want.iterations
+    assert abs(got.obj_val - want.obj_val) <= 1e-7 * abs(want.obj_val)
+
+
+def test_profile_phases_on_card(dev):
+    import cuclarabel_torch as ct
+    from cuclarabel_torch.problems import portfolio_socp
+
+    A, q, b, cones = portfolio_socp(nass=32, batch=1, seed=7)
+    solver = ct.Solver(None, q[0], A, b[0], cones)
+    solver.solve()
+    ph = solver.profile_phases()
+    assert set(ph) == {"scale_cones", "hs_assembly", "kkt_factor",
+                       "kkt_solve", "kkt_solve_pair", "residuals",
+                       "step_length"}
+    assert all(t > 0.0 for t in ph.values())
+
+
 @pytest.mark.parametrize("N,B", [(83, 4096), (13, 256), (7, 130)])
 def test_probe_chain_matches_plain(dev, N, B):
     """Every P1 variant bit for bit with its plain version, at the

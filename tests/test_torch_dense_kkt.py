@@ -1,8 +1,8 @@
 """The port's dense KKT backend (cuclarabel_torch/kkt/dense.py) on the
 CPU, where the "pallas" method runs the LDL^T kernels' plain versions:
 solutions against numpy f64 solves of the unregularised K within 1e-9
-relative (tests/test_pallas_dd.py:502), and the 2-RHS pair solve against
-two single solves."""
+relative (tests/test_pallas_dd.py:502) for every method ("pallas", "lu",
+"qr", "inverse"), and the 2-RHS pair solve against two single solves."""
 
 import numpy as np
 import pytest
@@ -66,7 +66,7 @@ def _rel(a, b):
     return np.abs(a - b).max() / max(np.abs(b).max(), 1.0)
 
 
-@pytest.mark.parametrize("method", ["pallas", "lu"])
+@pytest.mark.parametrize("method", ["pallas", "lu", "qr", "inverse"])
 def test_solve_matches_numpy(system, method):
     _, solve, fac, okf, t = _solve(method, system)
     x, z, ok, nir = solve(fac, t["rx"], t["rz"])
@@ -125,9 +125,8 @@ def test_resolve_kkt_method():
     assert resolve_kkt_method(st, 76) == "pallas"
     assert resolve_kkt_method(st, 128) == "pallas"
     assert resolve_kkt_method(st, 129) == "lu"
-    assert resolve_kkt_method(st.replace(kkt_solve_method="lu"), 10) == "lu"
-    for method in ("qr", "inverse"):
-        with pytest.raises(NotImplementedError):
-            resolve_kkt_method(st.replace(kkt_solve_method=method), 10)
+    for method in ("lu", "qr", "inverse"):
+        assert resolve_kkt_method(st.replace(kkt_solve_method=method),
+                                  200) == method
     with pytest.raises(NotImplementedError):
         resolve_kkt_method(st.replace(kkt_solve_method="pallas"), 129)

@@ -354,8 +354,6 @@ def test_info_surface(reference):
     assert ls["method"] == "pallas" and ls["dd_npass"] == 1
     assert ls["kkt_dim"] == 8 and ls["nnzL"] == 36
     assert set(ls) - {"dd_npass"} == set(ref.get_info()["linear_solver"])
-    with pytest.raises(NotImplementedError):
-        solver.profile_phases()
 
 
 def test_verbose_streams_the_table(capsys):
@@ -365,3 +363,111 @@ def test_verbose_streams_the_table(capsys):
     rows = [ln for ln in out.splitlines() if ln[:3].strip().isdigit()]
     assert [int(r.split()[0]) for r in rows] == list(
         range(sol.iterations + 1))
+
+
+@pytest.mark.parametrize("method", ["qr", "inverse"])
+@pytest.mark.parametrize("name", ["qp", "socp", "lp_pinf", "portfolio32"])
+def test_qr_and_inverse_match_reference(reference, name, method):
+    """kkt_solve_method "qr" and "inverse" on both sides
+    (tests/test_kkt_backends.py:59): the same status and iterations, the
+    objective within 1e-8 relative.  The reference's f64 "inverse" is
+    pivot-free and the port's pivoted (kkt/dense.py), so x, s and z are
+    held to 1e-6, as under the defaults."""
+    want = reference(name, kkt_solve_method=method)
+    solver = _port(name, kkt_solve_method=method)
+    got = solver.solve()
+    _same_result(got, want, TOL_DEFAULT, TOL_OBJ)
+    assert got.iterations == want.iterations
+    assert solver.get_info()["linear_solver"]["method"] == method
+    if got.status == ct.SolverStatus.SOLVED:
+        assert got.r_prim < 1e-8 and got.r_dual < 1e-8
+
+
+@pytest.mark.parametrize("method", ["qr", "inverse"])
+def test_qr_and_inverse_f32_factor(reference, method):
+    """An f32 QR or inverse refined in f64 takes the reference's
+    iterations on the N = 76 portfolio."""
+    got = _port("portfolio32", kkt_solve_method=method, **F32).solve()
+    want = reference("portfolio32", kkt_solve_method=method, **F32)
+    _same_result(got, want, TOL_DEFAULT, TOL_DEFAULT)
+    assert got.iterations == want.iterations
+
+
+def test_qr_matches_lu_on_qp():
+    """tests/test_qr_backend.py:46 on the port."""
+    P = np.array([[4.0, 1.0], [1.0, 2.0]])
+    q = np.array([1.0, 1.0])
+    A = np.vstack([np.ones((1, 2)), np.eye(2), -np.eye(2)])
+    b = np.array([1.0, 0.7, 0.7, 0.0, 0.0])
+    cones = [ct.ZeroConeT(1), ct.NonnegativeConeT(2), ct.NonnegativeConeT(2)]
+    s1 = ct.Solver(P, q, A, b, cones, kkt_solve_method="qr",
+                   device="cpu").solve()
+    s2 = ct.Solver(P, q, A, b, cones, kkt_solve_method="lu",
+                   device="cpu").solve()
+    assert s1.status == ct.SolverStatus.SOLVED
+    assert np.allclose(s1.x, s2.x, atol=1e-8)
+
+
+@pytest.mark.parametrize("method", ["qr", "inverse"])
+def test_qr_and_inverse_random_sweep(method):
+    """tests/test_qr_backend.py:58 on the port: a random LP/QP/SOCP mix,
+    held by first-principles residuals."""
+    rng = np.random.default_rng(7)
+    for t in range(12):
+        n = int(rng.integers(4, 16))
+        F = rng.standard_normal((n, max(2, n // 2)))
+        P = F @ F.T + 0.1 * np.eye(n) if t % 3 else None
+        q = rng.standard_normal(n)
+        rows = [np.ones((1, n)), -np.eye(n)]
+        b = np.concatenate([[1.0], np.zeros(n)])
+        cones = [ct.ZeroConeT(1), ct.NonnegativeConeT(n)]
+        if t % 2:
+            G = rng.standard_normal((3, n)) / 3.0
+            rows.append(np.vstack([np.zeros((1, n)), -G]))
+            b = np.concatenate([b, [1.5], np.zeros(3)])
+            cones.append(ct.SecondOrderConeT(4))
+        A = np.vstack(rows)
+        sol = ct.Solver(P, q, A, b, cones, kkt_solve_method=method,
+                        device="cpu").solve()
+        assert sol.status == ct.SolverStatus.SOLVED, (t, sol.status)
+        assert np.abs(A @ sol.x + sol.s - b).max() < 1e-6, t
+        Pd = P if P is not None else np.zeros((n, n))
+        assert np.abs(Pd @ sol.x + q + A.T @ sol.z).max() < 1e-6, t
+
+
+PHASES = ("scale_cones", "hs_assembly", "kkt_factor", "kkt_solve",
+          "residuals", "step_length")
+
+
+@pytest.mark.parametrize("name,pair", [("qp", True), ("portfolio64", False)])
+def test_profile_phases(capsys, name, pair):
+    """tests/test_misc_opt.py:163 on the port: a positive time for every
+    phase, kkt_solve_pair where the backend pairs solves ("pallas"; the
+    N = 148 portfolio takes "lu"), kept in timers["device"] and printed
+    by print_timers."""
+    solver = _port(name)
+    solver.solve()
+    ph = solver.profile_phases(reps=1)
+    assert set(ph) == set(PHASES) | ({"kkt_solve_pair"} if pair else set())
+    assert all(t > 0.0 for t in ph.values())
+    assert solver.timers["device"] == ph
+    solver.print_timers()
+    assert "kkt_factor" in capsys.readouterr().out
+
+
+def test_profile_dir_writes_a_trace(tmp_path):
+    sol = _port("qp").solve(profile_dir=str(tmp_path))
+    assert sol.status == ct.SolverStatus.SOLVED
+    traces = list(tmp_path.glob("*.json"))
+    assert len(traces) == 1
+    import json
+
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any(e.get("ph") == "X" for e in events)
+
+
+def test_solver_name_and_version(capsys):
+    assert ct.solver_name() == "cuclarabel_torch"
+    assert ct.version() == ct.__version__ == cc.version()
+    _port("qp", verbose=True).solve()
+    assert ct.solver_name() in capsys.readouterr().out
