@@ -6,8 +6,9 @@ it shares with the reference are copies (`settings`, `statuscodes`,
 `infinity`, `cones/api`, `cones/layout`, `equilibration`, `presolve`,
 `warmstart`, `info_print`, `json_io`).
 
-It covers the dense path on problems with zero, nonnegative and
-second-order cones, with or without P: the single-problem `Solver`
+It covers the dense path on problems with zero, nonnegative,
+second-order, exponential, power and generalised power cones, with or
+without P: the single-problem `Solver`
 (presolve, host equilibration, warm starts, data updates, JSON files,
 the verbose table) and the batched `BatchSolver`, through the dense KKT
 backend whose LDL^T factorisation, substitution, residual and refined

@@ -1,13 +1,13 @@
-"""Batched cone operations on flat (B, m) tensors: zero, nonnegative and
-second-order cones.
+"""Batched cone operations on flat (B, m) tensors.
 
 The counterpart of `cuclarabel_tpu/cones/ops.py`, with the reference's
 names.  Every vector carries a leading batch dimension, (B, m); per-cone
 scalars are (B, nsoc) and per-problem scalars (B,).  Zero / nonnegative
 cones are masked elementwise ops; second-order cones run as segment sums
-(`index_add_`) over the gathered (B, msoc) subvector.  Exponential,
-power, generalised power and PSD cones are not ported yet and raise
-NotImplementedError.
+(`index_add_`) over the gathered (B, msoc) subvector; exponential, power
+and generalised power cones are dispatched to `exp.py`, `pow.py` and
+`genpow.py` from the composite entry points here, as in the reference.
+PSD cones are not ported yet and raise NotImplementedError.
 """
 
 import functools
@@ -15,6 +15,9 @@ import functools
 import numpy as np
 import torch
 
+from . import exp as expcone
+from . import genpow as gpcone
+from . import pow as powcone
 from .layout import ConeLayout
 
 FMAX = float(np.finfo(np.float64).max)
@@ -26,16 +29,11 @@ DUAL = 1
 
 def require_supported(layout: ConeLayout) -> None:
     """Raise for the cone types the port does not cover yet."""
-    missing = [name for name, has in (
-        ("ExponentialConeT", layout.has_exp),
-        ("PowerConeT", layout.has_pow),
-        ("GenPowerConeT", layout.has_genpow),
-        ("PSDTriangleConeT", layout.has_psd),
-    ) if has]
-    if missing:
+    if layout.has_psd:
         raise NotImplementedError(
-            f"cuclarabel_torch covers zero, nonnegative and second-order "
-            f"cones; {', '.join(missing)} are not ported yet")
+            "cuclarabel_torch covers zero, nonnegative, second-order, "
+            "exponential, power and generalised power cones; "
+            "PSDTriangleConeT is not ported yet")
 
 
 class _Plan:
@@ -56,6 +54,38 @@ class _Plan:
             segfull = layout.soc_segfull
             self.soc_same = t((segfull[:, None] == segfull[None, :])
                               & (segfull >= 0)[:, None])
+        m = layout.m
+        if layout.has_exp:
+            idx = layout.exp_idx.astype(np.int64)
+            self.exp_idx = t(idx)
+            self.exp_flat = t(idx.ravel())
+            self.exp_hs_flat = t((idx[:, :, None] * m
+                                  + idx[:, None, :]).ravel())
+        if layout.has_pow:
+            idx = layout.pow_idx.astype(np.int64)
+            self.pow_idx = t(idx)
+            self.pow_flat = t(idx.ravel())
+            self.pow_hs_flat = t((idx[:, :, None] * m
+                                  + idx[:, None, :]).ravel())
+            self.pow_alpha = t(layout.pow_alpha, dtype=torch.float64)
+        if layout.has_genpow:
+            f64 = torch.float64
+            self.gp_idx1 = t(layout.gp_idx1.astype(np.int64))
+            self.gp_idx2 = t(layout.gp_idx2.astype(np.int64))
+            self.gp_flat1 = self.gp_idx1.flatten()
+            self.gp_flat2 = self.gp_idx2.flatten()
+            self.gp_mask1 = t(layout.gp_mask1)
+            self.gp_mask2 = t(layout.gp_mask2)
+            self.gp_m1 = t(layout.gp_mask1, dtype=f64)
+            self.gp_m2 = t(layout.gp_mask2, dtype=f64)
+            self.gp_alpha = t(layout.gp_alpha, dtype=f64)
+            self.gp_deg = t(layout.gp_dim1, dtype=f64) + 1.0
+            seg = np.full(m, -1, dtype=np.int64)
+            for i in range(layout.ngp):
+                seg[layout.gp_idx1[i][layout.gp_mask1[i]]] = i
+                seg[layout.gp_idx2[i][layout.gp_mask2[i]]] = i
+            self.gp_same = t((seg[:, None] == seg[None, :])
+                             & (seg >= 0)[:, None])
 
 
 @functools.lru_cache(maxsize=64)
@@ -65,8 +95,13 @@ def plan(layout: ConeLayout, device) -> _Plan:
 
 def _col(a, like):
     """Per-problem scalar(s) as a (B, 1) column (a float broadcasts)."""
-    a = torch.as_tensor(a, dtype=like.dtype, device=like.device)
-    return a.expand(like.shape[0]).unsqueeze(1) if a.dim() == 0 else a[:, None]
+    return _per_problem(a, like)[:, None]
+
+
+def _per_problem(a, like, dtype=None):
+    """Per-problem scalar(s) as a (B,) tensor (a number broadcasts)."""
+    a = torch.as_tensor(a, dtype=dtype or like.dtype, device=like.device)
+    return a.expand(like.shape[0]) if a.dim() == 0 else a
 
 
 def _safe(x):
@@ -82,6 +117,11 @@ def _safe_nonzero(x):
 def _set(x, idx, vals):
     """Out-of-place x[:, idx] = vals."""
     return x.index_copy(1, idx, vals)
+
+
+def _logsafe(v):
+    """log with -inf-ish for nonpositive args (mathutils.jl:12-18)."""
+    return torch.where(v > 0, torch.log(torch.where(v > 0, v, 1.0)), -FMAX)
 
 
 # ---------------------------------------------------------------------------
@@ -162,14 +202,26 @@ def _soc_circ(layout, ug, vg):
 
 def unit_initialization(layout: ConeLayout, batch: int, device):
     """Unit (central-ray) initialization of (z, s): zero: 0; NN: 1;
-    SOC: e1 (coneops_*:unit_initialization!)."""
+    SOC: e1 (coneops_*:unit_initialization!); exp, pow and genpow:
+    their cone-specific interior points."""
     p = plan(layout, device)
     z = torch.zeros(batch, layout.m, dtype=torch.float64, device=device)
     if layout.has_nn:
         z = torch.where(p.nn_mask, 1.0, z)
     if layout.has_soc:
         z = _set(z, p.soc_head_full, torch.ones_like(z[:, p.soc_head_full]))
-    return z, z.clone()
+    s = z.clone()
+    if layout.has_exp:
+        ze, se = expcone.unit_init(p, batch)
+        z = _set(z, p.exp_flat, ze.reshape(batch, -1))
+        s = _set(s, p.exp_flat, se.reshape(batch, -1))
+    if layout.has_pow:
+        zp, sp = powcone.unit_init(p, batch)
+        z = _set(z, p.pow_flat, zp.reshape(batch, -1))
+        s = _set(s, p.pow_flat, sp.reshape(batch, -1))
+    if layout.has_genpow:
+        z, s = gpcone.unit_init(p, z, s)
+    return z, s
 
 
 def margins(layout: ConeLayout, z, pd: int):
@@ -244,14 +296,24 @@ def set_identity_scaling(layout: ConeLayout, batch: int, device):
         state["soc_lam"] = e1.clone()
         state["soc_eta"] = torch.ones(batch, layout.nsoc, dtype=f64,
                                       device=device)
+    # nonsymmetric cones never use identity scaling (their start is the
+    # unit initialization)
+    if layout.has_exp:
+        state.update(expcone.zero_scaling(p, batch))
+    if layout.has_pow:
+        state.update(powcone.zero_scaling(p, batch))
+    if layout.has_genpow:
+        state.update(gpcone.zero_scaling(p, batch))
     return state
 
 
-def update_scaling(layout: ConeLayout, s, z, mu, scaling_flag):
+def update_scaling(layout: ConeLayout, s, z, mu, scaling_flag, live=None):
     """Update all cone scalings at the current iterate.  Returns
     (state, ok) with ok (B,) bool; parity with update_scaling!
-    (coneops_compositecone.jl:103-120).  mu and scaling_flag matter only
-    to nonsymmetric cones."""
+    (coneops_compositecone.jl:103-120).  mu and scaling_flag (per
+    problem, or one for all) matter only to nonsymmetric cones; `live`
+    (B,) marks the problems whose result is wanted (None: all), which
+    alone hold the power cones' Newton solves."""
     p = plan(layout, s.device)
     state = {}
     ok = torch.ones(s.shape[0], dtype=torch.bool, device=s.device)
@@ -305,6 +367,21 @@ def update_scaling(layout: ConeLayout, s, z, mu, scaling_flag):
         state["soc_eta"] = eta
         ok = ok & ok_soc.all(dim=1)
 
+    if layout.has_nonsymmetric:
+        mu = _per_problem(mu, s)
+        flag = _per_problem(scaling_flag, s, torch.int32)
+    if layout.has_exp:
+        st, oke = expcone.update_scaling(p, s, z, mu, flag)
+        state.update(st)
+        ok = ok & oke
+    if layout.has_pow:
+        st, okp = powcone.update_scaling(p, s, z, mu, flag, live)
+        state.update(st)
+        ok = ok & okp
+    if layout.has_genpow:
+        st, okg = gpcone.update_scaling(p, s, z, mu)
+        state.update(st)
+        ok = ok & okg
     return state, ok
 
 
@@ -333,6 +410,12 @@ def assemble_Hs_dense(layout: ConeLayout, state):
         jdiag = _set(any_t.new_zeros(B, layout.m), p.soc_idx,
                      (eta ** 2)[:, seg] * p.soc_sign)
         H = H - torch.diag_embed(jdiag)
+    if layout.has_exp:
+        H = expcone.add_Hs_dense(p, state, H)
+    if layout.has_pow:
+        H = powcone.add_Hs_dense(p, state, H)
+    if layout.has_genpow:
+        H = gpcone.add_Hs_dense(p, state, H)
     return H
 
 
@@ -350,6 +433,12 @@ def mul_Hs(layout: ConeLayout, state, x):
         wx = _soc_full_dot(layout, wg, xg)
         yg = eta2[:, seg] * (2.0 * wx[:, seg] * wg - p.soc_sign * xg)
         y = _set(y, p.soc_idx, yg)
+    if layout.has_exp:
+        y = expcone.mul_Hs(p, state, x, y)
+    if layout.has_pow:
+        y = powcone.mul_Hs(p, state, x, y)
+    if layout.has_genpow:
+        y = gpcone.mul_Hs(p, state, x, y)
     return y
 
 
@@ -359,8 +448,8 @@ def mul_Hs(layout: ConeLayout, state, x):
 
 
 def affine_ds(layout: ConeLayout, state, s):
-    """ds = lambda o lambda for symmetric cones, 0 for the zero cone
-    (affine_ds! per-cone semantics)."""
+    """ds = lambda o lambda for symmetric cones, ds = s for nonsymmetric
+    cones, 0 for the zero cone (affine_ds! per-cone semantics)."""
     p = plan(layout, s.device)
     ds = torch.zeros_like(s)
     if layout.has_nn:
@@ -368,14 +457,26 @@ def affine_ds(layout: ConeLayout, state, s):
     if layout.has_soc:
         lam = state["soc_lam"]
         ds = _set(ds, p.soc_idx, _soc_circ(layout, lam, lam))
-    return ds
+    return _copy_nonsymmetric(layout, p, s, ds)
+
+
+def _copy_nonsymmetric(layout, p, src, dst):
+    """dst = src on the rows of the nonsymmetric cones."""
+    if layout.has_exp:
+        dst = _set(dst, p.exp_flat, src[:, p.exp_flat])
+    if layout.has_pow:
+        dst = _set(dst, p.pow_flat, src[:, p.pow_flat])
+    if layout.has_genpow:
+        dst = gpcone.copy_s(p, src, dst)
+    return dst
 
 
 def combined_ds_shift(layout: ConeLayout, state, step_z, step_s, sigma_mu, z):
-    """Mehrotra shift term for the combined step RHS: shift =
-    W^{-1} ds_aff o W dz_aff - sigma*mu*e
+    """Mehrotra shift term for the combined step RHS.  Symmetric cones:
+    shift = W^{-1} ds_aff o W dz_aff - sigma*mu*e
     (coneops_symmetric_common.jl:2-35); for NN this collapses to
-    dz .* ds - sigma*mu.  sigma_mu: (B,)."""
+    dz .* ds - sigma*mu.  Nonsymmetric cones: sigma*mu*grad f*(z) and the
+    3rd-order correction (exp, pow).  sigma_mu: (B,)."""
     p = plan(layout, z.device)
     smu = _col(sigma_mu, z)
     shift = torch.zeros_like(z)
@@ -391,6 +492,15 @@ def combined_ds_shift(layout: ConeLayout, state, step_z, step_s, sigma_mu, z):
         vals = _soc_circ(layout, Wis, Wz)
         vals = vals.index_add(1, p.soc_headpos, -smu.expand(-1, layout.nsoc))
         shift = _set(shift, p.soc_idx, vals)
+    smu = smu[:, 0]
+    if layout.has_exp:
+        shift = expcone.combined_ds_shift(p, state, step_z, step_s, smu,
+                                          shift)
+    if layout.has_pow:
+        shift = powcone.combined_ds_shift(p, state, step_z, step_s, smu,
+                                          shift)
+    if layout.has_genpow:
+        shift = gpcone.combined_ds_shift(p, state, smu, shift)
     return shift
 
 
@@ -433,9 +543,10 @@ def centrality_correction(layout: ConeLayout, state, z_t, s_t, lo, hi):
 
 
 def ds_from_dz_offset(layout: ConeLayout, state, ds, z):
-    """out = W'(lambda \\ ds) for symmetric cones, 0 for the zero cone
-    (Delta_s_from_Delta_z_offset! semantics; SOC uses the numerically
-    stable direct form, coneops_socone.jl:241-268)."""
+    """out = W'(lambda \\ ds) for symmetric cones, out = ds for
+    nonsymmetric cones, 0 for the zero cone (Delta_s_from_Delta_z_offset!
+    semantics; SOC uses the numerically stable direct form,
+    coneops_socone.jl:241-268)."""
     p = plan(layout, z.device)
     out = torch.zeros_like(z)
     if layout.has_nn:
@@ -462,7 +573,7 @@ def ds_from_dz_offset(layout: ConeLayout, state, ds, z):
         add = add.index_add(1, hp, eta * w1ds1)
         val = (val + add) / _safe_nonzero(lam0)[:, seg]
         out = _set(out, p.soc_idx, val)
-    return out
+    return _copy_nonsymmetric(layout, p, ds, out)
 
 
 # ---------------------------------------------------------------------------
@@ -518,9 +629,13 @@ def _soc_step_limit(layout, x, dx, amax):
                                               device=x.device))
 
 
-def step_length(layout: ConeLayout, state, dz, ds, z, s, alpha_max, settings):
-    """Max feasible step in all (symmetric) cones, per problem
-    (coneops_compositecone.jl:205-243).  alpha_max: (B,)."""
+def step_length(layout: ConeLayout, state, dz, ds, z, s, alpha_max, settings,
+                live=None):
+    """Max feasible step in all cones, per problem
+    (coneops_compositecone.jl:205-243).  alpha_max: (B,).  Symmetric
+    cones first; with nonsymmetric cones, back off to 1 - sqrt(eps) and
+    run their backtracking searches, one alpha per problem, held only by
+    the problems of `live` (B,) (None: all)."""
     alpha = alpha_max
     if layout.has_nn:
         alpha = torch.minimum(alpha, _nn_step_limit(layout, z, dz, alpha_max))
@@ -528,4 +643,45 @@ def step_length(layout: ConeLayout, state, dz, ds, z, s, alpha_max, settings):
     if layout.has_soc:
         alpha = torch.minimum(alpha, _soc_step_limit(layout, z, dz, alpha_max))
         alpha = torch.minimum(alpha, _soc_step_limit(layout, s, ds, alpha_max))
+    if layout.has_nonsymmetric:
+        p = plan(layout, z.device)
+        alpha = torch.clamp(_per_problem(alpha, z), max=1.0 - np.sqrt(EPS))
+        if layout.has_exp:
+            alpha = expcone.step_length(p, dz, ds, z, s, alpha, settings,
+                                        live)
+        if layout.has_pow:
+            alpha = powcone.step_length(p, dz, ds, z, s, alpha, settings,
+                                        live)
+        if layout.has_genpow:
+            alpha = gpcone.step_length(p, dz, ds, z, s, alpha, settings,
+                                       live)
     return alpha
+
+
+def compute_barrier(layout: ConeLayout, z, s, dz, ds, alpha, live=None):
+    """Total barrier at (z + alpha dz, s + alpha ds) per problem, alpha
+    (B,) (coneops_compositecone.jl:246-265); `live` as in
+    step_length."""
+    p = plan(layout, z.device)
+    a = alpha[:, None]
+    si = s + a * ds
+    zi = z + a * dz
+    barrier = torch.zeros_like(alpha)
+    if layout.has_nn:
+        barrier = barrier - torch.where(p.nn_mask, _logsafe(si * zi),
+                                        0.0).sum(dim=1)
+    if layout.has_soc:
+        res_s, _, _ = _soc_residual(layout, si[:, p.soc_idx])
+        res_z, _, _ = _soc_residual(layout, zi[:, p.soc_idx])
+        good = (res_s > 0) & (res_z > 0)
+        terms = torch.where(good, -0.5 * _logsafe(res_s * res_z), torch.inf)
+        barrier = barrier + terms.sum(dim=1)
+    if layout.has_exp:
+        barrier = barrier + expcone.compute_barrier(p, z, s, dz, ds, alpha)
+    if layout.has_pow:
+        barrier = barrier + powcone.compute_barrier(p, z, s, dz, ds, alpha,
+                                                    live)
+    if layout.has_genpow:
+        barrier = barrier + gpcone.compute_barrier(p, z, s, dz, ds, alpha,
+                                                   live)
+    return barrier

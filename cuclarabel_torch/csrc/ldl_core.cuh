@@ -436,13 +436,18 @@ __device__ inline int strip_warp() {
 // nothing writing its sink slot (D^-1 too, kept in shared memory until
 // the end), and pivots j >= n run on junk.  An entry above the diagonal
 // or of a row >= n is junk that reaches only junk.  `warps` strip warps
-// take part.  Returns `finite` and whether every D^-1 of the panel is
-// finite, in every lane.
+// take part.  A pivot that cancels to exactly zero takes its row's
+// regularization reg[j] instead (reg nullptr: it stays zero); lane p
+// holds reg[j0 + p] and substitutes it in its own lane, before the
+// pivot's shuffle.  Returns `finite` and whether every D^-1 of the panel
+// is finite, in every lane.
 template <class T, int S>
-__device__ bool factor_strip(T* sm, const FactorLayout<T>& f, int j0,
-                             int w, int warps, bool finite) {
+__device__ bool factor_strip(T* sm, const FactorLayout<T>& f,
+                             const T* __restrict__ reg, int j0, int w,
+                             int warps, bool finite) {
   const int lane = threadIdx.x & 31;
   const int n = f.n, t0 = j0 + kPanel, sink = f.sink + lane;
+  const T rj = reg != nullptr && j0 + lane < n ? reg[j0 + lane] : T(0);
   int row[S];  // the slots' rows
   bool own[S];  // whether this warp stores the slot
   row[0] = j0 + lane;
@@ -464,7 +469,7 @@ __device__ bool factor_strip(T* sm, const FactorLayout<T>& f, int j0,
 #pragma unroll
   for (int p = 0; p < kPanel; ++p) {
     const int j = j0 + p;
-    const T dj = T(1) / __shfl_sync(kFullMask, ajj, p);
+    const T dj = T(1) / __shfl_sync(kFullMask, ajj == T(0) ? rj : ajj, p);
     sm[own[0] && j < n && lane == 0 ? f.dinv + j : sink] = dj;
     finite = finite && (j >= n || isfinite(dj));
     T lv[S];
@@ -631,9 +636,9 @@ __device__ bool factor_blocked(const T* __restrict__ K,
   for (int j0 = 0; j0 < n; j0 += kPanel) {
     const int warps = slots(n - j0);
     if (w == 0)
-      finite = factor_strip<T, 1>(a, f, j0, 0, warps, finite);
+      finite = factor_strip<T, 1>(a, f, reg, j0, 0, warps, finite);
     else if (w < warps)
-      factor_strip<T, 2>(a, f, j0, w, warps, finite);
+      factor_strip<T, 2>(a, f, reg, j0, w, warps, finite);
     __syncthreads();
     if (j0 + kPanel < n) {
       factor_trailing(a, f, j0 + kPanel);

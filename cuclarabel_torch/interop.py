@@ -1,13 +1,17 @@
 """Carry the reference's state across to the port.
 
 A solver has no weights; what the JAX package holds and the port must
-take over unchanged is its settings, the problem data in the shape its
-batch front end gives it, and (for the kernel tests) its LDL^T factor.
-Everything here takes and returns numpy and imports no JAX.
+take over unchanged is its settings, its cone specifications, the
+problem data in the shape its batch front end gives it, and (for the
+kernel and cone tests) its LDL^T factor and its per-problem cone
+scaling state.  Everything here takes numpy (or objects with the
+reference's attributes) and imports no JAX.
 """
 
 import numpy as np
+import torch
 
+from .cones import api
 from .cones.api import cones_collapsed
 from .settings import Settings
 
@@ -64,3 +68,40 @@ def factor_from_reference(Lh, Ll, Dh, Dl):
     L = np.tril(np.moveaxis(join(Lh, Ll), -1, 0), -1)
     Dinv = np.moveaxis(join(Dh, Dl), -1, 0)
     return np.ascontiguousarray(L), np.ascontiguousarray(Dinv)
+
+
+def cones_from_reference(cones):
+    """The port's cone specifications for the reference's, matched by
+    class name and attributes (dim, alpha, dim2), so that no module of
+    the JAX package is imported."""
+    out = []
+    for c in cones:
+        name = type(c).__name__
+        cls = getattr(api, name)
+        if name == "ExponentialConeT":
+            out.append(cls())
+        elif name == "PowerConeT":
+            out.append(cls(float(c.alpha)))
+        elif name == "GenPowerConeT":
+            out.append(cls(tuple(float(a) for a in c.alpha), int(c.dim2)))
+        else:
+            out.append(cls(int(c.dim)))
+    return out
+
+
+def scaling_state_from_reference(layout, states, device="cpu"):
+    """The port's batched scaling state from the reference's per-problem
+    states of the cones of `layout` (one dict per problem, e.g.
+    `cones/ops.update_scaling`'s, as numpy arrays): each entry stacked
+    over the problems into a (B, ...) f64 tensor, so that the two sides'
+    cone operations can be applied to one and the same state."""
+    counts = {"exp": layout.nexp, "pow": layout.npow, "gp": layout.ngp}
+    out = {}
+    for k in states[0]:
+        v = np.stack([np.asarray(st[k], dtype=np.float64) for st in states])
+        kind = k.split("_")[0]
+        if kind in counts and k != "gp_mu" and v.shape[1] != counts[kind]:
+            raise ValueError(f"{k}: {v.shape[1]} cones, the layout has "
+                             f"{counts[kind]}")
+        out[k] = torch.as_tensor(v, device=device)
+    return out

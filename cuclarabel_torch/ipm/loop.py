@@ -2,7 +2,12 @@
 
 The counterpart of `cuclarabel_tpu/ipm/loop.py` (reference solve! loop,
 `src/solver.jl:189-380`, with the homogeneous embedding that keeps the
-quadratic objective), for the dense KKT backend and symmetric cones.
+quadratic objective), for the dense KKT backend.  Layouts with
+nonsymmetric cones start from the unit initialization and run the
+reference's strategy ladder per problem (solver.jl:453-514): the
+insufficient-progress restore, the numerical-error retry and the
+small-step switch from PrimalDual to Dual scaling, and the barrier
+backtrack of Dual-scaled combined steps.
 
 The reference runs `vmap` over one `lax.while_loop`, so a finished
 problem's state stays frozen while the others iterate.  Here one Python
@@ -112,15 +117,16 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
     committed where `unsolved`, post(state) the results; `run_passes`
     drives the passes."""
     cone_ops.require_supported(layout)
-    if not layout.is_symmetric:
-        raise NotImplementedError("nonsymmetric cones are not ported yet")
     if settings.direct_solve_method not in ("auto", "dense"):
         raise NotImplementedError(
             f"direct_solve_method={settings.direct_solve_method!r} is not "
             "ported to cuclarabel_torch yet; the dense backend is")
 
+    sym = layout.is_symmetric
     deg1 = layout.degree + 1
     st = settings
+    init_scaling = (PRIMAL_DUAL if layout.allows_primal_dual_scaling
+                    else DUAL_ONLY)
     factorize, kkt_solve = make_dense_kkt(n, m, settings, layout, device)
 
     # multi-RHS ("pair") solves: off on the dense backend unless asked
@@ -130,7 +136,9 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
                       if st.kkt_pair_solve else None)
     init_pair = getattr(kkt_solve, "pair", None)
     has_time_limit = math.isfinite(st.time_limit)
-    n_corr = int(st.centrality_correctors)
+    # the Gondzio correctors retarget a product that only symmetric
+    # cones have (reference loop.py:727-729)
+    n_corr = int(st.centrality_correctors) if sym else 0
 
     def build(dev: Dict[str, torch.Tensor]):
         q, b = dev["q"], dev["b"]
@@ -350,16 +358,52 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
             return cone_ops.assemble_Hs_dense(layout, scal)
 
         # -------------------- step length (variables.jl:14-43)
-        def get_step_length(v, step, scal, combined: bool):
+        def get_step_length(v, step, scal, scaling, live, combined: bool):
             atau = torch.where(step["tau"] < 0, -v["tau"] / step["tau"], FMAX)
             akappa = torch.where(step["kappa"] < 0,
                                  -v["kappa"] / step["kappa"], FMAX)
             amax = torch.clamp(torch.minimum(atau, akappa), max=1.0)
             alpha = cone_ops.step_length(
-                layout, scal, step["z"], step["s"], v["z"], v["s"], amax, st)
+                layout, scal, step["z"], step["s"], v["z"], v["s"], amax, st,
+                live)
             if combined:
                 alpha = alpha * st.max_step_fraction
+                if not sym:
+                    # barrier backtrack for Dual-scaled nonsymmetric
+                    # steps (solver.jl:407-442)
+                    dual = scaling == DUAL_ONLY
+                    alpha = torch.where(
+                        dual, backtrack_barrier(v, step, alpha, live & dual),
+                        alpha)
             return alpha
+
+        def full_barrier(v, step, alpha, live):
+            """variables_barrier (variables.jl:46-72), per problem."""
+            a = alpha[:, None]
+            cur_tau = v["tau"] + alpha * step["tau"]
+            cur_kappa = v["kappa"] + alpha * step["kappa"]
+            sz = _vdot(v["z"] + a * step["z"], v["s"] + a * step["s"])
+            mu = (sz + cur_tau * cur_kappa) / deg1
+            barrier = (deg1 * cone_ops._logsafe(mu)
+                       - cone_ops._logsafe(cur_tau)
+                       - cone_ops._logsafe(cur_kappa))
+            return barrier + cone_ops.compute_barrier(
+                layout, v["z"], v["s"], step["z"], step["s"], alpha, live)
+
+        def backtrack_barrier(v, step, alpha0, live):
+            """Shrink alpha by the backtrack step until the barrier is
+            below 1, at most 50 times, per problem (reference
+            loop.py:444-456); the problems of `live` hold the loop, one
+            host sync per step."""
+            a = alpha0
+            done = ~live
+            for _ in range(50):
+                if bool(done.all()):
+                    break
+                ok = full_barrier(v, step, a, ~done) < 1.0
+                a = torch.where(done | ok, a, st.linesearch_backtrack_step * a)
+                done = done | ok
+            return a
 
         # -------------------- initialization (solver.jl:383-404)
         def warm_start():
@@ -402,8 +446,18 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
             return {"x": x0, "s": s0, "z": z0, "tau": full(1.0),
                     "kappa": full(1.0)}
 
+        def unit_start():
+            """Nonsymmetric layouts: the cones' unit points, x = 0 and
+            tau = kappa = 1 (reference loop.py:519-522)."""
+            z0, s0 = cone_ops.unit_initialization(layout, B, q.device)
+            return {"x": torch.zeros_like(q), "s": s0, "z": z0,
+                    "tau": full(1.0), "kappa": full(1.0)}
+
         def make_state0():
-            v0 = warm_start() if "ws_x" in dev else default_start()
+            if "ws_x" in dev:
+                v0 = warm_start()
+            else:
+                v0 = default_start() if sym else unit_start()
             info0 = {k: full(FMAX) for k in INFO_KEYS}
             return {
                 "vars": v0,
@@ -412,7 +466,7 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
                 "prev_info": info0,
                 "iter": ifull(0),
                 "status": ifull(S.UNSOLVED),
-                "scaling": ifull(PRIMAL_DUAL),
+                "scaling": ifull(init_scaling),
                 "mu": full(FMAX),
                 "alpha": full(0.0),
                 "sigma": full(1.0),
@@ -422,7 +476,10 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
 
         t_start = dev.get("t_start", time.time())
 
-        def loop_body(s_):
+        def loop_body(s_, live):
+            """One pass; `live` (B,) marks the problems whose result the
+            pass commits, which alone hold the nonsymmetric cones' masked
+            loops (Newton solves and backtracking searches)."""
             v = s_["vars"]
             scaling = s_["scaling"]
 
@@ -441,11 +498,23 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
                     s_["ir_last"].double(), scaling.double(),
                 ], dim=1)[0].cpu().numpy()  # the host sync
                 print(format_iteration_row(int(row[8]), row), flush=True)
-            proceed = status == int(S.UNSOLVED)
+
+            # --- insufficient-progress checkpoint (solver.jl:453-472):
+            # back to the previous iterate, under Dual scaling
+            if not sym:
+                restore = ((status == int(S.INSUFFICIENT_PROGRESS))
+                           & (scaling == PRIMAL_DUAL))
+                v = where_tree(restore, s_["prev_vars"], v)
+                info = where_tree(restore, s_["prev_info"], info)
+                status = torch.where(restore, int(S.UNSOLVED), status)
+                scaling = torch.where(restore, DUAL_ONLY, scaling)
+                proceed = (status == int(S.UNSOLVED)) & ~restore
+            else:
+                proceed = status == int(S.UNSOLVED)
 
             # --- cone scaling update
             scal, scale_ok = cone_ops.update_scaling(layout, v["s"], v["z"],
-                                                     mu, scaling)
+                                                     mu, scaling, live)
             status = torch.where(proceed & ~scale_ok,
                                  int(S.NUMERICAL_ERROR), status)
             proceed = proceed & scale_ok
@@ -476,7 +545,8 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
                 fac, x2, z2, v, scal, rhs_aff, True, presolved=presolved_aff)
             kkt_ok = kkt_ok & oka
 
-            alpha_aff = get_step_length(v, step_aff, scal, combined=False)
+            alpha_aff = get_step_length(v, step_aff, scal, scaling, live,
+                                        combined=False)
             sigma = (1.0 - alpha_aff) ** 3  # Mehrotra (solver.jl:446-449)
             # reduced correction on the first iteration
             # (solver.jl:305-307, variables.jl:147-151)
@@ -503,7 +573,8 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
             # --- Gondzio multiple centrality correctors (optional; no
             # reference counterpart, reference loop.py:720-770)
             if n_corr > 0:
-                alpha_cc = get_step_length(v, step_comb, scal, combined=True)
+                alpha_cc = get_step_length(v, step_comb, scal, scaling, live,
+                                           combined=True)
                 for _ in range(n_corr):
                     abar = torch.clamp(1.08 * alpha_cc + 0.08, max=1.0)
                     z_t = v["z"] + abar[:, None] * step_comb["z"]
@@ -520,8 +591,8 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
                         tk - torch.clamp(tk, lo, hi))
                     step_try, okt, nir_t = kkt_step(
                         fac, x2, z2, v, scal, rhs_try, False)
-                    alpha_try = get_step_length(v, step_try, scal,
-                                                combined=True)
+                    alpha_try = get_step_length(v, step_try, scal, scaling,
+                                                live, combined=True)
                     accept = okt & (
                         alpha_try >= alpha_cc + 0.1 * (abar - alpha_cc))
                     step_comb = where_tree(accept, step_try, step_comb)
@@ -529,8 +600,13 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
                     alpha_cc = torch.where(accept, alpha_try, alpha_cc)
                     nir_b = nir_b + torch.where(accept, nir_t, 0)
 
-            # --- numerical-error checkpoint (solver.jl:475-489)
+            # --- numerical-error checkpoint (solver.jl:475-489): a
+            # PrimalDual-scaled nonsymmetric problem retries under Dual
             ne_fail = proceed & ~kkt_ok
+            if not sym:
+                ne_retry = ne_fail & (scaling == PRIMAL_DUAL)
+                scaling = torch.where(ne_retry, DUAL_ONLY, scaling)
+                ne_fail = ne_fail & ~ne_retry
             status = torch.where(ne_fail, int(S.NUMERICAL_ERROR), status)
             active = proceed & kkt_ok
 
@@ -539,7 +615,14 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
             if n_corr > 0:
                 alpha = alpha_cc
             else:
-                alpha = get_step_length(v, step_comb, scal, combined=True)
+                alpha = get_step_length(v, step_comb, scal, scaling,
+                                        live & active, combined=True)
+            if not sym:
+                # a small PrimalDual step retries under Dual, uncommitted
+                small_switch = (active & (scaling == PRIMAL_DUAL)
+                                & (alpha < st.min_switch_step_length))
+                scaling = torch.where(small_switch, DUAL_ONLY, scaling)
+                active = active & ~small_switch
             small_fail = active & (
                 alpha <= max(0.0, st.min_terminate_step_length))
             status = torch.where(small_fail, int(S.INSUFFICIENT_PROGRESS),
@@ -563,7 +646,7 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
                 "prev_info": where_tree(commit, info, s_["prev_info"]),
                 "iter": it.to(torch.int32),
                 "status": status.to(torch.int32),
-                "scaling": scaling,
+                "scaling": scaling.to(torch.int32),
                 "mu": mu,
                 "alpha": torch.where(commit, alpha, 0.0),
                 "sigma": sigma,
@@ -643,7 +726,7 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
             }
 
         def loop_pass(state, unsolved):
-            return where_tree(unsolved, loop_body(state), state)
+            return where_tree(unsolved, loop_body(state, unsolved), state)
 
         return make_state0, loop_pass, post
 

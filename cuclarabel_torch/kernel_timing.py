@@ -4,7 +4,9 @@ main path's shapes.
     python3 -m cuclarabel_torch.kernel_timing
 
 At N = 76 (the KKT dimension of the portfolio SOCP with nass = 32) and
-each width B of WIDTHS, every kernel form of `kkt/ldl.py` -- ldl_factor,
+each width B of WIDTHS, and at N = 104 (`problems.exp_logistic(4, 10,
+...)`) and each width of NONSYM_WIDTHS for the forms that path launches,
+every kernel form of `kkt/ldl.py` -- ldl_factor,
 and ldl_solve, kkt_residual and ldl_solve_refine (npass = 1) with R = 1
 and R = 2 -- and the f32 ldl_factor_batched and ldl_solve_batched of
 `kkt/ldl_f32.py`, on the same K in f32, is timed:
@@ -59,6 +61,12 @@ L2_FLUSH_BYTES = 256 << 20
 # the main path's KKT blocks: n = 33 variables, m = 43 constraints
 MAIN_NM = (33, 43)
 WIDTHS = (4096, 256, 1)
+# the nonsymmetric path's (problems.exp_logistic(4, 10, ...), N = 104),
+# its widths, and the forms it launches (no pair solves)
+NONSYM_NM = (34, 70)
+NONSYM_WIDTHS = (4096, 1)
+NONSYM_FORMS = (("ldl_factor", 1), ("ldl_solve", 1), ("kkt_residual", 1),
+                ("ldl_solve_refine", 1))
 # the width at which CUDA events time the kernel rather than the host
 EVENTS_WIDTH = 4096
 F64_FORMS = (("ldl_factor", 1), ("ldl_solve", 1), ("ldl_solve", 2),
@@ -260,12 +268,13 @@ def ptxas(name, R, N, report):
     return None
 
 
-def operands(B, seed=1, dev="cuda"):
-    """The kernels' inputs at the main path's N = 76, width B: K, reg,
+def operands(B, seed=1, dev="cuda", nm=MAIN_NM):
+    """The kernels' inputs at N = sum(nm) (the main path's 76 by
+    default), width B: K, reg,
     the factor L, Dinv, right-hand sides b (B, N) and b2 (B, N, 2), and
     x, x2 = their solutions; Kf = K in f32, its f32 factor Lf, Dinvf,
     and bf = b in f32."""
-    n, m = MAIN_NM
+    n, m = nm
     rng = np.random.default_rng(seed)
     Kn, regn = make_kkt(rng, B, n, m)
     K = torch.tensor(Kn, device=dev)
@@ -305,12 +314,13 @@ def calls(op):
     return out
 
 
-def time_width(B, forms=FORMS, reps=20, plain_reps=3, cold=False):
-    """One row per kernel form of `forms` at (N = 76, B): its device ms
-    (and, with `cold`, cold_ms with the L2 flushed), events_ms at
+def time_width(B, forms=FORMS, reps=20, plain_reps=3, cold=False,
+               nm=MAIN_NM):
+    """One row per kernel form of `forms` at (N = sum(nm), B): its device
+    ms (and, with `cold`, cold_ms with the L2 flushed), events_ms at
     EVENTS_WIDTH, plain_ms, bound, ptxas' registers and spills, and
     occupancy.  Returns (rows, operands)."""
-    op = operands(B)
+    op = operands(B, nm=nm)
     N = op["b"].shape[1]
     fns = calls(op)
     report = _build.ptxas_report(_build.build()["log"])
@@ -374,6 +384,9 @@ def main():
     print(card)
     for B in WIDTHS:
         for row in time_width(B, cold=True)[0]:
+            print(row_line(card, row), flush=True)
+    for B in NONSYM_WIDTHS:
+        for row in time_width(B, NONSYM_FORMS, cold=True, nm=NONSYM_NM)[0]:
             print(row_line(card, row), flush=True)
     return 0
 

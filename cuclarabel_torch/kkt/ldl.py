@@ -56,7 +56,9 @@ def _as_rhs(b):
 
 def _factor(K, reg):
     """Plain pivot-free LDL^T of K + diag(reg) (reg None: of K), in K's
-    dtype.  Reads K's lower triangle."""
+    dtype.  Reads K's lower triangle.  A pivot that cancels to exactly
+    zero takes its row's regularization reg[j] instead (without reg it
+    stays zero, and D^-1 is not finite)."""
     B, N, _ = K.shape
     A = _sym_from_lower(K)
     if reg is not None:
@@ -64,7 +66,10 @@ def _factor(K, reg):
     L = torch.zeros_like(K)
     Dinv = K.new_empty(B, N)
     for j in range(N):
-        dinv = 1.0 / A[:, j, j]
+        d = A[:, j, j]
+        if reg is not None:
+            d = torch.where(d == 0, reg[:, j], d)
+        dinv = 1.0 / d
         Dinv[:, j] = dinv
         a = A[:, j + 1:, j]
         lcol = a * dinv[:, None]

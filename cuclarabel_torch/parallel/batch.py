@@ -22,7 +22,10 @@ gathered data in stage 2, which avoids moving the equilibrated data
 between two compiled programs.  Here both stages run eagerly on the same
 tensors.
 
-Not ported yet: sharding over several devices.
+Every cone type but PSD is covered: the exponential, power and
+generalised power cones run the reference's per-problem strategy ladder
+(`ipm/loop.py`), whose state moves with the stragglers like the rest.
+Not ported yet: PSD cones, and sharding over several devices.
 """
 
 import time

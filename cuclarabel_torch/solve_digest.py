@@ -13,11 +13,16 @@ problem), the IPM iterations and the statuses.  Equal digests from two
 versions mean bitwise-equal solutions.  Default settings compact the
 B = 4096 batch since staged compaction was ported, where earlier
 versions did not, so that path's digest is reported (`"compare":
-false`) and `batch_B4096_plain` is the one to compare.  The module
-needs nothing of `cuclarabel_torch` that an earlier version lacks: a
-copy placed in another checkout's package digests that checkout's
-solves, so that two versions can be compared in one run.  Needs a CUDA
-device.
+false`) and `batch_B4096_plain` is the one to compare.  Then the nonsymmetric
+paths: BatchSolver on `problems.exp_logistic(4, 10, B, 5)` (N = 104) at
+B = 4096 (staged by default) and 256 (`batch_exp_B4096`,
+`batch_exp_B256`), on `problems.genpow_family(8, 256, 9)` (N = 56,
+`batch_genpow_B256`), and Solver on exp_logistic's problem 0
+(`solver_exp_n104`).  The module needs nothing of `cuclarabel_torch`
+that an earlier version lacks: a copy placed in another checkout's
+package digests that checkout's solves, so that two versions can be
+compared in one run; a version without the nonsymmetric cones reports
+those paths as skipped.  Needs a CUDA device.
 """
 
 import hashlib
@@ -32,6 +37,14 @@ NASS = 32
 BATCH_PATHS = (("batch_B256", 256, {}, True),
                ("batch_B4096", 4096, {}, False),
                ("batch_B4096_plain", 4096, {"batch_compaction": 0.0}, True))
+# (path, problems module -> BatchSolver arguments, Solver on problem 0)
+NONSYM_PATHS = (
+    ("batch_exp_B4096", lambda pr: pr.exp_logistic(4, 10, 4096, 5), False),
+    ("batch_exp_B256", lambda pr: pr.exp_logistic(4, 10, 256, 5), False),
+    ("batch_genpow_B256", lambda pr: pr.genpow_family(8, 256, 9)[:5],
+     False),
+    ("solver_exp_n104", lambda pr: pr.exp_logistic(4, 10, 1, 5), True),
+)
 
 
 def digest(sols):
@@ -65,6 +78,23 @@ def main():
     d = digest([ct.Solver(None, qs[0], A, bs[0], cones).solve()])
     print(json.dumps({"path": "solver_n76", "compare": True, **d}),
           flush=True)
+    from cuclarabel_torch import problems
+
+    for path, make, single in NONSYM_PATHS:
+        if not hasattr(problems, "exp_logistic"):
+            print(json.dumps({"path": path, "skipped": "not in this "
+                              "version"}), flush=True)
+            continue
+        data = make(problems)
+        if single:
+            P, qs, A, bs, cones = data
+            sols = [ct.Solver(P, qs[0], A[0], bs[0], cones).solve()]
+        else:
+            sols = ct.BatchSolver(*data).solve()
+        d = digest(sols)
+        iters = d.pop("iterations")
+        d.update(iterations_sum=sum(iters), iterations_max=max(iters))
+        print(json.dumps({"path": path, "compare": True, **d}), flush=True)
     return 0
 
 

@@ -20,9 +20,10 @@ Differences from the reference:
   * `solve(profile_dir=...)` writes a torch.profiler trace (Chrome trace
     JSON, host and device activity) where the reference writes a
     jax.profiler one;
-  * PSD cones (and with them chordal decomposition) and the exponential,
-    power and generalised power cones are not ported yet: `setup` raises
-    NotImplementedError for them.
+  * PSD cones (and with them chordal decomposition) are not ported yet:
+    `setup` raises NotImplementedError for them.  Exponential, power and
+    generalised power cones run the reference's strategy ladder
+    (`ipm/loop.py`).
 """
 
 import contextlib
@@ -207,7 +208,7 @@ class Solver:
             "normq": self._put(normq),
             "normb": self._put(normb),
         }
-        # raises NotImplementedError for the cones the port lacks
+        # raises NotImplementedError for PSD cones (not ported yet)
         self._refresh_solve_fn()
         self.solution: Optional[DefaultSolution] = None
         self.info: Optional[dict] = None

@@ -181,7 +181,31 @@ def test_unported_options_raise():
     _, q, A, b, _ = data
     with pytest.raises(NotImplementedError):
         ct.BatchSolver(None, q[:, :3], A[:3, :3], b[:, :3],
-                       [ct.ExponentialConeT()], device="cpu")
+                       [ct.PSDTriangleConeT(2)], device="cpu")
+
+
+def test_exponential_cone_batch_matches_reference():
+    """The exponential cone, which raised before it was ported: the exp
+    batch of tests/test_batch_sharding.py::test_batch_exp_matches_single
+    at B = 3 against the reference's BatchSolver (B != 4: ROADMAP F2),
+    both under "lu": the same statuses and iterations, objectives within
+    1e-7 relative."""
+    c = np.array([-1.0, 0.0, 0.5])
+    A = np.vstack([np.array([[0.0, 1.0, 0.0]]),
+                   np.array([[0.0, 0.0, 1.0]]), -np.eye(3)])
+    bs = np.stack([np.concatenate([[1.0], [1.5 + 0.8 * i], np.zeros(3)])
+                   for i in range(B)])
+    qs = np.tile(c, (B, 1))
+    want = RefBatchSolver(None, qs, A, bs, [
+        cc.ZeroConeT(1), cc.NonnegativeConeT(1), cc.ExponentialConeT()],
+        kkt_solve_method="lu").solve()
+    got = ct.BatchSolver(None, qs, A, bs, [
+        ct.ZeroConeT(1), ct.NonnegativeConeT(1), ct.ExponentialConeT()],
+        device="cpu", kkt_solve_method="lu").solve()
+    for g, w in zip(got, want):
+        assert g.status == w.status == cc.SolverStatus.SOLVED
+        assert g.iterations == w.iterations
+        assert abs(g.obj_val - w.obj_val) <= TOL_OBJ * abs(w.obj_val)
 
 
 def test_settings_from_reference():

@@ -235,6 +235,30 @@ def test_matches_reference(data, name):
 
 def test_unsupported_cones_raise():
     with pytest.raises(NotImplementedError):
-        ops.plan(build_layout((api.ExponentialConeT(),)), "cpu")
-    with pytest.raises(NotImplementedError):
         ops.plan(build_layout((api.PSDTriangleConeT(2),)), "cpu")
+
+
+def test_exponential_cone_plan_matches_reference():
+    """The exponential cone, which raised before it was ported: its plan
+    builds, and the unit initialization and the Hs of a layout with NN
+    and exp cones match the reference's
+    (tests/test_torch_nonsym_units.py holds the rest)."""
+    cones = (api.NonnegativeConeT(2), api.ExponentialConeT(),
+             api.ExponentialConeT())
+    ref_cones = (ref_api.NonnegativeConeT(2), ref_api.ExponentialConeT(),
+                 ref_api.ExponentialConeT())
+    layout, ref_layout = build_layout(cones), ref_build_layout(ref_cones)
+    assert ops.plan(layout, "cpu").exp_idx.tolist() == [[2, 3, 4],
+                                                        [5, 6, 7]]
+    z, s = ops.unit_initialization(layout, B, "cpu")
+    rz, rs = ref_ops.unit_initialization(ref_layout)
+    for got, want in ((z, rz), (s, rs)):
+        for i in range(B):
+            np.testing.assert_array_equal(got[i].numpy(), np.asarray(want))
+    state, ok = ops.update_scaling(layout, s, z, torch.ones(B), 0)
+    ref_state, ref_ok = ref_ops.update_scaling(ref_layout, rs, rz, 1.0, 0)
+    assert ok.all() and bool(ref_ok)
+    want = np.asarray(ref_ops.assemble_Hs_dense(ref_layout, ref_state))
+    got = ops.assemble_Hs_dense(layout, state).numpy()
+    for i in range(B):
+        np.testing.assert_allclose(got[i], want, rtol=TOL, atol=TOL)

@@ -11,7 +11,8 @@ card tensors: the factor and the substitution, f64 and f32, bit for bit
 plain versions do), the residual and the refined solve within 1e-12
 relative (other summation orders), at the main shapes, at the edges of
 the substitution's 32-row panels and around the factor's 8-pivot panels
-and 4 x 4 tiles; the residual bit for bit with the refined solve's.  The issue-rate probes' kernels
+and 4 x 4 tiles, and a pivot that cancels to exactly zero; the residual
+bit for bit with the refined solve's.  The issue-rate probes' kernels
 (csrc/probes.cu) are held to their plain versions bit for bit."""
 
 import numpy as np
@@ -256,6 +257,47 @@ def test_kernels_on_two_devices(dev):
         xr, _ = ldl.ldl_solve_refine(K, L, Dinv, b, 1)
         xp, _ = ldl.ldl_solve_refine_plain(K, L, Dinv, b, 1)
         torch.testing.assert_close(xr, xp, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("N", [1, 9, 76, 104, 128])
+def test_factor_zero_pivot_takes_the_regularization(dev, N):
+    """A pivot that cancels to exactly zero (row j of the lower triangle
+    zero, K_jj = -reg_j) takes reg_j as its D_j, in the kernel as in the
+    plain version, bit for bit; ok stays true."""
+    from cuclarabel_torch.kkt import ldl
+
+    rng = np.random.default_rng(N + 1)
+    B, m, bad, j = 5, (N + 1) // 2, 2, N // 2
+    K, reg = _kkt(rng, B, N - m, m, dev)
+    K[bad, j, :j + 1] = 0.0
+    K[bad, j, j] = -reg[bad, j]
+    L, Dinv, ok = ldl.ldl_factor(K, reg)
+    Lp, Dinvp, okp = ldl.ldl_factor_plain(K, reg)
+    assert torch.equal(L, Lp) and torch.equal(Dinv, Dinvp)
+    assert bool(ok.all()) and bool(okp.all())
+    assert float(Dinv[bad, j]) == 1.0 / float(reg[bad, j])
+
+
+def test_nonsymmetric_batches_on_card_match_cpu(dev):
+    """exp_logistic (N = 104) and the genpow family (N = 56) on the card
+    against the same batches on the CPU."""
+    import cuclarabel_torch as ct
+    from cuclarabel_torch.kkt import ldl
+    from cuclarabel_torch.problems import exp_logistic, genpow_family
+
+    ok = (ct.SolverStatus.SOLVED, ct.SolverStatus.ALMOST_SOLVED)
+    for data in (exp_logistic(4, 10, 6, 5), genpow_family(8, 6, 9)[:5]):
+        ldl.reset_counts()
+        gpu = ct.BatchSolver(*data).solve()
+        assert not ldl.PLAIN_CALLS and ldl.LAUNCHES["ldl_factor/r1"] > 0
+        cpu = ct.BatchSolver(*data, device="cpu").solve()
+        for g, c in zip(gpu, cpu):
+            # exp_logistic's ends are knife edges (ROADMAP F8): SOLVED
+            # on one side may be ALMOST_SOLVED on the other
+            assert g.status in ok and c.status in ok
+            both = g.status == c.status == ct.SolverStatus.SOLVED
+            tol = 1e-7 if both else 1e-4
+            assert abs(g.obj_val - c.obj_val) <= tol * abs(c.obj_val)
 
 
 def test_batch_solver_on_card_matches_cpu(dev):

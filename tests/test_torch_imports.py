@@ -30,14 +30,17 @@ print("PORT", sorted(m for m in sys.modules if m.startswith("cuclarabel_torch"))
 """
 
 # modules added with the single-problem Solver, the f32 LDL^T kernels,
-# the issue-rate probes and the solve digests
+# the issue-rate probes, the solve digests and the nonsymmetric cones
 NEW_MODULES = ("cuclarabel_torch.device", "cuclarabel_torch.equilibration",
                "cuclarabel_torch.info_print", "cuclarabel_torch.json_io",
                "cuclarabel_torch.kkt.ldl_f32", "cuclarabel_torch.presolve",
                "cuclarabel_torch.solver", "cuclarabel_torch.warmstart",
                "cuclarabel_torch.probes.mosaic_probe",
                "cuclarabel_torch.probes.mosaic_probe2",
-               "cuclarabel_torch.solve_digest")
+               "cuclarabel_torch.solve_digest",
+               "cuclarabel_torch.cones.nonsymmetric",
+               "cuclarabel_torch.cones.exp", "cuclarabel_torch.cones.pow",
+               "cuclarabel_torch.cones.genpow")
 
 
 def _env():

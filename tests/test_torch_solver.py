@@ -332,13 +332,28 @@ def test_time_limit_gives_max_time():
     assert sol.iterations == 0
 
 
-@pytest.mark.parametrize("cones", [[ct.PSDTriangleConeT(2)],
-                                   [ct.ExponentialConeT()]],
-                         ids=["psd", "exp"])
+@pytest.mark.parametrize("cones", [[ct.PSDTriangleConeT(2)]], ids=["psd"])
 def test_unported_cones_raise(cones):
     with pytest.raises(NotImplementedError):
         ct.Solver(None, np.ones(3), -np.eye(3), np.zeros(3), cones,
                   device="cpu")
+
+
+def test_exponential_cone_matches_reference():
+    """The exponential cone, which raised before it was ported: the
+    golden of tests/test_basic_exp.py under "lu" on both sides, the same
+    status and iterations, the objective within 1e-8 relative
+    (tests/test_torch_nonsym_solver.py holds the rest)."""
+    from tests.test_basic_exp import basic_exp_data
+
+    P, q, A, b, cones = basic_exp_data()
+    want = cc.Solver(P, q, A, b, cones, kkt_solve_method="lu").solve()
+    got = ct.Solver(P, q, A, b, [ct.ZeroConeT(1), ct.NonnegativeConeT(3),
+                                 ct.ExponentialConeT()],
+                    kkt_solve_method="lu", device="cpu").solve()
+    assert got.status == want.status == cc.SolverStatus.SOLVED
+    assert got.iterations == want.iterations
+    assert abs(got.obj_val - want.obj_val) <= TOL_OBJ * abs(want.obj_val)
 
 
 def test_info_surface(reference):
