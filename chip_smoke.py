@@ -76,19 +76,20 @@ Phases, in order; any failure exits non-zero:
 6. nonsymmetric paths, last (the profiler's sessions of ~10^5
    launches come after the kernel timing), each driven with the launch
    counters set to 0 just before it and read just after: BatchSolver
-   on problems.exp_logistic(4, 10, B, 5) (N = 104) at B = 4096 (staged, auto quorum 0.9), at B = 4096 with
-   batch_compaction=0.0 and at B = 256: every problem SOLVED or
-   ALMOST_SOLVED, under 10% ALMOST_SOLVED; the staged path against the
-   plain one and the first 8 problems of B = 4096 and of B = 256 against
-   the port's CPU solve, problem by problem: objectives within 1e-7
-   relative where both are SOLVED and 1e-4 otherwise, the problems whose
-   status or iterations differ counted (these problems' outcomes are
-   knife edges, ROADMAP F8); problems.genpow_family(8, 256, 9)
-   (N = 56): every problem SOLVED within 1e-6 relative of its analytic
-   optimum; Solver on the exp, pow and genpow goldens (the CPU's
-   iterations) and exp_logistic's problem 0 (within one iteration of
-   the CPU's): SOLVED, objective within 1e-7 of the CPU's and within
-   the goldens' 1e-3; then per path the loop passes, kernel launches
+   on problems.exp_logistic(4, 10, B, 5) (N = 104) at B = 4096 (staged,
+   auto quorum 0.9), at B = 4096 with batch_compaction=0.0 and at
+   B = 256: every problem SOLVED or ALMOST_SOLVED, at most 0.5%
+   ALMOST_SOLVED (the reference's own rate is 0.3%, ROADMAP F8); the
+   staged path and the B = 256 batch bit for bit with the plain B = 4096
+   batch, problem by problem (status, iterations, x, s, z); the first
+   8 problems against the port's CPU solve: the same status, objectives
+   within 1e-7 relative (iterations printed: the CPU's log, exp and sums
+   round otherwise, and these problems amplify rounding);
+   problems.genpow_family(8, 256, 9) (N = 56): every problem SOLVED
+   within 1e-6 relative of its analytic optimum; Solver on the exp, pow
+   and genpow goldens and exp_logistic's problem 0: SOLVED with the
+   CPU's iterations, objective within 1e-7 of the CPU's and within the
+   goldens' 1e-3; then per path the loop passes, kernel launches
    and host syncs per pass (torch.cuda's sync debug mode), iterations,
    the problems that ended under Dual scaling, warm problems/s over 5
    solves (median and spread) and the device busy and idle share of one
@@ -165,22 +166,19 @@ NONSYM_EXP = (("exp_B4096", 4096, {}), ("exp_B4096_plain", 4096,
 NONSYM_GENPOW_B = 256
 TOL_GENPOW = 1e-6     # genpow objective vs its analytic optimum, relative
 NONSYM_REPS = 5       # warm solves of each nonsymmetric batch path
-# exp_logistic's outcomes are knife edges: the iterates of two
-# computations that differ at rounding level part about tenfold an
-# iteration, so a problem may end SOLVED on one side and ALMOST_SOLVED
-# (the reduced tolerances) on the other, in another iteration count
-# (ROADMAP F8).  Held per problem: SOLVED or ALMOST_SOLVED; objectives
-# within 1e-7 relative where both sides are SOLVED (each is within the
-# 1e-8 gap tolerance) and 1e-4 where one is ALMOST_SOLVED (the 5e-5
-# reduced gap tolerance); the ALMOST_SOLVED share under 10% (6.2% at
-# B = 4096 on an H100 80GB HBM3 at 700 W, the reference's batch on a
-# CPU 0.3%);
-# statuses and iterations that differ are counted and printed.
+# exp_logistic's iterates part about tenfold an iteration once two
+# computations differ at rounding level.  On the card a problem's result
+# does not depend on the batch width (kernels per problem, width-free
+# products on nonsymmetric layouts), so the staged path and the B = 256
+# batch are held to the plain B = 4096 batch bit for bit.  The CPU
+# computes log, exp and sums in other orders: its solves are held to the
+# same status and objectives within TOL_OBJ, and their iterations are
+# printed, not compared.  A few problems end ALMOST_SOLVED in the
+# reference too: 3 of 1,000 in its "lu" batch on a CPU (seed 1000) and
+# 1 of 600 in its interpret-mode "pallas" batch (B = 300, seeds 5 and
+# 1000), so at most 0.5% may here (ROADMAP F8).
 NONSYM_OK = ("SOLVED", "ALMOST_SOLVED")
-TOL_NONSYM_SOLVED = 1e-7
-TOL_NONSYM_ALMOST = 1e-4
-ALMOST_SHARE_MAX = 0.10
-ITER_SLACK_SOLVER = 1  # Solver on exp_logistic: iterations vs the CPU's
+ALMOST_SHARE_MAX = 0.005
 
 REPLACES = {
     "ldl_factor": "cuclarabel_tpu/kkt/pallas_dd.py:1318",
@@ -872,31 +870,33 @@ NONSYM_GOLDEN_OBJ = {"exp": -54.41243965302268, "pow": -1.8458,
 TOL_GOLDEN = 1e-3     # the goldens' own bar (tests/test_basic_*.py)
 
 
-def compare_nonsym(card, what, got, want):
+def compare_nonsym(card, what, got, want, bitwise):
     """Two solves of the same exp_logistic problems, problem by problem:
-    both SOLVED or ALMOST_SOLVED, objectives within TOL_NONSYM_SOLVED
-    relative where both are SOLVED and TOL_NONSYM_ALMOST otherwise; the
-    problems whose statuses or iterations differ are counted."""
-    worst = {True: 0.0, False: 0.0}
-    n_status = n_iter = 0
+    the same status; with `bitwise`, the same iterations and x, s and z
+    to the bit, else objectives within TOL_OBJ relative and the problems
+    whose iterations differ counted."""
+    worst, n_iter = 0.0, 0
     for i, (g, w) in enumerate(zip(got, want)):
-        check(g.status.name in NONSYM_OK and w.status.name in NONSYM_OK,
+        check(g.status == w.status and g.status.name in NONSYM_OK,
               f"{what} problem {i}: {g.status.name}, {w.status.name}")
-        both = g.status.name == w.status.name == "SOLVED"
         err = abs(g.obj_val - w.obj_val) / abs(w.obj_val)
-        worst[both] = max(worst[both], err)
-        check(err <= (TOL_NONSYM_SOLVED if both else TOL_NONSYM_ALMOST),
-              f"{what} problem {i}: objective {err:.2e} relative "
-              f"({g.status.name}, {w.status.name})")
-        n_status += g.status != w.status
+        worst = max(worst, err)
         n_iter += g.iterations != w.iterations
-    print(f"[{card}] {what}: {len(got)} problems, objectives within "
-          f"{worst[True]:.3e} relative where both SOLVED and "
-          f"{worst[False]:.3e} otherwise; statuses differ in {n_status}, "
-          f"iterations in {n_iter}")
-    return {"problems": len(got), "status_differs": n_status,
-            "iterations_differ": n_iter, "obj_rel_solved": worst[True],
-            "obj_rel_other": worst[False]}
+        if bitwise:
+            check(g.iterations == w.iterations and all(
+                np.array_equal(getattr(g, f), getattr(w, f))
+                for f in ("x", "s", "z")),
+                  f"{what} problem {i}: {g.iterations} and {w.iterations} "
+                  "iterations, or x, s, z not bitwise equal")
+        else:
+            check(err <= TOL_OBJ, f"{what} problem {i}: objective "
+                  f"{err:.2e} relative (bar {TOL_OBJ:g})")
+    print(f"[{card}] {what}: {len(got)} problems, the same statuses, "
+          + ("bitwise equal" if bitwise else
+             f"objectives within {worst:.3e} relative, iterations differ "
+             f"in {n_iter}"))
+    return {"problems": len(got), "bitwise": bitwise,
+            "iterations_differ": n_iter, "obj_rel": worst}
 
 
 def phase_nonsym(card):
@@ -939,15 +939,18 @@ def phase_nonsym(card):
         paths[path] = launches
         runs[path] = (P, qs, A, bs, cones, solver, sols)
 
-    # staged against plain, and the first problems against the CPU
+    # staged and B = 256 against the plain B = 4096 batch, bit for bit,
+    # and the first problems against the CPU
+    plain = runs["exp_B4096_plain"][6]
     compare_nonsym(card, "exp_B4096 staged vs plain", runs["exp_B4096"][6],
-                   runs["exp_B4096_plain"][6])
-    for path in ("exp_B4096", "exp_B256"):
-        P, qs, A, bs, cones, _, sols = runs[path]
-        cpu = ct.BatchSolver(P, qs[:CPU_CHECK], A[:CPU_CHECK],
-                             bs[:CPU_CHECK], cones, device="cpu").solve()
-        compare_nonsym(card, f"{path} first {CPU_CHECK} vs the CPU",
-                       sols[:CPU_CHECK], cpu)
+                   plain, bitwise=True)
+    compare_nonsym(card, "exp_B256 vs the first 256 of exp_B4096_plain",
+                   runs["exp_B256"][6], plain[:256], bitwise=True)
+    P, qs, A, bs, cones, _, sols = runs["exp_B4096"]
+    cpu = ct.BatchSolver(P, qs[:CPU_CHECK], A[:CPU_CHECK], bs[:CPU_CHECK],
+                         cones, device="cpu").solve()
+    compare_nonsym(card, f"exp_B4096 first {CPU_CHECK} vs the CPU",
+                   sols[:CPU_CHECK], cpu, bitwise=False)
 
     P, qs, A, bs, cones, optima = genpow_family(8, NONSYM_GENPOW_B, 9)
 
@@ -981,8 +984,7 @@ def phase_nonsym(card):
         want = ct.Solver(*problems[name], device="cpu").solve()
         check(got.status == ct.SolverStatus.SOLVED,
               f"solver {name}: {got.status.name}")
-        slack = ITER_SLACK_SOLVER if name == "exp_logistic" else 0
-        check(abs(got.iterations - want.iterations) <= slack,
+        check(got.iterations == want.iterations,
               f"solver {name}: {got.iterations} iterations, CPU "
               f"{want.iterations}")
         err = abs(got.obj_val - want.obj_val) / abs(want.obj_val)

@@ -254,7 +254,7 @@ def combined_ds_shift(p, state, step_z, step_s, sigma_mu, shift):
     return shift.index_copy(1, p.exp_flat, vals.reshape(shift.shape[0], -1))
 
 
-def step_length(p, dz, ds, z, s, alpha, settings, live=None):
+def step_length(p, dz, ds, z, s, alpha, settings):
     zg, dzg = z[:, p.exp_idx], dz[:, p.exp_idx]
     sg, dsg = s[:, p.exp_idx], ds[:, p.exp_idx]
 
@@ -263,7 +263,7 @@ def step_length(p, dz, ds, z, s, alpha, settings, live=None):
         return (_is_dual_feasible(zg + a * dzg).all(dim=1)
                 & _is_primal_feasible(sg + a * dsg).all(dim=1))
 
-    return ns.backtrack_alpha(alpha, feasible, settings, live=live)
+    return ns.backtrack_alpha(alpha, feasible, settings)
 
 
 def compute_barrier(p, z, s, dz, ds, alpha):

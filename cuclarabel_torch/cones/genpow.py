@@ -79,7 +79,7 @@ def _barrier_dual(p, u, w):
     return torch.where(feas, val, ns.BIG)
 
 
-def _newton_raphson_genpow(p, norm_r, u, phi, live=None):
+def _newton_raphson_genpow(p, norm_r, u, phi):
     """Newton-Raphson for the primal gradient root
     (_newton_raphson_genpowcone, coneops_genpowcone.jl:437-472)."""
     a = p.gp_alpha
@@ -109,10 +109,10 @@ def _newton_raphson_genpow(p, norm_r, u, phi, live=None):
         return (-(2.0 * x + 2.0 / nrs) / quad
                 + torch.where(mask, t, 0.0).sum(dim=-1))
 
-    return ns.newton_raphson_onesided(x0, f0, f1, live=live)
+    return ns.newton_raphson_onesided(x0, f0, f1)
 
 
-def _gradient_primal(p, u, w, live=None):
+def _gradient_primal(p, u, w):
     """grad f(s) = (gp, gr), padded (gradient_primal!,
     coneops_genpowcone.jl:393-435)."""
     a = p.gp_alpha
@@ -121,8 +121,7 @@ def _gradient_primal(p, u, w, live=None):
     norm_r = torch.sqrt(_norm2w(p, w))
 
     big = norm_r > ns.F64EPS
-    g1 = _newton_raphson_genpow(p, torch.where(big, norm_r, 1.0), u, phi,
-                                live)
+    g1 = _newton_raphson_genpow(p, torch.where(big, norm_r, 1.0), u, phi)
     nrs = torch.where(norm_r > 0, norm_r, 1.0)
 
     gr = torch.where(big[..., None], g1[..., None] * w / nrs[..., None], 0.0)
@@ -132,11 +131,11 @@ def _gradient_primal(p, u, w, live=None):
     return gp, gr
 
 
-def _barrier_primal(p, u, w, live=None):
+def _barrier_primal(p, u, w):
     """f(s) = -f*(-g(s)) - deg (barrier_primal,
     coneops_genpowcone.jl:258-273)."""
     feas = _is_primal_feasible(p, u, w)
-    gp, gr = _gradient_primal(p, u, w, live)
+    gp, gr = _gradient_primal(p, u, w)
     val = -_barrier_dual(p, -gp, -gr) - p.gp_deg
     return torch.where(feas, val, ns.BIG)
 
@@ -268,7 +267,7 @@ def combined_ds_shift(p, state, sigma_mu, shift):
                         smu * state["gp_grad2"])
 
 
-def step_length(p, dz, ds, z, s, alpha, settings, live=None):
+def step_length(p, dz, ds, z, s, alpha, settings):
     zu, zw = _gather(p, z)
     dzu, dzw = _gather(p, dz)
     su, sw = _gather(p, s)
@@ -280,12 +279,12 @@ def step_length(p, dz, ds, z, s, alpha, settings, live=None):
                 & _is_primal_feasible(p, su + al * dsu,
                                       sw + al * dsw).all(dim=1))
 
-    return ns.backtrack_alpha(alpha, feasible, settings, live=live)
+    return ns.backtrack_alpha(alpha, feasible, settings)
 
 
-def compute_barrier(p, z, s, dz, ds, alpha, live=None):
+def compute_barrier(p, z, s, dz, ds, alpha):
     al = alpha[:, None]
     zu, zw = _gather(p, z + al * dz)
     su, sw = _gather(p, s + al * ds)
     return (_barrier_dual(p, zu, zw).sum(dim=1)
-            + _barrier_primal(p, su, sw, live).sum(dim=1))
+            + _barrier_primal(p, su, sw).sum(dim=1))

@@ -12,9 +12,7 @@ backtracking search, has an `active` flag and freezes once it stops; the
 loop runs while any flag is up and fewer than `max_iter` steps have run.
 That is what the reference's while_loop does under `vmap`: every lane
 steps until the last one stops, and a stopped lane keeps its carry.
-Reading "any flag up" is one host sync per step.  `live` (B,) starts
-the problems the caller has no use for (those already finished)
-inactive: their results are discarded, and they no longer hold the loop.
+Reading "any flag up" is one host sync per step.
 """
 
 import numpy as np
@@ -55,20 +53,12 @@ def solve_3x3_sym(H, b):
     return torch.stack([x1, x2, x3], dim=-1)
 
 
-def _flags(like, live):
-    """(B, ...) bool flags, up for the problems of `live` (all if None)."""
-    up = torch.ones_like(like, dtype=torch.bool)
-    if live is None:
-        return up
-    return up & live.view((-1,) + (1,) * (like.dim() - 1))
-
-
-def newton_raphson_onesided(x0, f0, f1, max_iter: int = 100, live=None):
+def newton_raphson_onesided(x0, f0, f1, max_iter: int = 100):
     """One-sided Newton-Raphson from x0 (B, k), left of the root with
     f0(x0) > 0; f0 and f1 map (B, k) -> (B, k).  Stops per cone when
     dx < eps, |dx/x| < sqrt(eps) or |f'| < eps."""
     x = x0
-    active = _flags(x0, live)
+    active = torch.ones_like(x0, dtype=torch.bool)
     for _ in range(max_iter):
         if not bool(active.any()):
             break
@@ -129,8 +119,7 @@ def primal_dual_scaling_3x3(s, z, st, zt, H):
     return torch.where(guard[..., None, None], Hs_pd, Hs_dual)
 
 
-def backtrack_alpha(alpha0, all_feasible_fn, settings, max_iter: int = 64,
-                    live=None):
+def backtrack_alpha(alpha0, all_feasible_fn, settings, max_iter: int = 64):
     """Backtrack one alpha per problem, alpha0 (B,), until all of that
     problem's cones are feasible (all_feasible_fn: (B,) -> (B,) bool;
     composite of backtrack_search, coneops_nonsymmetric_common.jl:5-34):
@@ -138,7 +127,7 @@ def backtrack_alpha(alpha0, all_feasible_fn, settings, max_iter: int = 64,
     step = settings.linesearch_backtrack_step
     amin = settings.min_terminate_step_length
     a = alpha0
-    done = ~_flags(alpha0, live)
+    done = torch.zeros_like(alpha0, dtype=torch.bool)
     for _ in range(max_iter):
         if bool(done.all()):
             break

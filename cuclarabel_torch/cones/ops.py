@@ -307,13 +307,11 @@ def set_identity_scaling(layout: ConeLayout, batch: int, device):
     return state
 
 
-def update_scaling(layout: ConeLayout, s, z, mu, scaling_flag, live=None):
+def update_scaling(layout: ConeLayout, s, z, mu, scaling_flag):
     """Update all cone scalings at the current iterate.  Returns
     (state, ok) with ok (B,) bool; parity with update_scaling!
     (coneops_compositecone.jl:103-120).  mu and scaling_flag (per
-    problem, or one for all) matter only to nonsymmetric cones; `live`
-    (B,) marks the problems whose result is wanted (None: all), which
-    alone hold the power cones' Newton solves."""
+    problem, or one for all) matter only to nonsymmetric cones."""
     p = plan(layout, s.device)
     state = {}
     ok = torch.ones(s.shape[0], dtype=torch.bool, device=s.device)
@@ -375,7 +373,7 @@ def update_scaling(layout: ConeLayout, s, z, mu, scaling_flag, live=None):
         state.update(st)
         ok = ok & oke
     if layout.has_pow:
-        st, okp = powcone.update_scaling(p, s, z, mu, flag, live)
+        st, okp = powcone.update_scaling(p, s, z, mu, flag)
         state.update(st)
         ok = ok & okp
     if layout.has_genpow:
@@ -629,13 +627,11 @@ def _soc_step_limit(layout, x, dx, amax):
                                               device=x.device))
 
 
-def step_length(layout: ConeLayout, state, dz, ds, z, s, alpha_max, settings,
-                live=None):
+def step_length(layout: ConeLayout, state, dz, ds, z, s, alpha_max, settings):
     """Max feasible step in all cones, per problem
     (coneops_compositecone.jl:205-243).  alpha_max: (B,).  Symmetric
     cones first; with nonsymmetric cones, back off to 1 - sqrt(eps) and
-    run their backtracking searches, one alpha per problem, held only by
-    the problems of `live` (B,) (None: all)."""
+    run their backtracking searches, one alpha per problem."""
     alpha = alpha_max
     if layout.has_nn:
         alpha = torch.minimum(alpha, _nn_step_limit(layout, z, dz, alpha_max))
@@ -647,21 +643,17 @@ def step_length(layout: ConeLayout, state, dz, ds, z, s, alpha_max, settings,
         p = plan(layout, z.device)
         alpha = torch.clamp(_per_problem(alpha, z), max=1.0 - np.sqrt(EPS))
         if layout.has_exp:
-            alpha = expcone.step_length(p, dz, ds, z, s, alpha, settings,
-                                        live)
+            alpha = expcone.step_length(p, dz, ds, z, s, alpha, settings)
         if layout.has_pow:
-            alpha = powcone.step_length(p, dz, ds, z, s, alpha, settings,
-                                        live)
+            alpha = powcone.step_length(p, dz, ds, z, s, alpha, settings)
         if layout.has_genpow:
-            alpha = gpcone.step_length(p, dz, ds, z, s, alpha, settings,
-                                       live)
+            alpha = gpcone.step_length(p, dz, ds, z, s, alpha, settings)
     return alpha
 
 
-def compute_barrier(layout: ConeLayout, z, s, dz, ds, alpha, live=None):
+def compute_barrier(layout: ConeLayout, z, s, dz, ds, alpha):
     """Total barrier at (z + alpha dz, s + alpha ds) per problem, alpha
-    (B,) (coneops_compositecone.jl:246-265); `live` as in
-    step_length."""
+    (B,) (coneops_compositecone.jl:246-265)."""
     p = plan(layout, z.device)
     a = alpha[:, None]
     si = s + a * ds
@@ -679,9 +671,7 @@ def compute_barrier(layout: ConeLayout, z, s, dz, ds, alpha, live=None):
     if layout.has_exp:
         barrier = barrier + expcone.compute_barrier(p, z, s, dz, ds, alpha)
     if layout.has_pow:
-        barrier = barrier + powcone.compute_barrier(p, z, s, dz, ds, alpha,
-                                                    live)
+        barrier = barrier + powcone.compute_barrier(p, z, s, dz, ds, alpha)
     if layout.has_genpow:
-        barrier = barrier + gpcone.compute_barrier(p, z, s, dz, ds, alpha,
-                                                   live)
+        barrier = barrier + gpcone.compute_barrier(p, z, s, dz, ds, alpha)
     return barrier

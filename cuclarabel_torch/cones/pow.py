@@ -60,7 +60,7 @@ def _dual_grad_H(z, a):
     return torch.stack([g1, g2, g3], dim=-1), H
 
 
-def _newton_raphson_powcone(s3, phi, a, live=None):
+def _newton_raphson_powcone(s3, phi, a):
     """Newton-Raphson for the primal-gradient root
     (_newton_raphson_powcone, coneops_powcone.jl:449-478), s3 = |s3|."""
     s3s = torch.where(s3 > 0, s3, 1.0)
@@ -93,10 +93,10 @@ def _newton_raphson_powcone(s3, phi, a, live=None):
         return (2.0 * a * a / d1 + 2.0 * (1.0 - a) * (1.0 - a) / d2
                 - 2.0 * (x + 1.0 / s3s) / d3)
 
-    return ns.newton_raphson_onesided(x0, f0, f1, live=live)
+    return ns.newton_raphson_onesided(x0, f0, f1)
 
 
-def _gradient_primal(s, a, live=None):
+def _gradient_primal(s, a):
     """grad f(s) through a Newton solve for g3
     (gradient_primal, coneops_powcone.jl:288-312)."""
     s1, s2, s3 = s[..., 0], s[..., 1], s[..., 2]
@@ -106,8 +106,7 @@ def _gradient_primal(s, a, live=None):
 
     abs_s3 = s3.abs()
     big = abs_s3 > ns.F64EPS
-    g3_pos = _newton_raphson_powcone(torch.where(big, abs_s3, 1.0), phi, a,
-                                     live)
+    g3_pos = _newton_raphson_powcone(torch.where(big, abs_s3, 1.0), phi, a)
     g3 = torch.where(big, torch.sign(s3) * g3_pos, 0.0)
     g1 = torch.where(big, -(a * g3 * s3 + 1.0 + a) / s1s, -(1.0 + a) / s1s)
     g2 = torch.where(big, -((1.0 - a) * g3 * s3 + 2.0 - a) / s2s,
@@ -138,10 +137,10 @@ def _barrier_dual(z, a):
     return torch.where(feas, val, ns.BIG)
 
 
-def _barrier_primal(s, a, live=None):
+def _barrier_primal(s, a):
     """f(s) = -f*(-g(s)) - 3 (coneops_powcone.jl:236-248)."""
     feas = _is_primal_feasible(s, a)
-    mg = -_gradient_primal(s, a, live)
+    mg = -_gradient_primal(s, a)
     val = (logsafe(_phi_dual(mg, a) - mg[..., 2] * mg[..., 2])
            + (1.0 - a) * logsafe(mg[..., 0])
            + a * logsafe(mg[..., 1])
@@ -221,14 +220,14 @@ def zero_scaling(p, batch):
             "pow_z": z3}
 
 
-def update_scaling(p, s, z, mu, scaling_flag, live=None):
+def update_scaling(p, s, z, mu, scaling_flag):
     a = p.pow_alpha
     zg = z[:, p.pow_idx]
     sg = s[:, p.pow_idx]
     grad, H = _dual_grad_H(zg, a)
 
     Hs_dual = mu[:, None, None, None] * H
-    zt = _gradient_primal(sg, a, live)
+    zt = _gradient_primal(sg, a)
     Hs_pd = ns.primal_dual_scaling_3x3(sg, zg, grad, zt, H)
     Hs = torch.where((scaling_flag == DUAL_ONLY)[:, None, None, None],
                      Hs_dual, Hs_pd)
@@ -258,7 +257,7 @@ def combined_ds_shift(p, state, step_z, step_s, sigma_mu, shift):
     return shift.index_copy(1, p.pow_flat, vals.reshape(shift.shape[0], -1))
 
 
-def step_length(p, dz, ds, z, s, alpha, settings, live=None):
+def step_length(p, dz, ds, z, s, alpha, settings):
     a = p.pow_alpha
     zg, dzg = z[:, p.pow_idx], dz[:, p.pow_idx]
     sg, dsg = s[:, p.pow_idx], ds[:, p.pow_idx]
@@ -268,13 +267,13 @@ def step_length(p, dz, ds, z, s, alpha, settings, live=None):
         return (_is_dual_feasible(zg + al * dzg, a).all(dim=1)
                 & _is_primal_feasible(sg + al * dsg, a).all(dim=1))
 
-    return ns.backtrack_alpha(alpha, feasible, settings, live=live)
+    return ns.backtrack_alpha(alpha, feasible, settings)
 
 
-def compute_barrier(p, z, s, dz, ds, alpha, live=None):
+def compute_barrier(p, z, s, dz, ds, alpha):
     a = p.pow_alpha
     al = alpha[:, None]
     zg = (z + al * dz)[:, p.pow_idx]
     sg = (s + al * ds)[:, p.pow_idx]
     return (_barrier_dual(zg, a).sum(dim=1)
-            + _barrier_primal(sg, a, live).sum(dim=1))
+            + _barrier_primal(sg, a).sum(dim=1))

@@ -202,7 +202,11 @@ __device__ void warp_absmax(const double (&v)[S][R], int n,
 // (96 < N <= 128); its other bodies compute the same function under
 // other TPU schedules.  The JAX kernels eliminate pivot pairs; this one
 // eliminates one pivot per step, so the rounding differs and the factor
-// is the same.
+// is the same.  One departure: a pivot that cancels to exactly zero
+// takes its row's regularization reg[j] (ldl_core.cuh::factor_strip).
+// The reference has no such guard; its double-float rounding leaves
+// such a pivot a tiny nonzero, where f64 gives exactly zero and an
+// infinite D^-1 that fails the whole solve.
 //
 // Bound: reads K's lower triangle and reg, writes L's strict lower
 // triangle, D^-1 and ok: about 0.19 GB at (76, 4096), 0.058 ms at

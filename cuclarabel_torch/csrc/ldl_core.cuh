@@ -439,8 +439,12 @@ __device__ inline int strip_warp() {
 // take part.  A pivot that cancels to exactly zero takes its row's
 // regularization reg[j] instead (reg nullptr: it stays zero); lane p
 // holds reg[j0 + p] and substitutes it in its own lane, before the
-// pivot's shuffle.  Returns `finite` and whether every D^-1 of the panel
-// is finite, in every lane.
+// pivot's shuffle.  The guard goes beyond the reference's factor, which
+// has none: its double-float rounding leaves such a pivot a tiny nonzero
+// (a very large D^-1, not 1 / reg[j]), where f64 gives exactly zero and
+// D^-1 = inf, which fails the solve.  Only an exact zero is replaced.
+// Returns `finite` and whether every D^-1 of the panel is finite, in
+// every lane.
 template <class T, int S>
 __device__ bool factor_strip(T* sm, const FactorLayout<T>& f,
                              const T* __restrict__ reg, int j0, int w,

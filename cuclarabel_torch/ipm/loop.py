@@ -85,6 +85,13 @@ def _bmv(M, v):
     return torch.bmm(M, v.unsqueeze(2)).squeeze(2)
 
 
+def _rowdot(M, v):
+    """M v as each row's products summed: unlike a batched cuBLAS
+    product's, its per-problem rounding does not depend on the batch
+    width, which stage 2 of a compacted solve changes."""
+    return (M * v[:, None, :]).sum(dim=2)
+
+
 def _vdot(u, v):
     return (u * v).sum(dim=1)
 
@@ -149,6 +156,12 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
         normq, normb = dev["normq"], dev["normb"]
         B = q.shape[0]
         AT = A.transpose(1, 2)
+        # exp-cone iterates amplify a rounding difference about tenfold
+        # an iteration, so nonsymmetric layouts take the products whose
+        # rounding is the same at every batch width
+        mv = _bmv
+        if not sym:
+            AT, mv = AT.contiguous(), _rowdot
 
         def full(v):
             return torch.full((B,), v, dtype=torch.float64, device=q.device)
@@ -159,7 +172,7 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
 
         if has_P:
             def Pmv(v):
-                return _bmv(P, v)
+                return mv(P, v)
 
             def quad(u, v):
                 return _vdot(u, Pmv(v))
@@ -179,8 +192,8 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
             bz = _vdot(b, z_)
             sz = _vdot(s_, z_)
             xPx = _vdot(x, Px)
-            rx_inf = -_bmv(AT, z_)
-            rz_inf = _bmv(A, x) + s_
+            rx_inf = -mv(AT, z_)
+            rz_inf = mv(A, x) + s_
             return {
                 "rx": rx_inf - Px - q * tau[:, None],
                 "rz": rz_inf - b * tau[:, None],
@@ -358,26 +371,24 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
             return cone_ops.assemble_Hs_dense(layout, scal)
 
         # -------------------- step length (variables.jl:14-43)
-        def get_step_length(v, step, scal, scaling, live, combined: bool):
+        def get_step_length(v, step, scal, scaling, combined: bool):
             atau = torch.where(step["tau"] < 0, -v["tau"] / step["tau"], FMAX)
             akappa = torch.where(step["kappa"] < 0,
                                  -v["kappa"] / step["kappa"], FMAX)
             amax = torch.clamp(torch.minimum(atau, akappa), max=1.0)
             alpha = cone_ops.step_length(
-                layout, scal, step["z"], step["s"], v["z"], v["s"], amax, st,
-                live)
+                layout, scal, step["z"], step["s"], v["z"], v["s"], amax, st)
             if combined:
                 alpha = alpha * st.max_step_fraction
                 if not sym:
                     # barrier backtrack for Dual-scaled nonsymmetric
                     # steps (solver.jl:407-442)
-                    dual = scaling == DUAL_ONLY
-                    alpha = torch.where(
-                        dual, backtrack_barrier(v, step, alpha, live & dual),
-                        alpha)
+                    alpha = torch.where(scaling == DUAL_ONLY,
+                                        backtrack_barrier(v, step, alpha),
+                                        alpha)
             return alpha
 
-        def full_barrier(v, step, alpha, live):
+        def full_barrier(v, step, alpha):
             """variables_barrier (variables.jl:46-72), per problem."""
             a = alpha[:, None]
             cur_tau = v["tau"] + alpha * step["tau"]
@@ -388,19 +399,18 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
                        - cone_ops._logsafe(cur_tau)
                        - cone_ops._logsafe(cur_kappa))
             return barrier + cone_ops.compute_barrier(
-                layout, v["z"], v["s"], step["z"], step["s"], alpha, live)
+                layout, v["z"], v["s"], step["z"], step["s"], alpha)
 
-        def backtrack_barrier(v, step, alpha0, live):
+        def backtrack_barrier(v, step, alpha0):
             """Shrink alpha by the backtrack step until the barrier is
             below 1, at most 50 times, per problem (reference
-            loop.py:444-456); the problems of `live` hold the loop, one
-            host sync per step."""
+            loop.py:444-456); one host sync per step."""
             a = alpha0
-            done = ~live
+            done = torch.zeros_like(alpha0, dtype=torch.bool)
             for _ in range(50):
                 if bool(done.all()):
                     break
-                ok = full_barrier(v, step, a, ~done) < 1.0
+                ok = full_barrier(v, step, a) < 1.0
                 a = torch.where(done | ok, a, st.linesearch_backtrack_step * a)
                 done = done | ok
             return a
@@ -476,10 +486,9 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
 
         t_start = dev.get("t_start", time.time())
 
-        def loop_body(s_, live):
-            """One pass; `live` (B,) marks the problems whose result the
-            pass commits, which alone hold the nonsymmetric cones' masked
-            loops (Newton solves and backtracking searches)."""
+        def loop_body(s_):
+            """One pass, for every problem; the caller commits it where
+            the problem is still unsolved."""
             v = s_["vars"]
             scaling = s_["scaling"]
 
@@ -514,7 +523,7 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
 
             # --- cone scaling update
             scal, scale_ok = cone_ops.update_scaling(layout, v["s"], v["z"],
-                                                     mu, scaling, live)
+                                                     mu, scaling)
             status = torch.where(proceed & ~scale_ok,
                                  int(S.NUMERICAL_ERROR), status)
             proceed = proceed & scale_ok
@@ -545,7 +554,7 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
                 fac, x2, z2, v, scal, rhs_aff, True, presolved=presolved_aff)
             kkt_ok = kkt_ok & oka
 
-            alpha_aff = get_step_length(v, step_aff, scal, scaling, live,
+            alpha_aff = get_step_length(v, step_aff, scal, scaling,
                                         combined=False)
             sigma = (1.0 - alpha_aff) ** 3  # Mehrotra (solver.jl:446-449)
             # reduced correction on the first iteration
@@ -573,7 +582,7 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
             # --- Gondzio multiple centrality correctors (optional; no
             # reference counterpart, reference loop.py:720-770)
             if n_corr > 0:
-                alpha_cc = get_step_length(v, step_comb, scal, scaling, live,
+                alpha_cc = get_step_length(v, step_comb, scal, scaling,
                                            combined=True)
                 for _ in range(n_corr):
                     abar = torch.clamp(1.08 * alpha_cc + 0.08, max=1.0)
@@ -592,7 +601,7 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
                     step_try, okt, nir_t = kkt_step(
                         fac, x2, z2, v, scal, rhs_try, False)
                     alpha_try = get_step_length(v, step_try, scal, scaling,
-                                                live, combined=True)
+                                                combined=True)
                     accept = okt & (
                         alpha_try >= alpha_cc + 0.1 * (abar - alpha_cc))
                     step_comb = where_tree(accept, step_try, step_comb)
@@ -616,7 +625,7 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
                 alpha = alpha_cc
             else:
                 alpha = get_step_length(v, step_comb, scal, scaling,
-                                        live & active, combined=True)
+                                        combined=True)
             if not sym:
                 # a small PrimalDual step retries under Dual, uncommitted
                 small_switch = (active & (scaling == PRIMAL_DUAL)
@@ -726,7 +735,7 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
             }
 
         def loop_pass(state, unsolved):
-            return where_tree(unsolved, loop_body(state, unsolved), state)
+            return where_tree(unsolved, loop_body(state), state)
 
         return make_state0, loop_pass, post
 

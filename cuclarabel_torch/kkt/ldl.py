@@ -58,7 +58,9 @@ def _factor(K, reg):
     """Plain pivot-free LDL^T of K + diag(reg) (reg None: of K), in K's
     dtype.  Reads K's lower triangle.  A pivot that cancels to exactly
     zero takes its row's regularization reg[j] instead (without reg it
-    stays zero, and D^-1 is not finite)."""
+    stays zero, and D^-1 is not finite).  The reference's factor has no
+    such guard: its double-float rounding leaves such a pivot a tiny
+    nonzero (a very large D^-1), where f64 gives exactly zero."""
     B, N, _ = K.shape
     A = _sym_from_lower(K)
     if reg is not None:

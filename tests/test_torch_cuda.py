@@ -280,24 +280,21 @@ def test_factor_zero_pivot_takes_the_regularization(dev, N):
 
 def test_nonsymmetric_batches_on_card_match_cpu(dev):
     """exp_logistic (N = 104) and the genpow family (N = 56) on the card
-    against the same batches on the CPU."""
+    against the same batches on the CPU: the same statuses, objectives
+    within 1e-7 relative (the iterations may differ: the CPU rounds log,
+    exp and sums otherwise, and exp_logistic amplifies rounding)."""
     import cuclarabel_torch as ct
     from cuclarabel_torch.kkt import ldl
     from cuclarabel_torch.problems import exp_logistic, genpow_family
 
-    ok = (ct.SolverStatus.SOLVED, ct.SolverStatus.ALMOST_SOLVED)
     for data in (exp_logistic(4, 10, 6, 5), genpow_family(8, 6, 9)[:5]):
         ldl.reset_counts()
         gpu = ct.BatchSolver(*data).solve()
         assert not ldl.PLAIN_CALLS and ldl.LAUNCHES["ldl_factor/r1"] > 0
         cpu = ct.BatchSolver(*data, device="cpu").solve()
         for g, c in zip(gpu, cpu):
-            # exp_logistic's ends are knife edges (ROADMAP F8): SOLVED
-            # on one side may be ALMOST_SOLVED on the other
-            assert g.status in ok and c.status in ok
-            both = g.status == c.status == ct.SolverStatus.SOLVED
-            tol = 1e-7 if both else 1e-4
-            assert abs(g.obj_val - c.obj_val) <= tol * abs(c.obj_val)
+            assert g.status == c.status == ct.SolverStatus.SOLVED
+            assert abs(g.obj_val - c.obj_val) <= 1e-7 * abs(c.obj_val)
 
 
 def test_batch_solver_on_card_matches_cpu(dev):

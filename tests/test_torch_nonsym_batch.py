@@ -6,7 +6,8 @@ and single pipelines equilibrate differently (device against host), so
 they are held to solution quality, not to one iterate path.
 
 Also: the per-problem strategy ladder on the divergence batch of
-test_batch_strategy_divergence (raw["scaling"] == [0, 1, 0]), staged
+test_batch_strategy_divergence and on a second one, against the
+reference's BatchSolver under "lu" and under "pallas", staged
 compaction against the plain loop on an exp batch, the generalised-power
 family against its analytic optima, and the warm portfolio re-solve of
 ROADMAP F7."""
@@ -89,18 +90,22 @@ def test_batch_pow_genpow_matches_single():
 
 # the divergence batches: (hard q, hard b) of the middle problem
 DIVERGENCE = {
-    # tests/test_batch_sharding.py::test_batch_strategy_divergence; its
-    # middle problem downgrades under the reference's f32-shadow Ruiz
-    # equilibration only: the reference's single solve keeps PrimalDual,
-    # and so does the port's f64 device equilibration
+    # tests/test_batch_sharding.py::test_batch_strategy_divergence
     "reference": ([-213308.78098860086, 0.0, 0.003037962766862291],
                   [0.002042543869636034, 0.4080186873038148, 0.0, 0.0, 0.0]),
     # found by a scripted search: the middle problem downgrades in both
-    # batch pipelines, the reference's and the port's (and in the port's
-    # single solve)
+    # "lu" batch pipelines, the reference's and the port's
     "both": ([-109468.48966924052, 0.0, 0.010913989360765855],
              [0.011054918313718708, 1.530757394634138, 0.0, 0.0, 0.0]),
 }
+# terminal strategies of the port's BatchSolver under "lu" (under
+# "pallas" they equal the reference's "pallas" ones, [0, 0, 0])
+PORT_LU = {"reference": [0, 0, 0], "both": [0, 1, 0]}
+
+
+def _strategies(solver):
+    solver.solve()
+    return np.asarray(solver.raw["scaling"]).tolist()
 
 
 @pytest.mark.parametrize("batch", sorted(DIVERGENCE))
@@ -108,11 +113,18 @@ def test_batch_strategy_divergence(batch):
     """tests/test_batch_sharding.py::test_batch_strategy_divergence on the
     port: problems whose scaling strategies diverge, the middle one
     downgrading PrimalDual -> Dual through the ladder while its
-    neighbours keep PrimalDual; each problem's terminal strategy equals
-    that of the reference's BatchSolver where the downgrade is not a
-    knife edge of the reference's equilibration, and every problem
-    solves within 1e-6 of its single reference solve.  A ladder that
-    reduced over the batch would downgrade all three or none."""
+    neighbours keep PrimalDual.
+
+    The reference's BatchSolver ends [0, 1, 0] under "lu", its CPU
+    method, as its test asserts; but that downgrade is a knife edge of
+    its "lu" arithmetic: the middle problem alone (B = 1) keeps
+    PrimalDual there, and under "pallas", the method the port's default
+    ports, the reference's batch ends [0, 0, 0].  The port's "pallas"
+    batch ends as the reference's "pallas" batch, and its "lu" batch
+    ends [0, 1, 0] on the second batch, as the reference's does; there a
+    ladder that reduced over the batch would downgrade all three or
+    none.  Every problem solves within 1e-6 of its single reference
+    solve."""
     A = np.vstack([np.array([[0.0, 1.0, 0.0]]),
                    np.array([[0.0, 0.0, 1.0]]), -np.eye(3)])
     easy_q = np.array([-1.0, 0.0, 0.5])
@@ -120,23 +132,26 @@ def test_batch_strategy_divergence(batch):
     hard_q, hard_b = (np.array(v) for v in DIVERGENCE[batch])
     qs = np.stack([easy_q, hard_q, easy_q])
     bs = np.stack([easy_b, hard_b, easy_b])
-    solver = ct.BatchSolver(None, qs, A, bs,
-                            [ct.ZeroConeT(1), ct.NonnegativeConeT(1),
-                             ct.ExponentialConeT()], device="cpu")
-    sols = solver.solve()
     rcones = [cc.ZeroConeT(1), cc.NonnegativeConeT(1), cc.ExponentialConeT()]
-    strat = solver.raw["scaling"].tolist()
-    if batch == "both":
-        ref = RefBatchSolver(None, qs, A, bs, rcones)
-        ref.solve()
-        assert strat == np.asarray(ref.raw["scaling"]).tolist() == [0, 1, 0]
-    else:
-        assert strat[0] == strat[2] == 0
-    for i, s in enumerate(sols):
-        ref = _single(qs, A, bs, rcones, i)
-        assert s.status == ct.SolverStatus.SOLVED, (i, s.status)
-        rel = abs(s.obj_val - ref.obj_val) / max(1.0, abs(ref.obj_val))
-        assert rel < 1e-6, (i, s.obj_val, ref.obj_val)
+    pcones = [ct.ZeroConeT(1), ct.NonnegativeConeT(1), ct.ExponentialConeT()]
+
+    assert _strategies(RefBatchSolver(None, qs, A, bs, rcones,
+                                      kkt_solve_method="lu")) == [0, 1, 0]
+    assert _strategies(RefBatchSolver(None, qs[1:2], A, bs[1:2], rcones,
+                                      kkt_solve_method="lu")) == [0]
+    ref_pallas = _strategies(RefBatchSolver(None, qs, A, bs, rcones,
+                                            kkt_solve_method="pallas"))
+    assert ref_pallas == [0, 0, 0]
+    for method, want in (("pallas", ref_pallas), ("lu", PORT_LU[batch])):
+        solver = ct.BatchSolver(None, qs, A, bs, pcones, device="cpu",
+                                kkt_solve_method=method)
+        sols = solver.solve()
+        assert solver.raw["scaling"].tolist() == want, method
+        for i, s in enumerate(sols):
+            ref = _single(qs, A, bs, rcones, i)
+            assert s.status == ct.SolverStatus.SOLVED, (method, i, s.status)
+            rel = abs(s.obj_val - ref.obj_val) / max(1.0, abs(ref.obj_val))
+            assert rel < 1e-6, (method, i, s.obj_val, ref.obj_val)
 
 
 def test_exp_logistic_batch_matches_single():
@@ -151,6 +166,18 @@ def test_exp_logistic_batch_matches_single():
         assert ref.status == cc.SolverStatus.SOLVED
         rel = abs(s.obj_val - ref.obj_val) / abs(ref.obj_val)
         assert rel < 1e-6, (i, s.obj_val, ref.obj_val)
+
+
+def test_exp_logistic_batch_ends_solved():
+    """ROADMAP F8: 100 exp_logistic problems (seed 1000) under "pallas"
+    all end SOLVED, as in the reference's "pallas" batch (none of 300
+    ALMOST_SOLVED there).  With the refinement held to the unregularised
+    K instead (`python -m tests.torch_f8_rates port-pallas 100 1000
+    --unregularised`), 4 of these 100 end ALMOST_SOLVED."""
+    P, qs, A, bs, cones = exp_logistic(4, 10, 100, 1000)
+    sols = ct.BatchSolver(P, qs, A, bs, cones, device="cpu").solve()
+    assert [i for i, s in enumerate(sols)
+            if s.status != ct.SolverStatus.SOLVED] == []
 
 
 def test_genpow_family_optima():
@@ -178,6 +205,8 @@ def test_staged_compaction_matches_plain(method):
         assert g.status == w.status
         assert g.iterations == w.iterations
         assert abs(g.obj_val - w.obj_val) <= 1e-9 * max(1.0, abs(w.obj_val))
+        if method == "pallas":  # per-problem arithmetic throughout
+            np.testing.assert_array_equal(g.x, w.x)
     assert staged.raw["scaling"].tolist() == plain.raw["scaling"].tolist()
 
 

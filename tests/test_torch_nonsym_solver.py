@@ -7,13 +7,15 @@ tests/test_basic_pow.py (pow and genpow), and problem 0 of
 
 Under kkt_solve_method="lu" on both sides: the same status, iterations
 and terminal scaling strategy, and the same iterates to 1e-9 after four
-iterations.  The final objectives are held to 1e-8 relative and x is not
-compared: these problems amplify rounding from one iteration to the
-next, so the last iterate of a solve moves with the last bit of its
-data.  The reference itself, given q with one entry moved by one ulp,
-ends 6.7e-10 (pow), 8.9e-10 (exp) and 2.7e-10 (exp_logistic) apart in
-objective and 3.8e-5, 4.9e-5 and 1.6e-3 apart in x; the port under "lu"
-ends 3.0e-9, 5.3e-10 and 3.4e-10 apart from the reference in objective.
+iterations.  The final objectives are held to 1e-8 relative and the
+final x to five times the reference's own spread: these problems
+amplify rounding from one iteration to the next, so the last iterate of
+a solve moves with the last bit of its data.  The reference itself,
+given q with one entry moved by one ulp, ends 6.7e-10 (pow), 8.9e-10
+(exp) and 2.7e-10 (exp_logistic) apart in objective and up to 1.6e-4,
+9.5e-5, 4.6e-3 and 1.1e-9 (genpow) apart in x; the port under "lu" ends
+3.0e-9, 5.3e-10 and 3.4e-10 apart from the reference in objective and
+1.3e-4, 8.6e-5, 3.7e-3 and 4.8e-10 in x.
 Under the defaults (the port's "pallas", its plain LDL^T on the CPU)
 against the reference's interpret-mode "pallas" (basic_exp, N = 14):
 iterations within one, objective within 1e-8 relative."""
@@ -31,6 +33,8 @@ from tests.test_basic_pow import basic_genpow_data, basic_pow_data
 TOL_OBJ = 1e-8
 TOL_PATH = 1e-9
 PATH_ITERS = 4
+X_SPREADS = 5.0    # final x vs the reference: this many times its spread
+ULP_MOVES = 3      # one-ulp moves of q that measure the spread
 
 
 def _exp_logistic():
@@ -75,6 +79,19 @@ def _rel(a, b):
     return abs(a - b) / max(1.0, abs(b))
 
 
+def _x_spread(name, want):
+    """The largest move of the reference's final x when one nonzero
+    entry of q moves by one ulp, over the first ULP_MOVES of them."""
+    P, q, A, b, cones = _data(name)
+    spread = 0.0
+    for j in np.flatnonzero(q)[:ULP_MOVES]:
+        q1 = q.copy()
+        q1[j] = np.nextafter(q[j], np.inf)
+        moved = cc.Solver(P, q1, A, b, cones, kkt_solve_method="lu").solve()
+        spread = max(spread, float(np.abs(moved.x - want.x).max()))
+    return spread
+
+
 @pytest.mark.parametrize("name", sorted(PROBLEMS))
 def test_lu_matches_reference(reference, name):
     want, want_scaling = reference[name]
@@ -84,6 +101,9 @@ def test_lu_matches_reference(reference, name):
     assert got.iterations == want.iterations
     assert int(solver.get_info()["scaling"]) == int(want_scaling)
     assert _rel(got.obj_val, want.obj_val) < TOL_OBJ
+    spread = _x_spread(name, want)
+    assert spread > 0.0
+    assert np.abs(got.x - want.x).max() <= X_SPREADS * spread
 
 
 @pytest.mark.parametrize("name", sorted(PROBLEMS))

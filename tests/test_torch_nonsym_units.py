@@ -247,17 +247,17 @@ def test_exp_pd_scaling(B, k):
 
 def test_newton_and_backtrack_are_per_problem():
     """The masked loops freeze each (problem, cone) on its own: problem 1
-    holds nothing of problem 0's step count, and a problem outside
-    `live` is left as it came."""
+    holds nothing of problem 0's step count, so each row's result is the
+    one it gets alone."""
     f0 = lambda x: 1.0 / x - 0.5  # noqa: E731  (convex, root 2)
     f1 = lambda x: -1.0 / (x * x)  # noqa: E731
     x0 = _t([[0.5, 1.0], [1.9, 1.99]])
     x = ns.newton_raphson_onesided(x0, f0, f1)
     # the last step, below sqrt(eps) relative, is not taken
     np.testing.assert_allclose(x.numpy(), 2.0, rtol=1e-7)
-    x = ns.newton_raphson_onesided(x0, f0, f1, live=torch.tensor([True,
-                                                                  False]))
-    assert torch.equal(x[1], x0[1])
+    for i in range(2):
+        assert torch.equal(ns.newton_raphson_onesided(x0[i:i + 1], f0, f1),
+                           x[i:i + 1])
     st = Settings()
     a = ns.backtrack_alpha(_t([1.0, 1.0, 1.0]),
                            lambda a: a <= _t([1.0, 0.5, 1e-20]), st)
