@@ -48,7 +48,8 @@ Phases, in order; any failure exits non-zero:
      at B = 1) and nass = 64 (N = 148, "lu"): every problem SOLVED with
      the objective and iteration count of Solver(..., device="cpu");
      then an update_q with a warm-started re-solve, and one verbose
-     solve whose table is printed; then the same problems under
+     solve whose table is printed (first, repeat and warm-started solve
+     ms of the N = 76 problem); then the same problems under
      kkt_solve_method "qr" and "inverse" (library calls, no kernel):
      SOLVED, the objective within 1e-7 relative of "lu" on the card, the
      CPU's iterations; and profile_phases() of the N = 76 Solver;
@@ -57,12 +58,7 @@ Phases, in order; any failure exits non-zero:
      cuclarabel_torch.probes.mosaic_probe at (83, 4096) and
      mosaic_probe2 (device time, bound, share of the issue rate, and for
      P2 ptxas' registers and spills), then each plain version's time;
-5. timing: warm problems/s, iterations and refinement passes of the
-   batch at B = 256, and at B = 4096 staged and plain in turns (5 warm
-   solves each: median and spread, and the device busy ms of one
-   profiled warm solve of each); first, repeat and warm-started solve ms
-   of the N = 76 Solver problem; each f64 kernel form (R = 1 and 2) at
-   N = 76 and B = 4096,
+5. timing: each f64 kernel form (R = 1 and 2) at N = 76 and B = 4096,
    256 and 1, and K1-K4 (R = 1) at N = 104 and B = 4096 and 1
    (cuclarabel_torch.kernel_timing: device time, CUDA events
    at B = 4096, resident blocks and warps per SM, ptxas' registers and
@@ -70,8 +66,14 @@ Phases, in order; any failure exits non-zero:
    plain version's time and, where one PyTorch call computes the same
    function, that call's time; the f32 kernels at (76, 4096), and the
    f64 factor and substitution on the f32 K, by device time.  A kernel's
-   `ms` is its device time per launch (torch.profiler); plain and
-   library times are CUDA events around the call.
+   `ms` is its device time per launch (torch.profiler, or CUDA events
+   around each launch where the profiler dropped its launches:
+   `timed_by`); plain and library times are CUDA events around the
+   call.  Then warm problems/s, iterations and refinement passes of the
+   batch at B = 256, and at B = 4096 staged and plain in turns (5 warm
+   solves each: median and spread, and the device busy ms of one
+   profiled warm solve of each, not measured where two sessions' traces
+   lack launches the LDL^T kernels' counters saw).
 
 6. nonsymmetric paths, last (the profiler's sessions of ~10^5
    launches come after the kernel timing), each driven with the launch
@@ -796,38 +798,30 @@ def nonsym_record(card, path, solver, rerun, reps):
         t0 = time.perf_counter()
         rerun(r + 1)
         wall.append((time.perf_counter() - t0) * 1e3)
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    from cuclarabel_torch.kernel_timing import kernel_events
-    from cuclarabel_torch.profiling import busy_ms
-
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        rerun(reps + 1)
-        torch.cuda.synchronize()
-        pwall = (time.perf_counter() - t0) * 1e3
-    kern = kernel_events(prof)
-    busy = busy_ms(kern)
+    busy, nkern, pwall = profiled(lambda t: rerun(reps + 1 + t))
     B = len(it)
     rate = [B * 1e3 / t for t in wall]
     rec = {"B": B, "loop_passes": passes, "host_syncs": syncs,
            "syncs_per_pass": syncs / passes,
-           "launches_per_pass": len(kern) / passes,
-           "kernel_launches": len(kern), "ldl_launches": launches,
+           "launches_per_pass": (None if nkern is None
+                                 else nkern / passes),
+           "kernel_launches": nkern, "ldl_launches": launches,
            "iterations_mean": float(it.mean()),
            "iterations_max": int(it.max()), "dual_only": dual,
            "problems_per_s_median": float(np.median(rate)),
            "problems_per_s": rate, "wall_ms": wall,
            "device_busy_ms": busy, "profiled_wall_ms": pwall,
-           "idle_share": 1.0 - busy / pwall}
-    print(f"[{card}] {path}: {passes} loop passes, {len(kern)} kernel "
-          f"launches ({rec['launches_per_pass']:.1f} per pass), {syncs} "
-          f"host syncs ({rec['syncs_per_pass']:.2f} per pass); IPM "
-          f"iterations mean {rec['iterations_mean']:.2f} max "
+           "idle_share": None if busy is None else 1.0 - busy / pwall}
+    print(f"[{card}] {path}: {passes} loop passes, "
+          + ("kernel launches not measured" if nkern is None else
+             f"{nkern} kernel launches "
+             f"({rec['launches_per_pass']:.1f} per pass)")
+          + f", {syncs} host syncs ({rec['syncs_per_pass']:.2f} per pass);"
+          f" IPM iterations mean {rec['iterations_mean']:.2f} max "
           f"{rec['iterations_max']}, {dual} of {B} ended under Dual "
           f"scaling; warm {rec['problems_per_s_median']:.1f} problems/s "
           f"(median of {reps}, spread {min(rate):.1f} to {max(rate):.1f}); "
-          f"one profiled warm solve: device busy {busy:.2f} ms of "
-          f"{pwall:.1f} ms, idle {rec['idle_share']:.1%}", flush=True)
+          f"one profiled warm solve: {busy_text(busy, pwall)}", flush=True)
     return rec
 
 
@@ -1220,21 +1214,51 @@ def solve_ms(solver, qs, r):
     return (time.perf_counter() - t0) * 1e3
 
 
-def busy(solver):
-    """(device busy ms, kernel launches, wall ms) of one warm solve under
-    torch.profiler (device activity): the union of the kernels'
-    intervals (profiling.busy_ms)."""
+# the f64 LDL^T kernels as the profiler names them, whose launches the
+# wrappers count (kkt/ldl.py's LAUNCHES)
+LDL_TRACE_NAMES = ("ldl_factor_kernel", "ldl_solve_kernel<",
+                   "kkt_residual_kernel<", "ldl_solve_refine_kernel<")
+PROFILE_TRIES = 2
+
+
+def profiled(solve):
+    """(device busy ms, kernel launches, wall ms) of solve(t), a warm
+    solve, under torch.profiler (device activity): busy is the union of
+    the kernels' intervals (profiling.busy_ms).  The profiler may drop
+    a session's events: a trace is kept only if it holds as many
+    launches of the LDL^T kernels as their wrappers counted, and else
+    solve(t + 1) is profiled again, up to PROFILE_TRIES sessions; after
+    that busy and launches are None (not measured)."""
     from cuclarabel_torch.kernel_timing import kernel_events
+    from cuclarabel_torch.kkt import ldl
     from cuclarabel_torch.profiling import busy_ms
 
     acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        solver.solve()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kern = kernel_events(prof)
-    return busy_ms(kern), len(kern), wall
+    for t in range(PROFILE_TRIES):
+        before = sum(ldl.LAUNCHES.values())
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            solve(t)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        kern = kernel_events(prof)
+        want = sum(ldl.LAUNCHES.values()) - before
+        got = sum(any(n in e["name"] for n in LDL_TRACE_NAMES)
+                  for e in kern)
+        if got == want:
+            return busy_ms(kern), len(kern), wall
+        print(f"chip_smoke: the profiler's trace holds {got} of the {want}"
+              f" LDL^T kernel launches of a solve (session {t + 1} of "
+              f"{PROFILE_TRIES})", file=sys.stderr, flush=True)
+    return None, None, wall
+
+
+def busy_text(busy, wall):
+    if busy is None:
+        return (f"device busy not measured (the profiler dropped "
+                f"launches), wall {wall:.1f} ms")
+    return (f"device busy {busy:.2f} ms of {wall:.1f} ms, idle "
+            f"{1.0 - busy / wall:.1%}")
 
 
 def phase_timing(card, runs):
@@ -1262,7 +1286,7 @@ def phase_timing(card, runs):
         solver, cold = runs[p][4], runs[p][6]
         it, ir = solver.raw["iterations"], solver.raw["ir_count"]
         med = float(np.median(ms[p]))
-        b, launches, wall = busy(solver)
+        b, launches, wall = profiled(lambda t: solver.solve())
         rate = [solver.B * 1e3 / t for t in ms[p]]
         out[p] = {"problems_per_s_median": solver.B * 1e3 / med,
                   "problems_per_s": rate, "wall_ms": ms[p],
@@ -1272,8 +1296,8 @@ def phase_timing(card, runs):
               f"(median of "
               f"{TIMING_REPS}: {med:.1f} ms; spread {min(rate):.1f} to "
               f"{max(rate):.1f} problems/s; first solve {cold:.2f} s), one "
-              f"profiled warm solve: device busy {b:.2f} ms of {wall:.1f} "
-              f"ms in {launches} launches; IPM iterations mean "
+              f"profiled warm solve: {busy_text(b, wall)} in {launches} "
+              f"launches; IPM iterations mean "
               f"{it.mean():.2f} max {it.max()}, refinement passes per "
               f"iteration {ir.sum() / it.sum():.3f}")
     return out
@@ -1360,9 +1384,9 @@ def phase_kernel_timing(card):
                      if fn is not None else "none"), flush=True)
             out.setdefault(row["name"], {})[f"B{B}_r{row['R']}"] = {
                 k: row[k] for k in (
-                    "ms", "events_ms", "plain_ms", "library_ms", "bound_ms",
-                    "bound_by", "blocks_per_sm", "warps_per_sm", "registers",
-                    "spill_bytes") if k in row}
+                    "ms", "timed_by", "events_ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by", "blocks_per_sm", "warps_per_sm",
+                    "registers", "spill_bytes") if k in row}
     # the nonsymmetric path's N = 104, the forms it launches; of the
     # library calls only torch.baddbmm (cuSOLVER's host loop takes
     # seconds a call at this width and is timed at N = 76)
@@ -1381,9 +1405,9 @@ def phase_kernel_timing(card):
                      if fn is not None else "not timed"), flush=True)
             out[row["name"]][f"N104_B{B}_r1"] = {
                 k: row[k] for k in (
-                    "ms", "events_ms", "plain_ms", "library_ms", "bound_ms",
-                    "bound_by", "blocks_per_sm", "warps_per_sm", "registers",
-                    "spill_bytes") if k in row}
+                    "ms", "timed_by", "events_ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by", "blocks_per_sm", "warps_per_sm",
+                    "registers", "spill_bytes") if k in row}
     return out
 
 
@@ -1507,11 +1531,13 @@ def main():
     solver_times["phases_ms"] = phase_solver_backends(card)
     paths["f32"], f32_data = phase_f32_path()
     paths["probes"], probe_times = phase_probes_path(card)
-    batch_times = phase_timing(card, runs)
+    # the kernel timing before the profiled solves: after a session of
+    # 10^4-10^5 launches the profiler has been seen to drop the events
+    # of later sessions (kernel_timing.device_ms then times by CUDA
+    # events, and a solve's busy share is not measured)
     times = phase_kernel_timing(card)
     times.update(phase_kernel_timing_f32(card, *f32_data))
-    # last: its profiled solves record ~10^5 launches each, after which
-    # the profiler has been seen to drop the kernel timing's events
+    batch_times = phase_timing(card, runs)
     nonsym_paths, nonsym = phase_nonsym(card)
     paths.update(nonsym_paths)
     times.update(probe_times)

@@ -11,8 +11,10 @@ and ldl_solve, kkt_residual and ldl_solve_refine (npass = 1) with R = 1
 and R = 2 -- and the f32 ldl_factor_batched and ldl_solve_batched of
 `kkt/ldl_f32.py`, on the same K in f32, is timed:
 
-- ms: the kernel's own duration on the device (torch.profiler), over
-  back-to-back launches on the same operands, so that below about
+- ms: the kernel's own duration on the device (torch.profiler; CUDA
+  events around each launch where the profiler dropped its launches,
+  and then timed_by is "events"), over back-to-back launches on the
+  same operands, so that below about
   B = 1000 at N = 76 K and L stay warm in the 50 MB L2 (11.8 MB each at
   B = 256);
 - events_ms, at B = 4096 only: CUDA events around back-to-back calls of
@@ -188,24 +190,60 @@ def kernel_events(prof, path=None):
             if e.get("ph") == "X" and e.get("cat") == "kernel"]
 
 
-def device_ms(fns, reps, flush=None, tries=3):
+def launch_events_ms(fn, reps, flush=None):
+    """Mean ms of one launch of fn from a pair of CUDA events around each
+    of `reps` launches (flush.zero_() before each, outside the pair)."""
+    pairs = []
+    for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        pairs.append((t0, t1))
+    torch.cuda.synchronize()
+    return sum(t0.elapsed_time(t1) for t0, t1 in pairs) / reps
+
+
+def session_durations(events, name, reps):
+    """The device ms of the last `reps` launches of kernel `name` among a
+    profiler session's kernel events (by start time), or None where the
+    session recorded fewer than half of `reps`."""
+    got = sorted((e["ts"], e["dur"]) for e in events if name in e["name"])
+    durs = [dur / 1e3 for _, dur in got[-reps:]]
+    return durs if len(durs) >= max(reps // 2, 1) else None
+
+
+def device_ms(fns, reps, flush=None, tries=3, timed_by=None):
     """{key: mean device ms per launch} of the kernel named key[1] that
     fns[key] launches, over `reps` launches each under torch.profiler;
     with `flush` (a device tensor), flush.zero_() runs before each
-    launch to push the operands out of the L2.  The profiler may drop
-    events: a kernel is timed by the launches it recorded, at least half
-    of them, and a session that recorded fewer is run again, up to
-    `tries` times."""
+    launch to push the operands out of the L2.
+
+    The profiler may drop a session's events or deliver another
+    session's.  Each session starts with one synchronised launch of each
+    kernel; a kernel is timed by the last `reps` launches of its name
+    that the session recorded, if it recorded at least half of them, and
+    a session that recorded fewer is run again, up to `tries` times.  A
+    kernel the profiler still misses is timed by CUDA events around each
+    launch (launch_events_ms), and the counts the sessions recorded go
+    to stderr.  With `timed_by` (a dict), timed_by[key] is set to
+    "profiler" or "events"."""
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
-    out = {}
+    out, seen = {}, {key: [] for key in fns}
     for _ in range(tries):
         todo = {key: fn for key, fn in fns.items() if key not in out}
         if not todo:
             break
         with torch.profiler.profile(activities=acts) as prof:
+            for fn in todo.values():
+                fn()
+            torch.cuda.synchronize()
             for fn in todo.values():
                 for _ in range(reps):
                     if flush is not None:
@@ -214,13 +252,19 @@ def device_ms(fns, reps, flush=None, tries=3):
             torch.cuda.synchronize()
         events = kernel_events(prof)
         for key in todo:
-            durs = [e["dur"] for e in events if key[1] in e["name"]]
-            if reps // 2 <= len(durs) <= reps:
-                out[key] = sum(durs) / len(durs) / 1e3
-    missing = [key[1] for key in fns if key not in out]
-    if missing:
-        raise RuntimeError(f"the profiler recorded too few launches of "
-                           f"{missing} in {tries} sessions")
+            seen[key].append(sum(key[1] in e["name"] for e in events))
+            durs = session_durations(events, key[1], reps)
+            if durs is not None:
+                out[key] = sum(durs) / len(durs)
+    for key, fn in fns.items():
+        if timed_by is not None:
+            timed_by[key] = "profiler" if key in out else "events"
+        if key not in out:
+            print(f"kernel_timing: the profiler recorded {seen[key]} "
+                  f"launches of {key[1]} in {tries} sessions of {reps + 1}"
+                  f" each; timed by CUDA events instead", file=sys.stderr,
+                  flush=True)
+            out[key] = launch_events_ms(fn, reps, flush)
     return out
 
 
@@ -326,7 +370,8 @@ def time_width(B, forms=FORMS, reps=20, plain_reps=3, cold=False,
     report = _build.ptxas_report(_build.build()["log"])
     keyed = {(form, KERNEL_NAMES[form[0]].format(R=form[1])): fns[form][0]
              for form in forms}
-    warm = device_ms(keyed, reps)
+    how = {}
+    warm = device_ms(keyed, reps, timed_by=how)
     if cold:
         flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
         flushed = device_ms(keyed, reps, flush)
@@ -340,7 +385,7 @@ def time_width(B, forms=FORMS, reps=20, plain_reps=3, cold=False,
         occ = occupancy(name, R, N)
         reg = ptxas(name, R, N, report) or {}
         row = {"name": name, "R": R, "N": N, "B": B,
-               "ms": warm[(form, kname)]}
+               "ms": warm[(form, kname)], "timed_by": how[(form, kname)]}
         if B == EVENTS_WIDTH:
             row["events_ms"] = cuda_ms(kern, reps)
         if cold:
@@ -369,7 +414,9 @@ def row_line(card, row):
         occ += (f", ptxas {row['registers']} registers, "
                 f"{row['spill_bytes']} B spilled")
     return (f"[{card}] {row['name']} r={row['R']} at N={row['N']} "
-            f"B={row['B']}: device {row['ms']:.4f} ms (L2 warm){extra}, "
+            f"B={row['B']}: device {row['ms']:.4f} ms (L2 warm"
+            f"{', CUDA events' if row.get('timed_by') == 'events' else ''})"
+            f"{extra}, "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
             f"{row['gb']:.4f} GB, {row['gflop']:.4f} GFLOP), plain "
             f"{row['plain_ms']:.3f} ms, {occ}")

@@ -432,6 +432,22 @@ def test_profile_phases_on_card(dev):
     assert all(t > 0.0 for t in ph.values())
 
 
+def test_device_ms_times_by_events_where_the_profiler_misses(dev):
+    """A kernel the profiler did not record (here: under a name no kernel
+    has) is timed by CUDA events around each launch, and says so; the
+    two measures of one kernel agree within a factor of two."""
+    from cuclarabel_torch import kernel_timing as kt
+
+    op = kt.operands(4096, dev=dev)
+    fn = kt.calls(op)[("ldl_factor", 1)][0]
+    how = {}
+    got = kt.device_ms({("f", "ldl_factor_kernel"): fn,
+                        ("x", "no_such_kernel"): fn}, 10, timed_by=how)
+    assert how[("x", "no_such_kernel")] == "events"
+    prof, events = got[("f", "ldl_factor_kernel")], got[("x", "no_such_kernel")]
+    assert 0.0 < prof and 0.5 < events / prof < 2.0
+
+
 @pytest.mark.parametrize("N,B", [(83, 4096), (13, 256), (7, 130)])
 def test_probe_chain_matches_plain(dev, N, B):
     """Every P1 variant bit for bit with its plain version, at the

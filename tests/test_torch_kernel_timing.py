@@ -30,6 +30,29 @@ def test_row_line_shows_the_optional_times_only_where_measured():
     assert "flushed" not in line and "events" not in line
     line = kt.row_line("card", dict(row, cold_ms=0.02, events_ms=0.03))
     assert "L2 flushed 0.0200 ms" in line and "by events 0.0300 ms" in line
+    line = kt.row_line("card", dict(row, timed_by="profiler"))
+    assert "(L2 warm)" in line and "events" not in line
+    line = kt.row_line("card", dict(row, timed_by="events"))
+    assert "(L2 warm, CUDA events)" in line
+
+
+def test_session_durations_keep_the_last_launches_of_the_session():
+    """A session's trace may lack launches or hold another session's: a
+    kernel is timed by its last `reps` launches by start time, if at
+    least half of them were recorded."""
+    def ev(name, ts, dur):
+        return {"name": f"void {name}(double*)", "ts": ts, "dur": dur}
+
+    mine = [ev("ldl_solve_kernel<1, 3>", 100 + t, 2.0) for t in range(4)]
+    stale = [ev("ldl_solve_kernel<1, 3>", t, 50.0) for t in range(3)]
+    other = [ev("ldl_solve_refine_kernel<1, 3>", 200, 9.0)]
+    events = other + mine[::-1] + stale
+    assert kt.session_durations(events, "ldl_solve_kernel<1", 4) == [
+        0.002] * 4
+    assert kt.session_durations(mine[2:], "ldl_solve_kernel<1", 4) == [
+        0.002] * 2
+    assert kt.session_durations(mine[3:], "ldl_solve_kernel<1", 4) is None
+    assert kt.session_durations(other, "ldl_solve_kernel<1", 4) is None
 
 
 def test_calls_cover_every_form_and_agree_with_plain_on_cpu():
