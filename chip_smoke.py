@@ -13,8 +13,9 @@ Phases, in order; any failure exits non-zero:
    spill fails the run);
 3. kernels: each of the four f64 LDL^T kernels against its plain
    PyTorch version on the card, at (N, B) = (76, 4096), (13, 1024),
-   (128, 1024), the Solver's B = 1 shapes (76, 1), (12, 1), (8, 1), and
-   the nonsymmetric path's (104, 4096) and (104, 1),
+   (128, 1024), the Solver's B = 1 shapes (76, 1), (12, 1), (8, 1), the
+   nonsymmetric path's (104, 4096) and (104, 1), and the PSD paths'
+   (90, 4096), (73, 256) and (127, 1),
    for one and two right-hand sides (ldl_factor and ldl_solve bit for
    bit), plus numpy f64 solves of a few problems, K carrying junk above
    its diagonal, which no kernel may read; ldl_factor bit for bit at
@@ -59,12 +60,14 @@ Phases, in order; any failure exits non-zero:
      mosaic_probe2 (device time, bound, share of the issue rate, and for
      P2 ptxas' registers and spills), then each plain version's time;
 5. timing: each f64 kernel form (R = 1 and 2) at N = 76 and B = 4096,
-   256 and 1, and K1-K4 (R = 1) at N = 104 and B = 4096 and 1
+   256 and 1, K1-K4 (R = 1) at N = 104 and B = 4096 and 1, and K1-K4
+   and K2r at the PSD paths' (90, 4096) and (127, 1)
    (cuclarabel_torch.kernel_timing: device time, CUDA events
    at B = 4096, resident blocks and warps per SM, ptxas' registers and
    spill bytes) beside its bound, its
    plain version's time and, where one PyTorch call computes the same
-   function, that call's time; the f32 kernels at (76, 4096), and the
+   function, that call's time (cuSOLVER's LDL^T for the factor and
+   the substitution, the residual's torch.baddbmm, at every shape); the f32 kernels at (76, 4096), and the
    f64 factor and substitution on the f32 K, by device time.  A kernel's
    `ms` is its device time per launch (torch.profiler, or CUDA events
    around each launch where the profiler dropped its launches:
@@ -97,6 +100,27 @@ Phases, in order; any failure exits non-zero:
    solves (median and spread) and the device busy and idle share of one
    profiled warm solve.
 
+7. PSD paths, after the nonsymmetric ones: torch.linalg's batched
+   eigvalsh, eigh, cholesky_ex and svd against numpy f64 at r = 3, 6, 8
+   and 12 (B = 4096), within 1e-12 of the matrix's norm; then, each
+   driven with the launch counters set to 0 just before it and read
+   just after, BatchSolver on problems.maxcut_sdp(12, B, 11) (N = 90) at
+   B = 4096 (staged), at B = 4096 with batch_compaction=0.0 and at
+   B = 256: every problem SOLVED, its certificate X = mat(z) with
+   diag(X) within 1e-7 of 1, lambda_min(X) >= -1e-7 ||X|| and sum(y)
+   within 1e-7 relative of <L/4, X>; the staged path against the plain
+   one as the portfolio's is; the first 8 against the port's CPU solve
+   (statuses, objectives within 1e-7; iterations printed);
+   problems.psd_min_eig(8, 256, 3) (N = 73): every problem SOLVED within
+   1e-7 of lambda_min(C); Solver on the SDP golden and the mixed
+   SDP + SOC problem under "pallas" and "lu", the chordal problem of
+   tests/test_sdp_chordal.py under its 12 settings, sdp_chordal_banded
+   at nv = 11 (N = 127, "pallas") and 12 (N = 141, "lu") and the nv = 24
+   PSD projection under "lu" and "qr": SOLVED with the CPU's iterations
+   and objectives within 1e-7 (the reference's iterations printed
+   beside the banded rows); then per batch path and the N = 127 Solver
+   the record of phase 6.
+
 The line before the last is the `kernels` JSON, whose `launches` sums
 the main paths' runs and `launches_per_path` splits them, and whose
 `by_shape` holds the f64 kernels' times at every timed shape; the last
@@ -118,9 +142,12 @@ from cuclarabel_torch.kernel_timing import card_line, cuda_ms, make_kkt
 NASS = 32
 CPU_CHECK = 8
 # (n, m, B): the batch widths, then the Solver's B = 1 at N = 76 and at
-# the sizes of the goldens (SOCP N = 12, QP N = 8)
+# the sizes of the goldens (SOCP N = 12, QP N = 8), the nonsymmetric
+# path's N = 104, and the PSD paths': max-cut (N = 90), min-eig (N = 73)
+# and the chordal Solver's N = 127
 KERNEL_SHAPES = ((33, 43, 4096), (5, 8, 1024), (56, 72, 1024), (33, 43, 1),
-                 (3, 9, 1), (2, 6, 1), (34, 70, 4096), (34, 70, 1))
+                 (3, 9, 1), (2, 6, 1), (34, 70, 4096), (34, 70, 1),
+                 (12, 78, 4096), (36, 37, 256), (54, 73, 1))
 # the f64 kernels are timed at N = 76 and these widths: the B = 4096
 # batch, the B = 256 batch and the Solver's B = 1
 TIMING_WIDTHS = (4096, 256, 1)
@@ -135,7 +162,8 @@ JUNK = 1e3
 # and the substitution are held to plain bit for bit
 TOL_SOLVE = 1e-9      # x vs numpy f64 / plain, relative to max(|x|, 1)
 TOL_RESID = 1e-10     # residual vs plain, relative to max(|r|, 1)
-TOL_RETURNED_R = 1e-11  # refine's r vs b - K x recomputed, absolute
+TOL_RETURNED_R = 1e-11  # refine's r vs b - K x summed in twice the
+#                         precision (kkt_residual_exact), absolute
 TOL_OBJ = 1e-7        # objective vs the CPU solve, relative
 # f32 kernels (tests/test_pallas_ldl.py): kernel vs plain bit for bit
 # (-fmad=false: the same rounding of every operation); L D L^T vs K
@@ -181,6 +209,27 @@ NONSYM_REPS = 5       # warm solves of each nonsymmetric batch path
 # 1000), so at most 0.5% may here (ROADMAP F8).
 NONSYM_OK = ("SOLVED", "ALMOST_SOLVED")
 ALMOST_SHARE_MAX = 0.005
+# the PSD paths: BatchSolver on problems.maxcut_sdp(12, B, 11) (one PSD
+# cone of side 12, N = 90) and problems.psd_min_eig(8, 256, 3) (N = 73)
+PSD_NV, PSD_SEED = 12, 11
+PSD_MAXCUT = (("maxcut_B4096", 4096, {}), ("maxcut_B4096_plain", 4096,
+                                           {"batch_compaction": 0.0}),
+              ("maxcut_B256", 256, {}))
+PSD_MINEIG = (8, 256, 3)  # (d, B, seed)
+TOL_CERT = 1e-7       # the max-cut certificate (diag, lambda_min, gap)
+PSD_REPS = 5          # warm solves of each PSD path
+# torch.linalg's batched routines against numpy f64 at these sides (the
+# PSD cones' stacks), relative to the matrix's norm
+PSD_LINALG_SIDES = (3, 6, 8, 12)
+PSD_LINALG_B = 4096
+TOL_LINALG = 1e-12
+# the PSD shapes (N, B) of kernel_timing.PSD_SHAPES that the smoke times
+PSD_TIMED = ((90, 4096), (127, 1))
+# BASELINE.md's SDP golden, and the reference Solver's iterations and
+# objective on the banded rows (its CPU run under "lu")
+PSD_GOLDEN_OBJ = 4.840076866013861
+PSD_REF = {"banded11": (8, 4.514834284121425),
+           "banded12": (9, 4.844922766453251)}
 
 REPLACES = {
     "ldl_factor": "cuclarabel_tpu/kkt/pallas_dd.py:1318",
@@ -295,9 +344,14 @@ def phase_kernels():
 
         L, Dinv, e = factor(K, reg, tag)
         worst = {"ldl_factor": e}
+        # how far numpy's x moves in one refinement pass: a kernel that
+        # skipped its pass would be this far from the npass = 1 bar
+        skip_gap = 0.0
 
         # refinement runs against the unregularised K: its iterates move
-        # from the solution of K + diag(reg) towards that of K
+        # from the solution of K + diag(reg) towards that of K, at a rate
+        # set by the data (reg (K + diag(reg))^-1); the refined x is held
+        # to numpy's own passes, and after two passes to K^-1 b
         c = min(B, NUMPY_CHECK)
         Kc = Kn[:c]
         Kreg = Kc + np.einsum("bi,ij->bij", regn[:c], np.eye(N))
@@ -335,16 +389,22 @@ def phase_kernels():
                 xr, rr = ldl.ldl_solve_refine(K, L, Dinv, b, npass)
                 torch.cuda.synchronize()
                 xrp, rrp = ldl.ldl_solve_refine_plain(K, L, Dinv, b, npass)
-                rtrue = ldl.kkt_residual_plain(K, xr, b)
+                rtrue = kkt_residual_exact(K, xr, b)
                 e1 = rel(xr, xrp, 1.0)
-                e2 = rel(xr[:c].cpu(),
-                         xref if npass == 0 else xref_unreg, 1.0)
+                e2 = rel(xr[:c].cpu(), torch.tensor(numpy_refine(
+                    Kc, Kreg, bref, npass)).reshape(xref.shape), 1.0)
+                e4 = (rel(xr[:c].cpu(), xref_unreg, 1.0) if npass == 2
+                      else 0.0)
                 e3 = float((rr - rtrue).abs().max())
-                check(e1 < TOL_SOLVE and e2 < TOL_SOLVE
+                if npass == 1:
+                    skip_gap = max(skip_gap, rel(
+                        torch.tensor(numpy_refine(Kc, Kreg, bref, 0)),
+                        torch.tensor(numpy_refine(Kc, Kreg, bref, 1)), 1.0))
+                check(e1 < TOL_SOLVE and e2 < TOL_SOLVE and e4 < TOL_SOLVE
                       and e3 < TOL_RETURNED_R,
                       f"ldl_solve_refine r={R} npass={npass} at {tag}: "
-                      f"vs plain {e1:.2e}, vs numpy {e2:.2e}, "
-                      f"returned r {e3:.2e}")
+                      f"vs plain {e1:.2e}, vs numpy {e2:.2e}, vs K^-1 b "
+                      f"{e4:.2e}, returned r {e3:.2e}")
                 # the two kernels' residual sums are one and the same
                 check(torch.equal(rr, ldl.kkt_residual(K, xr, b)),
                       f"ldl_solve_refine r={R} npass={npass} at {tag}: its "
@@ -354,16 +414,74 @@ def phase_kernels():
                 errs["ldl_solve_refine"] = max(
                     errs["ldl_solve_refine"], float((xr - xrp).abs().max()))
         print(f"kernels ok at {tag}: max error vs plain "
-              + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+              + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+              + f"; one refinement pass moves numpy's x by {skip_gap:.2e} "
+              f"({'above' if skip_gap > TOL_SOLVE else 'within'} the "
+              f"{TOL_SOLVE:.0e} bar: a skipped pass "
+              f"{'fails' if skip_gap > TOL_SOLVE else 'would pass'} it)")
     return errs
 
 
-def compare_staged(card, staged, plain):
-    """The staged B = 4096 path against the plain one, problem by
-    problem: status and iterations equal, objective within TOL_STAGED
-    relative; prints the largest |dx|, |ds|, |dz| and whether the two are
-    bitwise equal, and if not, which of the loop's operations give a
-    problem a result that depends on the batch width."""
+def _two_sum(a, b):
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _two_prod(a, b):
+    def split(v):
+        c = 134217729.0 * v  # 2^27 + 1
+        hi = c - (c - v)
+        return hi, v - hi
+    p = a * b
+    ah, al = split(a)
+    bh, bl = split(b)
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def kkt_residual_exact(K, x, b):
+    """b - K x of the symmetric matrix of K's lower triangle (as
+    ldl.kkt_residual reads it), summed as if in twice the precision
+    (Ogita-Rump-Oishi Dot2, b the first term).  K (B, N, N), x and b
+    (B, N) or (B, N, R).  Not a kernel's plain version: a yardstick for
+    the rounding of the kernels' and the plain versions' sums."""
+    Ks = torch.tril(K) + torch.tril(K, -1).transpose(1, 2)
+    xr = x[:, :, None] if x.dim() == 2 else x
+    s = (b[:, :, None] if b.dim() == 2 else b).clone()
+    c = torch.zeros_like(s)
+    for k in range(Ks.shape[2]):
+        p, ep = _two_prod(Ks[:, :, k, None], xr[:, k, None, :])
+        s, es = _two_sum(s, -p)
+        c = c + (es - ep)
+    return (s + c).reshape(b.shape)
+
+
+def numpy_refine(K, Kreg, b, npass):
+    """numpy's x of ldl_solve_refine: the solve of Kreg x = b, then npass
+    passes x + Kreg^-1 (b - K x), each accepted per (problem, right-hand
+    side) only where it lowers max |b - K x|.  K, Kreg (c, N, N), b
+    (c, N, R)."""
+    x = np.linalg.solve(Kreg, b)
+    r = b - K @ x
+    best = np.abs(r).max(axis=1)
+    for _ in range(npass):
+        xn = x + np.linalg.solve(Kreg, r)
+        rn = b - K @ xn
+        new = np.abs(rn).max(axis=1)
+        take = (new < best)[:, None, :]
+        x, r = np.where(take, xn, x), np.where(take, rn, r)
+        best = np.minimum(new, best)
+    return x
+
+
+def compare_staged(card, staged, plain, what="batch_B4096",
+                   width_ops=None):
+    """A staged B = 4096 path against the plain one, problem by problem:
+    status and iterations equal, objective within TOL_STAGED relative;
+    prints the largest |dx|, |ds|, |dz| and whether the two are bitwise
+    equal, and if not, which of the path's operations (width_ops, by
+    default the portfolio path's) give a problem a result that depends
+    on the batch width."""
     worst = {"x": 0.0, "s": 0.0, "z": 0.0}
     obj = 0.0
     for i, (g, w) in enumerate(zip(staged, plain)):
@@ -378,13 +496,14 @@ def compare_staged(card, staged, plain):
     check(obj <= TOL_STAGED, f"staged vs plain: objective {obj:.2e} "
           f"relative (bar {TOL_STAGED:g})")
     bitwise = not any(worst.values())
-    print(f"[{card}] batch_B4096 staged vs plain: statuses and iterations "
+    print(f"[{card}] {what} staged vs plain: statuses and iterations "
           f"equal, objective within {obj:.3e} relative, max |dx| "
           f"{worst['x']:.3e}, |ds| {worst['s']:.3e}, |dz| {worst['z']:.3e}, "
           f"bitwise equal: {bitwise}")
     if not bitwise:
+        found = (width_ops or width_dependent_ops)()
         print("operations whose per-problem result depends on the batch "
-              f"width on this card: {width_dependent_ops() or 'none found'}")
+              f"width on this card: {found or 'none found'}")
     return {"bitwise": bitwise, "max_abs_diff": worst, "obj_rel": obj}
 
 
@@ -408,8 +527,9 @@ def width_dependent_ops(B=4096, keep=300, reps=2, dev="cuda"):
         return torch.randn(*shape, generator=g, device=dev,
                            dtype=torch.float64)
 
-    A, x, z, v = rnd(B, m, n), rnd(B, n, 1), rnd(B, m, 1), rnd(B, m)
-    w = rnd(B, len(seg))
+    full = {"A": rnd(B, m, n), "x": rnd(B, n, 1), "z": rnd(B, m, 1),
+            "v": rnd(B, m)}
+    full["w"] = rnd(B, len(seg))
     ops = {
         "torch.bmm (A x)": lambda t: torch.bmm(t["A"], t["x"]),
         "torch.bmm (A' z)": lambda t: torch.bmm(t["A"].transpose(1, 2),
@@ -420,8 +540,16 @@ def width_dependent_ops(B=4096, keep=300, reps=2, dev="cuda"):
         "index_add_ (SOC segment sums)": lambda t: t["w"].new_zeros(
             t["w"].shape[0], layout.nsoc).index_add_(1, seg, t["w"]),
     }
-    full = {"A": A, "x": x, "z": z, "v": v, "w": w}
-    idx = torch.randperm(B, generator=g, device=dev)[:keep].sort().values
+    return width_dependent(ops, full, g, B, keep, reps)
+
+
+def width_dependent(ops, full, g, B, keep, reps):
+    """The names of the ops (each a function of the dict of tensors
+    `full`) whose result on `keep` of the B rows, gathered as stage 2
+    gathers them, differs from the same rows of the full-width result,
+    or from another run at the same width."""
+    idx = torch.randperm(B, generator=g, device=full["A"].device)[:keep]
+    idx = idx.sort().values
     part = {k: t.index_select(0, idx) for k, t in full.items()}
     found = []
     for name, op in ops.items():
@@ -780,11 +908,11 @@ def host_syncs(fn):
     return out, passes.passes, syncs
 
 
-def nonsym_record(card, path, solver, rerun, reps):
+def path_record(card, path, solver, rerun, reps):
     """Launches and host syncs per loop pass, iterations, problems ended
     under Dual scaling, warm problems/s over `reps` solves (median and
     spread) and device busy and idle share of one profiled warm solve
-    of a nonsymmetric path; rerun(r) solves again, nudged by r."""
+    of a nonsymmetric or PSD path; rerun(r) solves again, nudged by r."""
     from cuclarabel_torch.kkt import ldl
 
     ldl.reset_counts()
@@ -1000,9 +1128,9 @@ def phase_nonsym(card):
 
     for path in ("exp_B4096", "exp_B4096_plain", "exp_B256"):
         _, qs_p, _, _, _, solver, _ = runs[path]
-        recs[path] = nonsym_record(card, path, solver,
+        recs[path] = path_record(card, path, solver,
                                    batch_rerun(solver, qs_p), NONSYM_REPS)
-    recs["genpow_B256"] = nonsym_record(card, "genpow_B256", gp_solver,
+    recs["genpow_B256"] = path_record(card, "genpow_B256", gp_solver,
                                         batch_rerun(gp_solver, qs),
                                         NONSYM_REPS)
     solver = out["exp_logistic"][0]
@@ -1012,8 +1140,339 @@ def phase_nonsym(card):
         solver.update_q(q0 * (1.0 + 1e-9 * r))
         solver.solve()
 
-    recs["solver_exp_n104"] = nonsym_record(card, "solver_exp_n104", solver,
+    recs["solver_exp_n104"] = path_record(card, "solver_exp_n104", solver,
                                             solver_rerun, NONSYM_REPS)
+    return paths, recs
+
+
+# ---------------------------------------------------------------------
+# the PSD paths
+
+def phase_psd_linalg(card):
+    """torch.linalg's batched decompositions on the card, as the PSD
+    cones call them (cones/psd.py), against numpy f64 on the same
+    matrices at each side of PSD_LINALG_SIDES and B = PSD_LINALG_B:
+    eigenvalues, and each factorisation's reconstruction and the
+    orthogonality of its factors, relative to the matrix's norm (the
+    largest over the batch).  Returns the errors by routine."""
+    rng = np.random.default_rng(8)
+    errs = {}
+
+    def hold(name, r, err):
+        check(err <= TOL_LINALG, f"torch.linalg.{name} at r={r}: {err:.2e} "
+              f"relative to the norm (bar {TOL_LINALG:g})")
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    for r in PSD_LINALG_SIDES:
+        G = rng.standard_normal((PSD_LINALG_B, 1, r, r))
+        # symmetric, and SPD with eigenvalues spread over 10^-6 ... 10^6
+        # as late iterates have them
+        Msym = (G + np.swapaxes(G, -1, -2)) / 2
+        Q = np.linalg.qr(rng.standard_normal((PSD_LINALG_B, 1, r, r)))[0]
+        lam = 10.0 ** rng.uniform(-6, 6, (PSD_LINALG_B, 1, r))
+        Spd = (Q * lam[..., None, :]) @ np.swapaxes(Q, -1, -2)
+        Spd = (Spd + np.swapaxes(Spd, -1, -2)) / 2
+        eye = np.eye(r)
+
+        def norm(M):
+            return np.linalg.norm(M, ord=2, axis=(-2, -1))
+
+        def rel_err(got, want, M):
+            return float((np.abs(got - want).max(axis=(-2, -1))
+                          / norm(M)).max())
+
+        for M in (Msym, Spd):
+            t = torch.tensor(M, device="cuda")
+            e = torch.linalg.eigvalsh(t).cpu().numpy()
+            hold("eigvalsh", r, float((np.abs(e - np.linalg.eigvalsh(M))
+                                       .max(-1) / norm(M)).max()))
+            lam_t, V = (a.cpu().numpy() for a in torch.linalg.eigh(t))
+            hold("eigh", r, rel_err((V * lam_t[..., None, :])
+                                    @ np.swapaxes(V, -1, -2), M, M))
+            hold("eigh", r, float(np.abs(np.swapaxes(V, -1, -2) @ V
+                                         - eye).max()))
+        L, info = torch.linalg.cholesky_ex(torch.tensor(Spd, device="cuda"))
+        check(not bool(info.any()), f"cholesky_ex failed at r={r}")
+        L = L.cpu().numpy()
+        hold("cholesky_ex", r, rel_err(L @ np.swapaxes(L, -1, -2), Spd, Spd))
+        # the scaling update's SVD takes L2' L1 of two Cholesky factors
+        W = np.linalg.cholesky(Spd) @ G
+        U, sv, Vh = (a.cpu().numpy() for a in torch.linalg.svd(
+            torch.tensor(W, device="cuda")))
+        hold("svd", r, float((np.abs(sv - np.linalg.svd(W, compute_uv=False))
+                              .max(-1) / norm(W)).max()))
+        hold("svd", r, rel_err((U * sv[..., None, :]) @ Vh, W, W))
+        hold("svd", r, float(max(
+            np.abs(np.swapaxes(U, -1, -2) @ U - eye).max(),
+            np.abs(Vh @ np.swapaxes(Vh, -1, -2) - eye).max())))
+    print(f"[{card}] torch.linalg against numpy f64 at r = "
+          f"{', '.join(map(str, PSD_LINALG_SIDES))}, B = {PSD_LINALG_B}: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in sorted(errs.items()))
+          + f" (relative to the norm; bar {TOL_LINALG:g})", flush=True)
+    return errs
+
+
+def maxcut_certificate(sols, Ls):
+    """The relaxation's primal certificate, for every problem: X = mat(z)
+    with diag(X) within TOL_CERT of 1, lambda_min(X) >= -TOL_CERT ||X||
+    and sum(y) within TOL_CERT relative of <L/4, X>.  Returns the worst
+    of each."""
+    from cuclarabel_torch.problems import smat
+
+    nv = Ls.shape[1]
+    X = np.stack([smat(s.z, nv) for s in sols])
+    y = np.stack([s.x for s in sols]).sum(axis=1)
+    diag = float(np.abs(np.diagonal(X, axis1=1, axis2=2) - 1.0).max())
+    lmin = float((-np.linalg.eigvalsh(X)[:, 0]
+                  / np.linalg.norm(X, ord=2, axis=(1, 2))).max())
+    gap = float((np.abs(y - (Ls / 4.0 * X).sum(axis=(1, 2)))
+                 / np.abs(y)).max())
+    check(diag <= TOL_CERT and lmin <= TOL_CERT and gap <= TOL_CERT,
+          f"max-cut certificate: |diag(X) - 1| {diag:.2e}, -lambda_min(X) "
+          f"/ ||X|| {lmin:.2e}, sum(y) vs <L/4, X> {gap:.2e} (bar "
+          f"{TOL_CERT:g})")
+    return {"diag": diag, "lambda_min": lmin, "gap": gap}
+
+
+def psd_width_dependent_ops(B=4096, keep=300, reps=2, dev="cuda"):
+    """width_dependent_ops at the max-cut path's shapes: the products of
+    a symmetric layout (torch.bmm on A (B, 78, 12)) and the PSD cones'
+    batched torch.linalg routines and matrix products on (B, 1, 12, 12)
+    stacks."""
+    g = torch.Generator(device=dev).manual_seed(12)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev,
+                           dtype=torch.float64)
+
+    n, m, r = PSD_NV, PSD_NV * (PSD_NV + 1) // 2, PSD_NV
+    G = rnd(B, 1, r, r)
+    full = {"A": rnd(B, m, n), "x": rnd(B, n, 1), "z": rnd(B, m, 1),
+            "G": G, "S": G @ G.transpose(-1, -2) + torch.eye(
+                r, dtype=torch.float64, device=dev)}
+    ops = {
+        "torch.bmm (A x)": lambda t: torch.bmm(t["A"], t["x"]),
+        "torch.bmm (A' z)": lambda t: torch.bmm(t["A"].transpose(1, 2),
+                                                t["z"]),
+        "matmul (B, 1, 12, 12)": lambda t: t["G"] @ t["S"],
+        "linalg.cholesky_ex": lambda t: torch.linalg.cholesky_ex(t["S"])[0],
+        "linalg.svd": lambda t: torch.linalg.svd(t["G"])[1],
+        "linalg.eigvalsh": lambda t: torch.linalg.eigvalsh(t["S"]),
+        "linalg.eigh": lambda t: torch.linalg.eigh(t["S"])[0],
+    }
+    return width_dependent(ops, full, g, B, keep, reps)
+
+
+def psd_solver_problems():
+    """(name, (P, q, A, b, cones), Solver settings) of the PSD Solver
+    rows: tests/test_basic_sdp.py's golden and its mixed NN + SOC + PSD
+    problem (copied) under the default method ("pallas", B = 1) and
+    "lu"; tests/test_sdp_chordal.py's PSD + power cone problem (copied)
+    under its 12 chordal settings; problems.sdp_chordal_banded(nv, 2, 6)
+    at nv = 11 (N = 127 after decomposition, "pallas") and 12 (N = 141,
+    "lu"); tests/test_qr_backend.py's nearest-PSD projection at nv = 24
+    (copied; N = 600) under "lu" and "qr"."""
+    import itertools
+
+    import cuclarabel_torch as ct
+    from cuclarabel_torch.problems import sdp_chordal_banded, svec
+
+    sdp = (np.eye(6), np.zeros(6), np.eye(6),
+           np.array([-3.0, 1.0, 4.0, 1.0, 2.0, 5.0]),
+           [ct.PSDTriangleConeT(3)])
+    rng = np.random.default_rng(42)
+    F = rng.standard_normal((6, 6))
+    A_soc = np.zeros((3, 6))
+    A_soc[1, 0] = A_soc[2, 1] = -1.0
+    A_psd = np.zeros((3, 6))
+    A_psd[0, 0] = A_psd[2, 1] = -1.0
+    A_psd[1, 2] = -np.sqrt(2.0)
+    mixed = (F @ F.T + 0.1 * np.eye(6), rng.standard_normal(6),
+             np.vstack([np.eye(6), A_soc, A_psd]),
+             np.concatenate([np.full(6, 2.0), [1.5, 0.0, 0.0],
+                             [1.0, 0.0, 1.0]]),
+             [ct.NonnegativeConeT(6), ct.SecondOrderConeT(3),
+              ct.PSDTriangleConeT(2)])
+    for name, data in (("sdp", sdp), ("mixed_sdp_socp", mixed)):
+        yield name, data, {}
+        yield f"{name}_lu", data, {"kkt_solve_method": "lu"}
+
+    sq2 = np.sqrt(2.0)
+    cols = ([24], [7, 10, 22], [8], [12, 15, 25], [9], [13], [18, 21, 26],
+            [0, 23, 27])
+    vals = ([-1.0], [-sq2, -1.0, -1.0], [-sq2], [-sq2, -1.0, -1.0], [-sq2],
+            [-sq2], [-sq2, -1.0, -1.0], [-1.0, -1.0, -1.0])
+    A = np.zeros((28, 8))
+    for j, (rows, v) in enumerate(zip(cols, vals)):
+        A[rows, j] = v
+    b = np.zeros(28)
+    b[1:7] = [3.0, 2.0 * sq2, 2.0, sq2, sq2, 3.0]
+    chordal = (np.zeros((8, 8)), np.eye(8)[0] * -1.0, A, b,
+               [ct.NonnegativeConeT(1), ct.PSDTriangleConeT(6),
+                ct.PowerConeT(1.0 / 3.0), ct.PowerConeT(0.5)])
+    for compact, dual, merge in itertools.product(
+            (False, True), (False, True),
+            ("clique_graph", "parent_child", "none")):
+        yield (f"chordal_{'compact' if compact else 'standard'}_"
+               f"{'dual' if dual else 'nodual'}_{merge}", chordal,
+               {"chordal_decomposition_compact": compact,
+                "chordal_decomposition_complete_dual": dual,
+                "chordal_decomposition_merge_method": merge})
+    for nv in (11, 12):
+        yield f"banded{nv}", sdp_chordal_banded(nv, 2, 6), {}
+
+    rng = np.random.default_rng(0)
+    M = rng.standard_normal((24, 24))
+    sd = 24 * 25 // 2
+    proj = (np.eye(sd), -svec((M + M.T) / 2.0), -np.eye(sd), np.zeros(sd),
+            [ct.PSDTriangleConeT(24)])
+    for method in ("lu", "qr"):
+        yield f"projection24_{method}", proj, {"kkt_solve_method": method}
+
+
+def phase_psd(card):
+    """The PSD paths on the card, each driven with the launch counters set
+    to 0 just before it and read just after.  Returns (launches by path,
+    records)."""
+    import cuclarabel_torch as ct
+    from cuclarabel_torch.problems import maxcut_sdp, psd_min_eig
+
+    paths, recs, runs = {}, {"linalg": phase_psd_linalg(card)}, {}
+    for path, B, settings in PSD_MAXCUT:
+        P, qs, A, bs, cones, Ls = maxcut_sdp(PSD_NV, B, PSD_SEED)
+        stages = StageLaunches()
+
+        def drive():
+            solver = ct.BatchSolver(P, qs, A, bs, cones, **settings)
+            with stages:
+                return solver, solver.solve()
+
+        (solver, sols), launches = counted(path, drive)
+        check(solver.device.type == "cuda", f"{path}: not on CUDA")
+        for key in ("ldl_factor/r1", "ldl_solve_refine/r1",
+                    "ldl_solve_refine/r2"):
+            check(launches.get(key, 0) > 0, f"{path}: {key} never launched")
+        status = collections.Counter(s.status.name for s in sols)
+        check(set(status) == {"SOLVED"}, f"{path}: statuses {dict(status)}")
+        cert = maxcut_certificate(sols, Ls)
+        it = np.array([s.iterations for s in sols])
+        print(f"[{card}] {path}: all {B} SOLVED, iterations mean "
+              f"{it.mean():.2f} max {it.max()}; certificate |diag(X) - 1| "
+              f"{cert['diag']:.2e}, -lambda_min(X) / ||X|| "
+              f"{cert['lambda_min']:.2e}, sum(y) vs <L/4, X> "
+              f"{cert['gap']:.2e}", flush=True)
+        if solver.settings.batch_compaction > 0.0:
+            comp = solver.last_compaction
+            check(comp["remainder"] > 0, f"{path}: stage 2 did not run")
+            print(f"{path} compaction: {json.dumps(comp)}; launches by "
+                  f"stage: {json.dumps(stages.split(), sort_keys=True)}")
+            recs[f"{path}_compaction"] = comp
+        recs[f"{path}_certificate"] = cert
+        paths[path] = launches
+        runs[path] = (qs, solver, sols)
+    for key in ("ldl_solve/r1", "kkt_residual/r1"):
+        check(sum(paths[p].get(key, 0) for p, _, _ in PSD_MAXCUT) > 0,
+              f"max-cut paths: {key} never launched")
+
+    recs["maxcut_staged_vs_plain"] = compare_staged(
+        card, runs["maxcut_B4096"][2], runs["maxcut_B4096_plain"][2],
+        "maxcut_B4096", psd_width_dependent_ops)
+    qs, _, sols = runs["maxcut_B4096"]
+    P, _, A, bs, cones, _ = maxcut_sdp(PSD_NV, CPU_CHECK, PSD_SEED)
+    cpu = ct.BatchSolver(P, qs[:CPU_CHECK], A, bs, cones,
+                         device="cpu").solve()
+    worst = 0.0
+    for i, (g, c) in enumerate(zip(sols[:CPU_CHECK], cpu)):
+        check(g.status == c.status, f"maxcut problem {i}: {g.status.name}, "
+              f"CPU {c.status.name}")
+        worst = max(worst, abs(g.obj_val - c.obj_val) / abs(c.obj_val))
+    check(worst <= TOL_OBJ, f"maxcut first {CPU_CHECK} vs the CPU: "
+          f"{worst:.2e} relative")
+    print(f"[{card}] maxcut_B4096 first {CPU_CHECK} vs the CPU: the same "
+          f"statuses, objectives within {worst:.3e} relative; iterations "
+          f"card {[s.iterations for s in sols[:CPU_CHECK]]}, CPU "
+          f"{[s.iterations for s in cpu]}", flush=True)
+
+    d, B, seed = PSD_MINEIG
+    P, qs_e, A, bs, cones, optima = psd_min_eig(d, B, seed)
+
+    def drive_eig():
+        solver = ct.BatchSolver(P, qs_e, A, bs, cones)
+        return solver, solver.solve()
+
+    (eig_solver, eig_sols), paths["mineig_B256"] = counted("mineig_B256",
+                                                           drive_eig)
+    for key in ("ldl_factor/r1", "ldl_solve_refine/r1",
+                "ldl_solve_refine/r2"):
+        check(paths["mineig_B256"].get(key, 0) > 0,
+              f"mineig_B256: {key} never launched")
+    check(all(s.status == ct.SolverStatus.SOLVED for s in eig_sols),
+          "mineig_B256: not all SOLVED")
+    err = max(abs(s.obj_val - o) for s, o in zip(eig_sols, optima))
+    check(err <= TOL_OBJ, f"mineig_B256: {err:.2e} from lambda_min(C)")
+    print(f"[{card}] mineig_B256: all SOLVED, within {err:.3e} of "
+          "lambda_min(C)")
+
+    rows = list(psd_solver_problems())
+
+    def drive_solver():
+        out = {}
+        for name, data, kw in rows:
+            solver = ct.Solver(*data, **kw)
+            check(solver.device.type == "cuda", "Solver did not run on CUDA")
+            out[name] = (solver, solver.solve())
+        return out
+
+    out, paths["solver_psd"] = counted("solver_psd", drive_solver)
+    check(paths["solver_psd"].get("ldl_factor/r1", 0) > 0,
+          "solver_psd: ldl_factor never launched")
+    for name, data, kw in rows:
+        solver, got = out[name]
+        want = ct.Solver(*data, device="cpu", **kw).solve()
+        N = solver.n + solver.m
+        method = solver.get_info()["linear_solver"]["method"]
+        check(got.status == ct.SolverStatus.SOLVED,
+              f"solver {name}: {got.status.name}")
+        check(got.iterations == want.iterations, f"solver {name}: "
+              f"{got.iterations} iterations, CPU {want.iterations}")
+        err = abs(got.obj_val - want.obj_val) / abs(want.obj_val)
+        check(err <= TOL_OBJ, f"solver {name}: {err:.2e} from the CPU")
+        ref = ""
+        if name.startswith("sdp"):
+            check(abs(got.obj_val - PSD_GOLDEN_OBJ) <= TOL_OBJ,
+                  f"solver {name}: objective {got.obj_val} off its golden")
+        if name in PSD_REF:
+            ref_it, ref_obj = PSD_REF[name]
+            check(abs(got.obj_val - ref_obj) <= TOL_OBJ * abs(ref_obj),
+                  f"solver {name}: objective {got.obj_val}, the "
+                  f"reference's {ref_obj}")
+            check(method == ("pallas" if N <= 128 else "lu"),
+                  f"solver {name}: N = {N} took {method}")
+            ref = f", the reference's {ref_it} (CPU, lu)"
+        print(f"solver {name}: SOLVED in {got.iterations} iterations (CPU "
+              f"{want.iterations}{ref}), objective {got.obj_val:.12g}, "
+              f"{err:.2e} relative from the CPU, N = {N}, {method}"
+              + (", decomposed" if solver.chordal_info is not None else ""))
+
+    def batch_rerun(solver, q):
+        def rerun(r):
+            solver.update_data(q=q * (1.0 + 1e-9 * r))
+            solver.solve()
+        return rerun
+
+    for path, _, _ in PSD_MAXCUT:
+        qs, solver, _ = runs[path]
+        recs[path] = path_record(card, path, solver, batch_rerun(solver, qs),
+                                 PSD_REPS)
+    recs["mineig_B256"] = path_record(card, "mineig_B256", eig_solver,
+                                      batch_rerun(eig_solver, qs_e),
+                                      PSD_REPS)
+    # a chordally decomposed Solver takes no data update: each warm solve
+    # solves the same problem again (nothing carries over between solves)
+    solver = out["banded11"][0]
+    recs["solver_chordal_n127"] = path_record(
+        card, "solver_chordal_n127", solver, lambda r: solver.solve(),
+        PSD_REPS)
     return paths, recs
 
 
@@ -1322,32 +1781,41 @@ def check_library(name, got, want, tol):
     print(f"library call for {name}: x within {e:.2e} of the kernel's")
 
 
-def library_calls(op):
-    """{(name, R): one PyTorch call computing the same function} on the
-    operands of kernel_timing.operands, each first checked against the
-    kernel's result: torch.baddbmm for the residual, cuSOLVER's LDL^T
-    through torch.linalg for the factor (Bunch-Kaufman pivoted, of
-    K + diag(reg) formed outside the timing) and for the substitution
-    (the port's factor with identity pivots).  The refined solve has
-    none."""
+def library_calls(op, forms):
+    """{(name, R): one PyTorch call computing the same function} for each
+    form of `forms` that has one, on the operands of
+    kernel_timing.operands, each first checked against the kernel's
+    result: torch.baddbmm for the residual, cuSOLVER's LDL^T through
+    torch.linalg for the factor (Bunch-Kaufman pivoted, of K + diag(reg)
+    formed outside the timing) and for the substitution (the port's
+    factor with identity pivots).  The refined solve has none."""
+    from cuclarabel_torch.kkt import ldl
+
     K, reg, L, Dinv = op["K"], op["reg"], op["L"], op["Dinv"]
-    LD, piv = ldl_library_operands(L, Dinv)
-    Kreg = K + torch.diag_embed(reg)
-    b3, x3 = op["b"][:, :, None], op["x"][:, :, None].contiguous()
-    b2, x2 = op["b2"], op["x2"]
-    LDf, pivf = torch.linalg.ldl_factor(Kreg)
-    check_library("ldl_factor", torch.linalg.ldl_solve(LDf, pivf, b3)[..., 0],
-                  op["x"], TOL_LIB_F64)
-    return {
-        ("ldl_factor", 1): lambda: torch.linalg.ldl_factor(Kreg),
-        ("ldl_solve", 1): checked(
-            "ldl_solve", lambda: torch.linalg.ldl_solve(LD, piv, b3),
-            op["x"][:, :, None]),
-        ("ldl_solve", 2): checked(
-            "ldl_solve r=2", lambda: torch.linalg.ldl_solve(LD, piv, b2), x2),
-        ("kkt_residual", 1): lambda: torch.baddbmm(b3, K, x3, alpha=-1),
-        ("kkt_residual", 2): lambda: torch.baddbmm(b2, K, x2, alpha=-1),
-    }
+    rhs = {1: (op["b"][:, :, None], op["x"][:, :, None].contiguous()),
+           2: (op["b2"], op["x2"])}
+    out = {}
+    for name, R in forms:
+        b, x = rhs[R]
+        if name == "ldl_factor":
+            Kreg = K + torch.diag_embed(reg)
+            LDf, pivf = torch.linalg.ldl_factor(Kreg)
+            check_library("ldl_factor",
+                          torch.linalg.ldl_solve(LDf, pivf, b)[..., 0],
+                          op["x"], TOL_LIB_F64)
+            out[(name, R)] = lambda Kreg=Kreg: torch.linalg.ldl_factor(Kreg)
+        elif name == "ldl_solve":
+            LD, piv = ldl_library_operands(L, Dinv)
+            out[(name, R)] = checked(
+                f"ldl_solve r={R}",
+                lambda LD=LD, piv=piv, b=b: torch.linalg.ldl_solve(LD, piv,
+                                                                   b), x)
+        elif name == "kkt_residual":
+            want = ldl.kkt_residual_plain(K, x, b)
+            out[(name, R)] = checked(
+                f"kkt_residual r={R}",
+                lambda b=b, x=x: torch.baddbmm(b, K, x, alpha=-1), want)
+    return out
 
 
 def checked(name, fn, want):
@@ -1364,50 +1832,41 @@ def library_ms(fn):
     return ms if ms >= LIB_SLOW_MS else cuda_ms(fn, 20)
 
 
-def phase_kernel_timing(card):
-    """The f64 kernels at N = 76 and each of TIMING_WIDTHS, and at N = 104
-    and each of kernel_timing.NONSYM_WIDTHS
-    (cuclarabel_torch.kernel_timing: device time, CUDA events at
-    B = 4096, plain version, bound, occupancy), each beside its library
-    call.  Returns {kernel: {"B<B>_r<R>": numbers}}."""
-    from cuclarabel_torch.kkt import ldl
+# the numbers of a kernel form's row kept in the kernels line's by_shape
+ROW_KEYS = ("ms", "timed_by", "events_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "blocks_per_sm", "warps_per_sm",
+            "registers", "spill_bytes")
 
+
+def phase_kernel_timing(card):
+    """The f64 kernels at N = 76 and each of TIMING_WIDTHS, at N = 104 and
+    each of kernel_timing.NONSYM_WIDTHS, and at the PSD paths' (90, 4096)
+    and (127, 1) (cuclarabel_torch.kernel_timing: device time, CUDA
+    events at B = 4096, plain version, bound, occupancy), each beside its
+    library call where it has one, at every shape (cuSOLVER's LDL^T
+    through torch.linalg loops over the batch on the host, a call of
+    seconds at B = 4096, timed once).  Returns {kernel: {"B<B>_r<R>" at
+    N = 76, "N<N>_B<B>_r<R>" elsewhere: numbers}}."""
     out = {}
-    for B in TIMING_WIDTHS:
-        rows, op = kt.time_width(B, forms=kt.F64_FORMS)
-        lib = library_calls(op)
+    shapes = ([(kt.MAIN_NM, B, kt.F64_FORMS, kt.F64_FORMS, "")
+               for B in TIMING_WIDTHS]
+              + [(kt.NONSYM_NM, B, kt.NONSYM_FORMS, kt.NONSYM_FORMS, "N104_")
+                 for B in kt.NONSYM_WIDTHS]
+              + [(nm, B, kt.PSD_FORMS, kt.PSD_FORMS,
+                  f"N{sum(nm)}_") for nm, B in kt.PSD_SHAPES
+                 if (sum(nm), B) in PSD_TIMED])
+    for nm, B, forms, lib_forms, tag in shapes:
+        rows, op = kt.time_width(B, forms=forms, nm=nm)
+        lib = library_calls(op, lib_forms)
         for row in rows:
             fn = lib.get((row["name"], row["R"]))
             row["library_ms"] = library_ms(fn) if fn is not None else None
             print(kt.row_line(card, row) + ", library "
-                  + (f"{row['library_ms']:.4f} ms"
-                     if fn is not None else "none"), flush=True)
-            out.setdefault(row["name"], {})[f"B{B}_r{row['R']}"] = {
-                k: row[k] for k in (
-                    "ms", "timed_by", "events_ms", "plain_ms", "library_ms",
-                    "bound_ms", "bound_by", "blocks_per_sm", "warps_per_sm",
-                    "registers", "spill_bytes") if k in row}
-    # the nonsymmetric path's N = 104, the forms it launches; of the
-    # library calls only torch.baddbmm (cuSOLVER's host loop takes
-    # seconds a call at this width and is timed at N = 76)
-    for B in kt.NONSYM_WIDTHS:
-        rows, op = kt.time_width(B, forms=kt.NONSYM_FORMS, nm=kt.NONSYM_NM)
-        b3, x3 = op["b"][:, :, None], op["x"][:, :, None].contiguous()
-        lib = {"kkt_residual": checked(
-            "kkt_residual N=104", lambda: torch.baddbmm(b3, op["K"], x3,
-                                                        alpha=-1),
-            ldl.kkt_residual_plain(op["K"], op["x"], op["b"])[:, :, None])}
-        for row in rows:
-            fn = lib.get(row["name"])
-            row["library_ms"] = library_ms(fn) if fn is not None else None
-            print(kt.row_line(card, row) + ", library "
-                  + (f"{row['library_ms']:.4f} ms"
-                     if fn is not None else "not timed"), flush=True)
-            out[row["name"]][f"N104_B{B}_r1"] = {
-                k: row[k] for k in (
-                    "ms", "timed_by", "events_ms", "plain_ms", "library_ms",
-                    "bound_ms", "bound_by", "blocks_per_sm", "warps_per_sm",
-                    "registers", "spill_bytes") if k in row}
+                  + (f"{row['library_ms']:.4f} ms" if fn is not None else
+                     "none" if row["name"] == "ldl_solve_refine" else
+                     "not timed"), flush=True)
+            out.setdefault(row["name"], {})[f"{tag}B{B}_r{row['R']}"] = {
+                k: row[k] for k in ROW_KEYS if k in row}
     return out
 
 
@@ -1540,12 +1999,15 @@ def main():
     batch_times = phase_timing(card, runs)
     nonsym_paths, nonsym = phase_nonsym(card)
     paths.update(nonsym_paths)
+    psd_paths, psd = phase_psd(card)
+    paths.update(psd_paths)
     times.update(probe_times)
     print(json.dumps({"solver_n76": solver_times}))
     print(json.dumps({"batch_B4096": {"staged_vs_plain": staged,
                                       "timing": batch_times},
                       "batch_B256_warm": warm}))
     print(json.dumps({"nonsymmetric": nonsym}))
+    print(json.dumps({"psd": psd}))
     print(json.dumps({"kernels": kernel_entries(paths, errs, times)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

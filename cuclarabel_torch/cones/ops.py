@@ -4,10 +4,11 @@ The counterpart of `cuclarabel_tpu/cones/ops.py`, with the reference's
 names.  Every vector carries a leading batch dimension, (B, m); per-cone
 scalars are (B, nsoc) and per-problem scalars (B,).  Zero / nonnegative
 cones are masked elementwise ops; second-order cones run as segment sums
-(`index_add_`) over the gathered (B, msoc) subvector; exponential, power
-and generalised power cones are dispatched to `exp.py`, `pow.py` and
-`genpow.py` from the composite entry points here, as in the reference.
-PSD cones are not ported yet and raise NotImplementedError.
+(`index_add_`) over the gathered (B, msoc) subvector; exponential, power,
+generalised power and PSD triangle cones are dispatched to `exp.py`,
+`pow.py`, `genpow.py` and `psd.py` from the composite entry points here,
+as in the reference.  The reference's sparse-KKT Hs values
+(`sparse_hs_values`) are not ported: the port has no sparse KKT yet.
 """
 
 import functools
@@ -18,6 +19,7 @@ import torch
 from . import exp as expcone
 from . import genpow as gpcone
 from . import pow as powcone
+from . import psd as psdcone
 from .layout import ConeLayout
 
 FMAX = float(np.finfo(np.float64).max)
@@ -27,20 +29,10 @@ PRIMAL = 0
 DUAL = 1
 
 
-def require_supported(layout: ConeLayout) -> None:
-    """Raise for the cone types the port does not cover yet."""
-    if layout.has_psd:
-        raise NotImplementedError(
-            "cuclarabel_torch covers zero, nonnegative, second-order, "
-            "exponential, power and generalised power cones; "
-            "PSDTriangleConeT is not ported yet")
-
-
 class _Plan:
     """The layout's index plans as tensors on one device."""
 
     def __init__(self, layout: ConeLayout, device):
-        require_supported(layout)
         t = functools.partial(torch.as_tensor, device=device)
         self.nn_mask = t(layout.nn_mask)
         self.zero_mask = t(layout.zero_mask)
@@ -86,6 +78,9 @@ class _Plan:
                 seg[layout.gp_idx2[i][layout.gp_mask2[i]]] = i
             self.gp_same = t((seg[:, None] == seg[None, :])
                              & (seg >= 0)[:, None])
+        if layout.has_psd:
+            self.psd_groups = [psdcone.Group(r, idx, m, device) for r, idx
+                               in sorted(layout.psd_groups.items())]
 
 
 @functools.lru_cache(maxsize=64)
@@ -221,6 +216,8 @@ def unit_initialization(layout: ConeLayout, batch: int, device):
         s = _set(s, p.pow_flat, sp.reshape(batch, -1))
     if layout.has_genpow:
         z, s = gpcone.unit_init(p, z, s)
+    if layout.has_psd:
+        z, s = psdcone.unit_init(p, z, s)
     return z, s
 
 
@@ -240,6 +237,10 @@ def margins(layout: ConeLayout, z, pd: int):
         am = z0 - t
         alpha = torch.minimum(alpha, am.amin(dim=1))
         beta = beta + torch.clamp(am, min=0.0).sum(dim=1)
+    if layout.has_psd:
+        a_p, b_p = psdcone.margins(p, z)
+        alpha = torch.minimum(alpha, a_p)
+        beta = beta + b_p
     # zero cone contributes (FMAX, 0) (coneops_zerocone.jl:27-39)
     return alpha, beta
 
@@ -253,6 +254,8 @@ def scaled_unit_shift(layout: ConeLayout, z, alpha, pd: int):
         z = torch.where(p.nn_mask, z + a, z)
     if layout.has_soc:
         z = z.index_add(1, p.soc_head_full, a.expand(-1, layout.nsoc))
+    if layout.has_psd:
+        z = psdcone.scaled_unit_shift(p, z, a)
     if layout.has_zero and pd == PRIMAL:
         z = torch.where(p.zero_mask, 0.0, z)
     return z
@@ -296,6 +299,8 @@ def set_identity_scaling(layout: ConeLayout, batch: int, device):
         state["soc_lam"] = e1.clone()
         state["soc_eta"] = torch.ones(batch, layout.nsoc, dtype=f64,
                                       device=device)
+    if layout.has_psd:
+        state.update(psdcone.identity_scaling(p, batch))
     # nonsymmetric cones never use identity scaling (their start is the
     # unit initialization)
     if layout.has_exp:
@@ -365,6 +370,11 @@ def update_scaling(layout: ConeLayout, s, z, mu, scaling_flag):
         state["soc_eta"] = eta
         ok = ok & ok_soc.all(dim=1)
 
+    if layout.has_psd:
+        st, okp = psdcone.update_scaling(p, s, z)
+        state.update(st)
+        ok = ok & okp
+
     if layout.has_nonsymmetric:
         mu = _per_problem(mu, s)
         flag = _per_problem(scaling_flag, s, torch.int32)
@@ -408,6 +418,8 @@ def assemble_Hs_dense(layout: ConeLayout, state):
         jdiag = _set(any_t.new_zeros(B, layout.m), p.soc_idx,
                      (eta ** 2)[:, seg] * p.soc_sign)
         H = H - torch.diag_embed(jdiag)
+    if layout.has_psd:
+        H = psdcone.add_Hs_dense(p, state, H)
     if layout.has_exp:
         H = expcone.add_Hs_dense(p, state, H)
     if layout.has_pow:
@@ -431,6 +443,8 @@ def mul_Hs(layout: ConeLayout, state, x):
         wx = _soc_full_dot(layout, wg, xg)
         yg = eta2[:, seg] * (2.0 * wx[:, seg] * wg - p.soc_sign * xg)
         y = _set(y, p.soc_idx, yg)
+    if layout.has_psd:
+        y = psdcone.mul_Hs(p, state, x, y)
     if layout.has_exp:
         y = expcone.mul_Hs(p, state, x, y)
     if layout.has_pow:
@@ -455,6 +469,8 @@ def affine_ds(layout: ConeLayout, state, s):
     if layout.has_soc:
         lam = state["soc_lam"]
         ds = _set(ds, p.soc_idx, _soc_circ(layout, lam, lam))
+    if layout.has_psd:
+        ds = psdcone.affine_ds(p, state, ds)
     return _copy_nonsymmetric(layout, p, s, ds)
 
 
@@ -491,6 +507,9 @@ def combined_ds_shift(layout: ConeLayout, state, step_z, step_s, sigma_mu, z):
         vals = vals.index_add(1, p.soc_headpos, -smu.expand(-1, layout.nsoc))
         shift = _set(shift, p.soc_idx, vals)
     smu = smu[:, 0]
+    if layout.has_psd:
+        shift = psdcone.combined_ds_shift(p, state, step_z, step_s, smu,
+                                          shift)
     if layout.has_exp:
         shift = expcone.combined_ds_shift(p, state, step_z, step_s, smu,
                                           shift)
@@ -537,6 +556,9 @@ def centrality_correction(layout: ConeLayout, state, z_t, s_t, lo, hi):
         vals = tail_coef[:, seg] * torch.where(p.soc_is_head, 0.0, u)
         vals = _set(vals, hp, 0.5 * (dp + dm))
         corr = _set(corr, p.soc_idx, vals)
+    if layout.has_psd:
+        corr = psdcone.centrality_correction(p, state, z_t, s_t, lo_c, hi_c,
+                                             corr)
     return corr
 
 
@@ -571,6 +593,8 @@ def ds_from_dz_offset(layout: ConeLayout, state, ds, z):
         add = add.index_add(1, hp, eta * w1ds1)
         val = (val + add) / _safe_nonzero(lam0)[:, seg]
         out = _set(out, p.soc_idx, val)
+    if layout.has_psd:
+        out = psdcone.ds_from_dz_offset(p, state, ds, out)
     return _copy_nonsymmetric(layout, p, ds, out)
 
 
@@ -639,6 +663,9 @@ def step_length(layout: ConeLayout, state, dz, ds, z, s, alpha_max, settings):
     if layout.has_soc:
         alpha = torch.minimum(alpha, _soc_step_limit(layout, z, dz, alpha_max))
         alpha = torch.minimum(alpha, _soc_step_limit(layout, s, ds, alpha_max))
+    if layout.has_psd:
+        alpha = psdcone.step_length(plan(layout, z.device), state, dz, ds,
+                                    _per_problem(alpha, z))
     if layout.has_nonsymmetric:
         p = plan(layout, z.device)
         alpha = torch.clamp(_per_problem(alpha, z), max=1.0 - np.sqrt(EPS))
@@ -668,6 +695,8 @@ def compute_barrier(layout: ConeLayout, z, s, dz, ds, alpha):
         good = (res_s > 0) & (res_z > 0)
         terms = torch.where(good, -0.5 * _logsafe(res_s * res_z), torch.inf)
         barrier = barrier + terms.sum(dim=1)
+    if layout.has_psd:
+        barrier = barrier + psdcone.compute_barrier(p, z, s, dz, ds, alpha)
     if layout.has_exp:
         barrier = barrier + expcone.compute_barrier(p, z, s, dz, ds, alpha)
     if layout.has_pow:

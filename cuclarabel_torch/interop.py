@@ -94,8 +94,12 @@ def scaling_state_from_reference(layout, states, device="cpu"):
     states of the cones of `layout` (one dict per problem, e.g.
     `cones/ops.update_scaling`'s, as numpy arrays): each entry stacked
     over the problems into a (B, ...) f64 tensor, so that the two sides'
-    cone operations can be applied to one and the same state."""
+    cone operations can be applied to one and the same state.  The PSD
+    cones' `psd{r}_R`, `psd{r}_Rinv` (k, r, r) and `psd{r}_lam` (k, r)
+    become (B, k, r, r) and (B, k, r)."""
     counts = {"exp": layout.nexp, "pow": layout.npow, "gp": layout.ngp}
+    counts.update({f"psd{r}": idx.shape[0]
+                   for r, idx in layout.psd_groups.items()})
     out = {}
     for k in states[0]:
         v = np.stack([np.asarray(st[k], dtype=np.float64) for st in states])

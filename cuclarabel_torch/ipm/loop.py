@@ -123,7 +123,6 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
     state0() is the initial state, loop_pass(state, unsolved) one pass
     committed where `unsolved`, post(state) the results; `run_passes`
     drives the passes."""
-    cone_ops.require_supported(layout)
     if settings.direct_solve_method not in ("auto", "dense"):
         raise NotImplementedError(
             f"direct_solve_method={settings.direct_solve_method!r} is not "

@@ -4,12 +4,13 @@ main path's shapes.
     python3 -m cuclarabel_torch.kernel_timing
 
 At N = 76 (the KKT dimension of the portfolio SOCP with nass = 32) and
-each width B of WIDTHS, and at N = 104 (`problems.exp_logistic(4, 10,
+each width B of WIDTHS, at N = 104 (`problems.exp_logistic(4, 10,
 ...)`) and each width of NONSYM_WIDTHS for the forms that path launches,
-every kernel form of `kkt/ldl.py` -- ldl_factor,
-and ldl_solve, kkt_residual and ldl_solve_refine (npass = 1) with R = 1
-and R = 2 -- and the f32 ldl_factor_batched and ldl_solve_batched of
-`kkt/ldl_f32.py`, on the same K in f32, is timed:
+and at the PSD paths' (N, B) of PSD_SHAPES for theirs, every kernel form
+of `kkt/ldl.py` -- ldl_factor, and ldl_solve, kkt_residual and
+ldl_solve_refine (npass = 1) with R = 1 and R = 2 -- and the f32
+ldl_factor_batched and ldl_solve_batched of `kkt/ldl_f32.py`, on the
+same K in f32, is timed:
 
 - ms: the kernel's own duration on the device (torch.profiler; CUDA
   events around each launch where the profiler dropped its launches,
@@ -69,6 +70,14 @@ NONSYM_NM = (34, 70)
 NONSYM_WIDTHS = (4096, 1)
 NONSYM_FORMS = (("ldl_factor", 1), ("ldl_solve", 1), ("kkt_residual", 1),
                 ("ldl_solve_refine", 1))
+# the PSD paths' (n, m) blocks and widths: the max-cut batch
+# (problems.maxcut_sdp(12, B, ...), N = 90) at B = 4096 and 256, the PSD
+# min-eig batch (problems.psd_min_eig(8, 256, ...), N = 73), and the
+# Solver on problems.sdp_chordal_banded(11, 2, 6) after its compact
+# chordal decomposition (N = 127) at B = 1; and the forms they launch
+PSD_SHAPES = (((12, 78), 4096), ((12, 78), 256), ((36, 37), 256),
+              ((54, 73), 1))
+PSD_FORMS = NONSYM_FORMS + (("ldl_solve_refine", 2),)
 # the width at which CUDA events time the kernel rather than the host
 EVENTS_WIDTH = 4096
 F64_FORMS = (("ldl_factor", 1), ("ldl_solve", 1), ("ldl_solve", 2),
@@ -434,6 +443,9 @@ def main():
             print(row_line(card, row), flush=True)
     for B in NONSYM_WIDTHS:
         for row in time_width(B, NONSYM_FORMS, cold=True, nm=NONSYM_NM)[0]:
+            print(row_line(card, row), flush=True)
+    for nm, B in PSD_SHAPES:
+        for row in time_width(B, PSD_FORMS, cold=True, nm=nm)[0]:
             print(row_line(card, row), flush=True)
     return 0
 

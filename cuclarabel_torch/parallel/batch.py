@@ -22,10 +22,15 @@ gathered data in stage 2, which avoids moving the equilibrated data
 between two compiled programs.  Here both stages run eagerly on the same
 tensors.
 
-Every cone type but PSD is covered: the exponential, power and
-generalised power cones run the reference's per-problem strategy ladder
-(`ipm/loop.py`), whose state moves with the stragglers like the rest.
-Not ported yet: PSD cones, and sharding over several devices.
+Every cone type is covered: the exponential, power and generalised power
+cones run the reference's per-problem strategy ladder (`ipm/loop.py`),
+whose state moves with the stragglers like the rest.  The cone scaling
+state (the PSD cones' R, Rinv and lambda among it) is recomputed from
+the iterate at the start of every pass and is not part of the loop
+state, so stage 2 needs nothing cone-specific.  A batch runs no chordal
+decomposition (its augmentation depends on each problem's sparsity, as
+the reference's batch path skips it too).  Not ported yet: sharding over
+several devices.
 """
 
 import time

@@ -6,9 +6,30 @@ from .cones.api import (
     ExponentialConeT,
     GenPowerConeT,
     NonnegativeConeT,
+    PSDTriangleConeT,
     SecondOrderConeT,
     ZeroConeT,
 )
+
+
+def svec(M) -> np.ndarray:
+    """The svec of a symmetric matrix: its upper triangle column by
+    column, off-diagonal entries times sqrt(2) (the PSD cones' storage,
+    `cones/psd.py`)."""
+    d = M.shape[0]
+    return np.array([M[i, j] * (1.0 if i == j else np.sqrt(2.0))
+                     for j in range(d) for i in range(j + 1)])
+
+
+def smat(v, d: int) -> np.ndarray:
+    """The symmetric (d, d) matrix of an svec."""
+    M = np.zeros((d, d))
+    a = 0
+    for j in range(d):
+        for i in range(j + 1):
+            M[i, j] = M[j, i] = v[a] / (1.0 if i == j else np.sqrt(2.0))
+            a += 1
+    return M
 
 
 def portfolio_socp(nass: int, batch: int, seed: int = 0):
@@ -112,3 +133,83 @@ def genpow_family(ncones: int, batch: int, seed: int = 0):
                                    for a in alphas]
     per_beta = sum(a ** a * (1.0 - a) ** (1.0 - a) for a in alphas)
     return None, np.tile(q, (batch, 1)), A, bs, cones, -beta * per_beta
+
+
+def maxcut_sdp(nv: int, batch: int, seed: int = 0):
+    """Goemans-Williamson max-cut SDP relaxations in their dual form:
+    min sum(y) s.t. Diag(y) - L/4 in the PSD cone, written as
+    s = b - A y with A's columns -svec(E_ii) (shared) and b = svec(-L/4),
+    L the weighted Laplacian of an Erdos-Renyi graph on nv vertices (edge
+    probability 0.5, weights uniform on [0, 1)) drawn from
+    default_rng(seed + i) for problem i.  The optimum is the relaxation's
+    bound on the cut; the primal certificate is X = mat(z) with
+    diag(X) = 1, X PSD and <L/4, X> = sum(y).  Returns (P, qs, A, bs,
+    cones, laplacians), P None; nv = 12 gives n = 12, m = 78 and a KKT
+    dimension of 90."""
+    sd = nv * (nv + 1) // 2
+    A = np.zeros((sd, nv))
+    for i in range(nv):
+        A[:, i] = -svec(np.diag(np.eye(nv)[i]))
+    Ls = np.zeros((batch, nv, nv))
+    for i in range(batch):
+        rng = np.random.default_rng(seed + i)
+        W = np.triu((rng.random((nv, nv)) < 0.5) * rng.random((nv, nv)), 1)
+        W = W + W.T
+        Ls[i] = np.diag(W.sum(1)) - W
+    bs = np.stack([svec(-L / 4.0) for L in Ls])
+    return (None, np.ones((batch, nv)), A, bs, [PSDTriangleConeT(nv)], Ls)
+
+
+def psd_min_eig(d: int, batch: int, seed: int = 0):
+    """min tr(C X) s.t. tr X = 1, X in the PSD cone, whose optimum is
+    lambda_min(C): the reference's batched PSD family
+    (tests/test_batch_sharding.py::test_batch_psd_matches_single), C of
+    problem i the symmetric part of the i-th standard normal (d, d) draw
+    of default_rng(seed).  Returns (P, qs, A, bs, cones, optima), P None;
+    d = 8 gives n = 36, m = 37 and a KKT dimension of 73."""
+    rng = np.random.default_rng(seed)
+    sd = d * (d + 1) // 2
+    Cs = [(lambda M: (M + M.T) / 2)(rng.standard_normal((d, d)))
+          for _ in range(batch)]
+    qs = np.stack([svec(C) for C in Cs])
+    A = np.vstack([svec(np.eye(d))[None, :], -np.eye(sd)])
+    bs = np.tile(np.concatenate([[1.0], np.zeros(sd)]), (batch, 1))
+    optima = np.array([np.linalg.eigvalsh(C)[0] for C in Cs])
+    return None, qs, A, bs, [ZeroConeT(1), PSDTriangleConeT(d)], optima
+
+
+def sdp_chordal_banded(nv: int, bw: int, seed: int):
+    """min tr(C X) s.t. X_ij = M_ij on the off-diagonal band, X
+    PSD-completable: the cone rows touch only the band's svec entries,
+    so chordal decomposition splits the cone into a chain of cliques.
+    The reference suite's `benchmarks/suite.py::sdp_chordal_banded`,
+    returning its data (P, q, A, b, cones), P None, instead of solving.
+    With the Solver's default settings (compact decomposition) nv = 11,
+    bw = 2 gives a KKT dimension of 127, nv = 12 one of 141."""
+    rng = np.random.default_rng(seed)
+    sd = nv * (nv + 1) // 2
+    band_idx, diag_flag = [], []
+    a = 0
+    for j in range(nv):
+        for i in range(j + 1):
+            if j - i <= bw:
+                band_idx.append(a)
+                diag_flag.append(i == j)
+            a += 1
+    ny = len(band_idx)
+    q = np.zeros(ny)
+    rows, bs = [], []
+    for t in range(ny):
+        if diag_flag[t]:
+            q[t] = rng.random() + 0.5       # tr(C X) on the diagonal
+        else:
+            r = np.zeros(ny)
+            r[t] = 1.0
+            rows.append(r)
+            bs.append(0.3 * np.sqrt(2.0) * (0.5 + 0.1 * (t % 5)))
+    Apsd = np.zeros((sd, ny))
+    for t, bi in enumerate(band_idx):
+        Apsd[bi, t] = -1.0
+    A = np.vstack([np.vstack(rows), Apsd])
+    b = np.concatenate([np.asarray(bs), np.zeros(sd)])
+    return None, q, A, b, [ZeroConeT(len(rows)), PSDTriangleConeT(nv)]

@@ -18,11 +18,16 @@ paths: BatchSolver on `problems.exp_logistic(4, 10, B, 5)` (N = 104) at
 B = 4096 (staged by default) and 256 (`batch_exp_B4096`,
 `batch_exp_B256`), on `problems.genpow_family(8, 256, 9)` (N = 56,
 `batch_genpow_B256`), and Solver on exp_logistic's problem 0
-(`solver_exp_n104`).  The module needs nothing of `cuclarabel_torch`
-that an earlier version lacks: a copy placed in another checkout's
-package digests that checkout's solves, so that two versions can be
-compared in one run; a version without the nonsymmetric cones reports
-those paths as skipped.  Needs a CUDA device.
+(`solver_exp_n104`).  Then the PSD paths: BatchSolver on
+`problems.maxcut_sdp(12, B, 11)` (N = 90) at B = 4096 with
+batch_compaction=0.0 and at B = 256 (`batch_maxcut_B4096_plain`,
+`batch_maxcut_B256`), and Solver on `problems.sdp_chordal_banded(11, 2,
+6)` after its chordal decomposition (N = 127, `solver_chordal_n127`).
+The module needs nothing of `cuclarabel_torch` that an earlier version
+lacks: a copy placed in another checkout's package digests that
+checkout's solves, so that two versions can be compared in one run; a
+version without the nonsymmetric or the PSD cones reports those paths as
+skipped.  Needs a CUDA device.
 """
 
 import hashlib
@@ -44,6 +49,15 @@ NONSYM_PATHS = (
     ("batch_genpow_B256", lambda pr: pr.genpow_family(8, 256, 9)[:5],
      False),
     ("solver_exp_n104", lambda pr: pr.exp_logistic(4, 10, 1, 5), True),
+)
+# (path, (cuclarabel_torch, its problems module) -> solutions)
+PSD_PATHS = (
+    ("batch_maxcut_B4096_plain", lambda ct, pr: ct.BatchSolver(
+        *pr.maxcut_sdp(12, 4096, 11)[:5], batch_compaction=0.0).solve()),
+    ("batch_maxcut_B256", lambda ct, pr: ct.BatchSolver(
+        *pr.maxcut_sdp(12, 256, 11)[:5]).solve()),
+    ("solver_chordal_n127", lambda ct, pr: [
+        ct.Solver(*pr.sdp_chordal_banded(11, 2, 6)).solve()]),
 )
 
 
@@ -68,16 +82,10 @@ def main():
 
     for path, B, settings, compare in BATCH_PATHS:
         A, qs, bs, cones = portfolio_socp(NASS, B, seed=7)
-        d = digest(ct.BatchSolver(None, qs, A, bs, cones,
-                                  **settings).solve())
-        iters = d.pop("iterations")
-        d.update(iterations_sum=sum(iters), iterations_max=max(iters))
-        print(json.dumps({"path": path, "compare": compare, **d}),
-              flush=True)
+        report(path, ct.BatchSolver(None, qs, A, bs, cones,
+                                    **settings).solve(), compare)
     A, qs, bs, cones = portfolio_socp(NASS, 1, seed=7)
-    d = digest([ct.Solver(None, qs[0], A, bs[0], cones).solve()])
-    print(json.dumps({"path": "solver_n76", "compare": True, **d}),
-          flush=True)
+    report("solver_n76", [ct.Solver(None, qs[0], A, bs[0], cones).solve()])
     from cuclarabel_torch import problems
 
     for path, make, single in NONSYM_PATHS:
@@ -91,11 +99,23 @@ def main():
             sols = [ct.Solver(P, qs[0], A[0], bs[0], cones).solve()]
         else:
             sols = ct.BatchSolver(*data).solve()
-        d = digest(sols)
-        iters = d.pop("iterations")
-        d.update(iterations_sum=sum(iters), iterations_max=max(iters))
-        print(json.dumps({"path": path, "compare": True, **d}), flush=True)
+        report(path, sols)
+    for path, make in PSD_PATHS:
+        if not hasattr(problems, "maxcut_sdp"):
+            print(json.dumps({"path": path, "skipped": "not in this "
+                              "version"}), flush=True)
+            continue
+        report(path, make(ct, problems))
     return 0
+
+
+def report(path, sols, compare=True):
+    """Print one path's digest line, the iterations as their sum and
+    maximum."""
+    d = digest(sols)
+    iters = d.pop("iterations")
+    d.update(iterations_sum=sum(iters), iterations_max=max(iters))
+    print(json.dumps({"path": path, "compare": compare, **d}), flush=True)
 
 
 if __name__ == "__main__":

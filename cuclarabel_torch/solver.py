@@ -20,10 +20,11 @@ Differences from the reference:
   * `solve(profile_dir=...)` writes a torch.profiler trace (Chrome trace
     JSON, host and device activity) where the reference writes a
     jax.profiler one;
-  * PSD cones (and with them chordal decomposition) are not ported yet:
-    `setup` raises NotImplementedError for them.  Exponential, power and
-    generalised power cones run the reference's strategy ladder
-    (`ipm/loop.py`).
+  * exponential, power and generalised power cones run the reference's
+    strategy ladder (`ipm/loop.py`); PSD cones are decomposed chordally
+    after presolve (`chordal/`, with the reference's settings) and the
+    solution is put back together before the presolve reverse, as in
+    the reference.
 """
 
 import contextlib
@@ -37,6 +38,7 @@ import torch
 
 from . import info_print, json_io
 from . import presolve as presolve_mod
+from .chordal import ChordalInfo, decomp_augment, decomp_reverse
 from .cones import api
 from .cones.api import SupportedCone, cones_collapsed
 from .cones.layout import build_layout
@@ -171,6 +173,19 @@ class Solver:
             m = b.shape[0]
         self.timers["setup"]["presolve"] = time.perf_counter() - t_ps
 
+        # chordal decomposition of PSD cones (problemdata.jl:40-45)
+        self.chordal_info = None
+        if self.settings.chordal_decomposition_enable and any(
+                isinstance(c, api.PSDTriangleConeT) for c in cones):
+            t_ch = time.perf_counter()
+            info = ChordalInfo(Ad, b, cones, self.settings)
+            if info.is_decomposed():
+                Pd, q, Ad, b, cones = decomp_augment(info, Pd, q, Ad, b,
+                                                     self.settings)
+                n, m = q.shape[0], b.shape[0]
+                self.chordal_info = info
+            self.timers["setup"]["chordal"] = time.perf_counter() - t_ch
+
         # cap b at INFINITY (problemdata.jl:58-62)
         b = np.minimum(b, infbound)
 
@@ -208,7 +223,6 @@ class Solver:
             "normq": self._put(normq),
             "normb": self._put(normb),
         }
-        # raises NotImplementedError for PSD cones (not ported yet)
         self._refresh_solve_fn()
         self.solution: Optional[DefaultSolution] = None
         self.info: Optional[dict] = None
@@ -230,10 +244,10 @@ class Solver:
         e.g. a previous DefaultSolution's fields after an update_data)
         instead of the cold start, as the reference does (no Clarabel
         counterpart); symmetric-cone problems without presolve reductions
-        only."""
+        or chordal decomposition only."""
         dev = dict(self._dev)
         if warm_start is not None:
-            self._check_update_allowed()  # the same presolve guard
+            self._check_update_allowed()  # the same presolve/chordal guards
             wx, ws, wz = validate_warm_start(self.layout, warm_start, self.n,
                                              self.m)
             for k, v in zip(("ws_x", "ws_s", "ws_z"),
@@ -268,7 +282,11 @@ class Solver:
         self.timers["solve"]["solve"] = solve_time
         status = SolverStatus(int(out["status"]))
         x, s, z = out["x"], out["s"], out["z"]
+        # reverse chordal decomposition (solution.jl:30-34), then
         # reverse presolve (solution.jl:36-42)
+        if self.chordal_info is not None:
+            x, s, z = decomp_reverse(self.chordal_info, x, s, z,
+                                     self.settings)
         if self.presolver is not None:
             s, z = presolve_mod.reverse_presolve(self.presolver, s, z)
 
@@ -335,10 +353,14 @@ class Solver:
 
     # -- parametric data updating (src/data_updating.jl) ----------------
     def _check_update_allowed(self):
-        """Updates are forbidden once presolve has reduced rows
-        (check_data_update_allowed, data_updating.jl:149-158)."""
+        """Updates are forbidden once presolve has reduced rows or the
+        PSD cones were decomposed (check_data_update_allowed,
+        data_updating.jl:149-158)."""
         if self.presolver is not None:
             raise ValueError("Data updates not allowed if presolver is active.")
+        if self.chordal_info is not None:
+            raise ValueError(
+                "Data updates not allowed if chordal decomposition is active.")
 
     def is_data_update_allowed(self) -> bool:
         try:

@@ -178,10 +178,6 @@ def test_unported_options_raise():
     data = _data("socp", ct)
     with pytest.raises(NotImplementedError):
         ct.BatchSolver(*data, device="cpu", n_devices=2)
-    _, q, A, b, _ = data
-    with pytest.raises(NotImplementedError):
-        ct.BatchSolver(None, q[:, :3], A[:3, :3], b[:, :3],
-                       [ct.PSDTriangleConeT(2)], device="cpu")
 
 
 def test_exponential_cone_batch_matches_reference():

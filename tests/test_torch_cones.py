@@ -233,9 +233,31 @@ def test_matches_reference(data, name):
                 err_msg=f"{name}[{k}] problem {i}")
 
 
-def test_unsupported_cones_raise():
-    with pytest.raises(NotImplementedError):
-        ops.plan(build_layout((api.PSDTriangleConeT(2),)), "cpu")
+def test_psd_cone_plan_matches_reference():
+    """The PSD triangle cone, which raised before it was ported: its plan
+    holds the layout's size groups, and the unit initialization and the
+    Hs at the identity scaling of a layout with NN and PSD cones of two
+    sides match the reference's (tests/test_torch_psd_units.py holds the
+    rest)."""
+    cones = (api.NonnegativeConeT(2), api.PSDTriangleConeT(3),
+             api.PSDTriangleConeT(2), api.PSDTriangleConeT(3))
+    ref_cones = (ref_api.NonnegativeConeT(2), ref_api.PSDTriangleConeT(3),
+                 ref_api.PSDTriangleConeT(2), ref_api.PSDTriangleConeT(3))
+    layout, ref_layout = build_layout(cones), ref_build_layout(ref_cones)
+    groups = ops.plan(layout, "cpu").psd_groups
+    assert [(g.r, g.idx.tolist()) for g in groups] == [
+        (r, idx.tolist()) for r, idx in sorted(ref_layout.psd_groups.items())]
+    z, s = ops.unit_initialization(layout, B, "cpu")
+    rz, rs = ref_ops.unit_initialization(ref_layout)
+    for got, want in ((z, rz), (s, rs)):
+        for i in range(B):
+            np.testing.assert_array_equal(got[i].numpy(), np.asarray(want))
+    state = ops.set_identity_scaling(layout, B, "cpu")
+    want = np.asarray(ref_ops.assemble_Hs_dense(
+        ref_layout, ref_ops.set_identity_scaling(ref_layout)))
+    got = ops.assemble_Hs_dense(layout, state).numpy()
+    for i in range(B):
+        np.testing.assert_array_equal(got[i], want)
 
 
 def test_exponential_cone_plan_matches_reference():

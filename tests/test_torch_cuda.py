@@ -297,6 +297,56 @@ def test_nonsymmetric_batches_on_card_match_cpu(dev):
             assert abs(g.obj_val - c.obj_val) <= 1e-7 * abs(c.obj_val)
 
 
+def test_psd_batches_on_card_match_cpu(dev):
+    """The max-cut relaxations (N = 90) and the PSD min-eig family
+    (N = 73) on the card against the same batches on the CPU: all
+    SOLVED, the same iterations, objectives within 1e-7 relative; the
+    kernels ran and no plain version did."""
+    import cuclarabel_torch as ct
+    from cuclarabel_torch.kkt import ldl
+    from cuclarabel_torch.problems import maxcut_sdp, psd_min_eig
+
+    for data in (maxcut_sdp(12, 6, 11)[:5], psd_min_eig(8, 6, 3)[:5]):
+        ldl.reset_counts()
+        gpu = ct.BatchSolver(*data).solve()
+        assert not ldl.PLAIN_CALLS and ldl.LAUNCHES["ldl_factor/r1"] > 0
+        assert ldl.LAUNCHES["ldl_solve_refine/r2"] > 0  # the LP init
+        cpu = ct.BatchSolver(*data, device="cpu").solve()
+        for g, c in zip(gpu, cpu):
+            assert g.status == c.status == ct.SolverStatus.SOLVED
+            assert g.iterations == c.iterations
+            assert abs(g.obj_val - c.obj_val) <= 1e-7 * abs(c.obj_val)
+
+
+@pytest.mark.parametrize("r", [3, 6, 8, 12])
+def test_psd_linalg_on_card_matches_numpy(dev, r):
+    """torch.linalg's batched eigvalsh, eigh, cholesky_ex and svd on the
+    card, as cones/psd.py calls them on (B, k, r, r) stacks, against
+    numpy f64: within 1e-12 of the matrix's norm."""
+    rng = np.random.default_rng(r)
+    G = rng.standard_normal((512, 2, r, r))
+    S = G @ np.swapaxes(G, -1, -2) + 1e-3 * np.eye(r)
+    nrm = np.linalg.norm(S, ord=2, axis=(-2, -1))
+    t = torch.tensor(S, device=dev)
+    e = torch.linalg.eigvalsh(t).cpu().numpy()
+    assert (np.abs(e - np.linalg.eigvalsh(S)).max(-1) / nrm).max() < 1e-12
+    lam, V = (a.cpu().numpy() for a in torch.linalg.eigh(t))
+    rec = (V * lam[..., None, :]) @ np.swapaxes(V, -1, -2)
+    assert (np.abs(rec - S).max(axis=(-2, -1)) / nrm).max() < 1e-12
+    L, info = torch.linalg.cholesky_ex(t)
+    assert not bool(info.any())
+    L = L.cpu().numpy()
+    rec = L @ np.swapaxes(L, -1, -2)
+    assert (np.abs(rec - S).max(axis=(-2, -1)) / nrm).max() < 1e-12
+    U, sv, Vh = (a.cpu().numpy() for a in torch.linalg.svd(
+        torch.tensor(G, device=dev)))
+    gn = np.linalg.norm(G, ord=2, axis=(-2, -1))
+    want = np.linalg.svd(G, compute_uv=False)
+    assert (np.abs(sv - want).max(-1) / gn).max() < 1e-12
+    rec = (U * sv[..., None, :]) @ Vh
+    assert (np.abs(rec - G).max(axis=(-2, -1)) / gn).max() < 1e-12
+
+
 def test_batch_solver_on_card_matches_cpu(dev):
     import cuclarabel_torch as ct
     from cuclarabel_torch.kkt import ldl

@@ -30,7 +30,8 @@ print("PORT", sorted(m for m in sys.modules if m.startswith("cuclarabel_torch"))
 """
 
 # modules added with the single-problem Solver, the f32 LDL^T kernels,
-# the issue-rate probes, the solve digests and the nonsymmetric cones
+# the issue-rate probes, the solve digests, the nonsymmetric cones, and
+# the PSD cones with the chordal decomposition
 NEW_MODULES = ("cuclarabel_torch.device", "cuclarabel_torch.equilibration",
                "cuclarabel_torch.info_print", "cuclarabel_torch.json_io",
                "cuclarabel_torch.kkt.ldl_f32", "cuclarabel_torch.presolve",
@@ -40,7 +41,11 @@ NEW_MODULES = ("cuclarabel_torch.device", "cuclarabel_torch.equilibration",
                "cuclarabel_torch.solve_digest",
                "cuclarabel_torch.cones.nonsymmetric",
                "cuclarabel_torch.cones.exp", "cuclarabel_torch.cones.pow",
-               "cuclarabel_torch.cones.genpow")
+               "cuclarabel_torch.cones.genpow", "cuclarabel_torch.cones.psd",
+               "cuclarabel_torch.chordal", "cuclarabel_torch.chordal.decomp",
+               "cuclarabel_torch.chordal.graph",
+               "cuclarabel_torch.chordal.merge",
+               "cuclarabel_torch.chordal.sntree")
 
 
 def _env():

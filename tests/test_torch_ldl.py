@@ -232,3 +232,27 @@ def test_cpu_path_counts_plain_calls(case):
     ldl.ldl_solve_refine(_t(case["K"]), L, Dinv, _t(case["b2"]), 1)
     assert not ldl.LAUNCHES
     assert ldl.PLAIN_CALLS == {"ldl_factor/r1": 1, "ldl_solve_refine/r2": 1}
+
+
+def test_kkt_residual_exact_is_exact():
+    """kkt_residual_exact, the yardstick of the smoke's returned-residual
+    check, against exact rational arithmetic: within one ulp of the
+    exact b - K x of K's lower triangle."""
+    from fractions import Fraction
+
+    from chip_smoke import kkt_residual_exact
+
+    rng = np.random.default_rng(3)
+    B, N = 3, 9
+    K = rng.standard_normal((B, N, N)) * 10.0 ** rng.uniform(-4, 4, (B, N, N))
+    x = rng.standard_normal((B, N)) * 1e4
+    b = rng.standard_normal((B, N))
+    Ks = np.tril(K) + np.transpose(np.tril(K, -1), (0, 2, 1))
+    got = kkt_residual_exact(torch.tensor(K), torch.tensor(x),
+                             torch.tensor(b)).numpy()
+    for i in range(B):
+        for r in range(N):
+            exact = Fraction(b[i, r]) - sum(
+                Fraction(Ks[i, r, j]) * Fraction(x[i, j]) for j in range(N))
+            want = float(exact)
+            assert abs(got[i, r] - want) <= np.spacing(abs(want)), (i, r)

@@ -35,3 +35,28 @@ def test_main_needs_cuda(capsys):
         pytest.skip("a CUDA device is present")
     assert solve_digest.main() == 1
     assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_psd_paths_run_on_the_cpu():
+    """The PSD digest paths build and solve (device="cpu" here, at a
+    small size): each gives solutions to digest."""
+    from cuclarabel_torch import problems
+
+    small = {"maxcut_sdp": lambda nv, B, seed: problems.maxcut_sdp(
+        4, 3, seed), "sdp_chordal_banded": lambda nv, bw, seed:
+        problems.sdp_chordal_banded(6, bw, seed)}
+
+    class Pr:
+        def __getattr__(self, name):
+            return small.get(name, getattr(problems, name))
+
+    class CpuCt:
+        def BatchSolver(self, *a, **k):
+            return ct.BatchSolver(*a, device="cpu", **k)
+
+        def Solver(self, *a, **k):
+            return ct.Solver(*a, device="cpu", **k)
+
+    for path, make in solve_digest.PSD_PATHS:
+        d = solve_digest.digest(make(CpuCt(), Pr()))
+        assert d["statuses"] == ["SOLVED"], path

@@ -23,6 +23,7 @@ import pytest
 
 import cuclarabel_tpu as cc
 import cuclarabel_torch as ct
+from cuclarabel_torch import interop
 from cuclarabel_torch.problems import portfolio_socp
 from tests.test_basic_lp import basic_lp_data
 from tests.test_basic_qp import basic_qp_data
@@ -332,11 +333,20 @@ def test_time_limit_gives_max_time():
     assert sol.iterations == 0
 
 
-@pytest.mark.parametrize("cones", [[ct.PSDTriangleConeT(2)]], ids=["psd"])
-def test_unported_cones_raise(cones):
-    with pytest.raises(NotImplementedError):
-        ct.Solver(None, np.ones(3), -np.eye(3), np.zeros(3), cones,
-                  device="cpu")
+def test_psd_cone_matches_reference():
+    """The PSD triangle cone, which raised before it was ported: the SDP
+    golden of tests/test_basic_sdp.py under "lu" on both sides, the same
+    status and iterations, the objective within 1e-8 relative
+    (tests/test_torch_psd_solver.py holds the rest)."""
+    from tests.test_basic_sdp import basic_sdp_data
+
+    P, q, A, b, cones = basic_sdp_data()
+    want = cc.Solver(P, q, A, b, cones, kkt_solve_method="lu").solve()
+    got = ct.Solver(P, q, A, b, interop.cones_from_reference(cones),
+                    device="cpu", kkt_solve_method="lu").solve()
+    assert got.status == ct.SolverStatus.SOLVED
+    assert got.iterations == want.iterations
+    assert abs(got.obj_val - want.obj_val) <= 1e-8 * abs(want.obj_val)
 
 
 def test_exponential_cone_matches_reference():

@@ -1,15 +1,22 @@
 """How many `problems.exp_logistic(4, 10, B, seed)` problems end
 ALMOST_SOLVED, and how many under Dual scaling, in the reference's and
-the port's batches on the CPU (ROADMAP F8).
+the port's batches on the CPU (ROADMAP F8); with --family maxcut the same
+for `problems.maxcut_sdp(NV, B, seed)`, and with --warm MULT for a
+re-solve warm-started from the cold solutions after update_data(q=MULT q)
+(ROADMAP F11).
 
     JAX_PLATFORMS=cpu python -m tests.torch_f8_rates PIPELINE [B] [SEED]
-        [--unregularised] [--exact-residual]
+        [--unregularised] [--exact-residual] [--regularised]
+        [--family maxcut] [--nv NV] [--warm MULT]
 
 PIPELINE: ref-lu, ref-pallas (the reference's kernels in interpret mode,
 about 5 minutes at B = 300), port-pallas (the plain LDL^T kernels) or
 port-lu.  --unregularised: the port refines against the unregularised
 K, as the reference does; --exact-residual: the port's plain residual
-is summed exactly (Ogita-Rump-Oishi Dot2).  Prints one line: statuses,
+is summed as if in twice the precision (`chip_smoke.kkt_residual_exact`,
+Ogita-Rump-Oishi Dot2); --regularised: the port
+refines against the regularised K on every layout (on symmetric layouts
+it keeps the reference's rule).  Prints one line: statuses,
 the Dual-scaled count, mean and max iterations, the ALMOST_SOLVED
 problems and the seconds taken."""
 
@@ -18,37 +25,6 @@ import collections
 import time
 
 import numpy as np
-import torch
-
-
-def _two_sum(a, b):
-    s = a + b
-    bb = s - a
-    return s, (a - (s - bb)) + (b - bb)
-
-
-def _two_prod(a, b):
-    def split(v):
-        c = 134217729.0 * v  # 2^27 + 1
-        hi = c - (c - v)
-        return hi, v - hi
-    p = a * b
-    ah, al = split(a)
-    bh, bl = split(b)
-    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
-
-
-def exact_residual(K, x, b):
-    """b - K x with K (B, N, N), x and b (B, N) or (B, N, R), accurate to
-    the last bit of the result (Dot2 with b as the first term)."""
-    xr = x.unsqueeze(-1) if x.dim() == 2 else x
-    s = (b.unsqueeze(-1) if b.dim() == 2 else b).clone()
-    c = torch.zeros_like(s)
-    for k in range(K.shape[2]):
-        p, ep = _two_prod(K[:, :, k, None], xr[:, k, None, :])
-        s, es = _two_sum(s, -p)
-        c = c + (es - ep)
-    return (s + c).reshape(b.shape)
 
 
 def main(argv=None):
@@ -59,10 +35,18 @@ def main(argv=None):
     ap.add_argument("seed", nargs="?", type=int, default=1000)
     ap.add_argument("--unregularised", action="store_true")
     ap.add_argument("--exact-residual", action="store_true")
+    ap.add_argument("--regularised", action="store_true")
+    ap.add_argument("--family", choices=("exp_logistic", "maxcut"),
+                    default="exp_logistic")
+    ap.add_argument("--nv", type=int, default=12)
+    ap.add_argument("--warm", type=float, default=None)
     a = ap.parse_args(argv)
-    from cuclarabel_torch.problems import exp_logistic
+    from cuclarabel_torch import problems
 
-    P, qs, A, bs, cones = exp_logistic(4, 10, a.B, a.seed)
+    if a.family == "maxcut":
+        P, qs, A, bs, cones, _ = problems.maxcut_sdp(a.nv, a.B, a.seed)
+    else:
+        P, qs, A, bs, cones = problems.exp_logistic(4, 10, a.B, a.seed)
     t = time.time()
     if a.pipeline.startswith("ref"):
         import jax
@@ -71,7 +55,8 @@ def main(argv=None):
         import cuclarabel_tpu as cc
         from cuclarabel_tpu.parallel import BatchSolver
 
-        rcones = [cc.NonnegativeConeT(10)] + [cc.ExponentialConeT()] * 20
+        rcones = [getattr(cc, type(c).__name__)(
+            *((c.dim,) if hasattr(c, "dim") else ())) for c in cones]
         solver = BatchSolver(P, qs, A, bs, rcones,
                              kkt_solve_method=a.pipeline[4:])
     else:
@@ -80,16 +65,26 @@ def main(argv=None):
 
         if a.unregularised:
             dense.refines_regularised = lambda layout: False
+        if a.regularised:
+            dense.refines_regularised = lambda layout: True
         if a.exact_residual:
-            ldl._residual = exact_residual
+            from chip_smoke import kkt_residual_exact
+            ldl._residual = kkt_residual_exact
         solver = ct.BatchSolver(P, qs, A, bs, cones, device="cpu",
                                 kkt_solve_method=a.pipeline[5:])
     sols = solver.solve()
+    if a.warm is not None:
+        solver.update_data(q=a.warm * qs)
+        sols = solver.solve(warm_start=tuple(
+            np.stack([getattr(s, f) for s in sols]) for f in ("x", "s", "z")))
     status = collections.Counter(s.status.name for s in sols)
     iters = np.array([s.iterations for s in sols])
     dual = int(np.asarray(solver.raw["scaling"]).sum())
     almost = [i for i, s in enumerate(sols) if s.status.name != "SOLVED"]
-    print(f"{a.pipeline} B={a.B} seed={a.seed}"
+    print(f"{a.family} {a.pipeline} B={a.B} seed={a.seed}"
+          f"{f' nv={a.nv}' if a.family == 'maxcut' else ''}"
+          f"{f' warm after q x {a.warm}' if a.warm is not None else ''}"
+          f"{' regularised' if a.regularised else ''}"
           f"{' unregularised' if a.unregularised else ''}"
           f"{' exact-residual' if a.exact_residual else ''}: "
           f"{dict(status)}, Dual {dual}, iterations mean {iters.mean():.2f} "
