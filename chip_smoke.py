@@ -67,7 +67,8 @@ Phases, in order; any failure exits non-zero:
    spill bytes) beside its bound, its
    plain version's time and, where one PyTorch call computes the same
    function, that call's time (cuSOLVER's LDL^T for the factor and
-   the substitution, the residual's torch.baddbmm, at every shape); the f32 kernels at (76, 4096), and the
+   the substitution, the residual's torch.baddbmm, at every shape but
+   (104, 4096) and (90, 4096)); the f32 kernels at (76, 4096), and the
    f64 factor and substitution on the f32 K, by device time.  A kernel's
    `ms` is its device time per launch (torch.profiler, or CUDA events
    around each launch where the profiler dropped its launches:
@@ -96,7 +97,7 @@ Phases, in order; any failure exits non-zero:
    CPU's iterations, objective within 1e-7 of the CPU's and within the
    goldens' 1e-3; then per path the loop passes, kernel launches
    and host syncs per pass (torch.cuda's sync debug mode), iterations,
-   the problems that ended under Dual scaling, warm problems/s over 5
+   the problems that ended under Dual scaling, warm problems/s over 3
    solves (median and spread) and the device busy and idle share of one
    profiled warm solve.
 
@@ -120,6 +121,34 @@ Phases, in order; any failure exits non-zero:
    and objectives within 1e-7 (the reference's iterations printed
    beside the banded rows); then per batch path and the N = 127 Solver
    the record of phase 6.
+
+8. sparse paths, last, each driven with the LDL^T kernels' counters set
+   to 0 just before it and read just after (the sparse paths run none
+   of them: the multifrontal LDL^T is plain torch, QDLDL host C++):
+   SparseSolver on problems.grid_qp(100) (N_kkt = 30,000): SOLVED with
+   r_prim and r_dual < 1e-8, the optimality conditions recomputed in
+   numpy f64 on the host within 1e-7 relative, a second solve bitwise
+   equal in x, z and iterations, update_data(q=1.01 q) re-solved with
+   no new symbolic analysis (the SparseProblem's memo unchanged); the
+   AUG2D-class QP of problems.make_grid_qp_qps(100) (n = 19,800,
+   m = 9,999) through qps.parse_qps, to_clarabel and SparseSolver, its
+   objective within 1e-6 of scipy's spsolve (grid_qp_reference); f32
+   fronts at k = 24 (r_prim, r_dual < 1e-8, x within 1e-6 of f64's);
+   BatchSparseSolver on problems.grid_qp_family(24, 256, 3) with q and
+   b varying, then with the P and A values varying too: every problem
+   SOLVED, the first 8 with the statuses and iterations of single
+   SparseSolver solves on the card and x within 1e-7, problems/s as the
+   median of 3 warm solves with the spread; Solver with
+   direct_solve_method="qdldl" on the QP, LP and SOCP goldens and the
+   portfolio at nass = 64: SOLVED in "lu"'s iterations; a chordal SDP
+   (sdp_chordal_banded(11, 2, 6)) through SparseSolver: SOLVED, the
+   objective within 1e-7 of the dense Solver's.  Per row: cold (the
+   analysis included) and warm wall ms, iterations, loop passes and
+   host syncs per pass, launches per pass, per factorization and per
+   refined solve, the device busy and idle share of one profiled solve,
+   and the peak device memory beside the plan's estimate.  To keep the
+   smoke's time, cuSOLVER's LDL^T is timed at B = 4096 at N = 76 only
+   (phase 5), no longer at N = 104 and 90.
 
 The line before the last is the `kernels` JSON, whose `launches` sums
 the main paths' runs and `launches_per_path` splits them, and whose
@@ -195,7 +224,9 @@ NONSYM_EXP = (("exp_B4096", 4096, {}), ("exp_B4096_plain", 4096,
               ("exp_B256", 256, {}))
 NONSYM_GENPOW_B = 256
 TOL_GENPOW = 1e-6     # genpow objective vs its analytic optimum, relative
-NONSYM_REPS = 5       # warm solves of each nonsymmetric batch path
+# warm solves of each nonsymmetric and PSD path (5 before the sparse
+# phase came: cut to 3 to keep the smoke's time)
+NONSYM_REPS = 3
 # exp_logistic's iterates part about tenfold an iteration once two
 # computations differ at rounding level.  On the card a problem's result
 # does not depend on the batch width (kernels per problem, width-free
@@ -217,7 +248,7 @@ PSD_MAXCUT = (("maxcut_B4096", 4096, {}), ("maxcut_B4096_plain", 4096,
               ("maxcut_B256", 256, {}))
 PSD_MINEIG = (8, 256, 3)  # (d, B, seed)
 TOL_CERT = 1e-7       # the max-cut certificate (diag, lambda_min, gap)
-PSD_REPS = 5          # warm solves of each PSD path
+PSD_REPS = 3
 # torch.linalg's batched routines against numpy f64 at these sides (the
 # PSD cones' stacks), relative to the matrix's norm
 PSD_LINALG_SIDES = (3, 6, 8, 12)
@@ -230,6 +261,29 @@ PSD_TIMED = ((90, 4096), (127, 1))
 PSD_GOLDEN_OBJ = 4.840076866013861
 PSD_REF = {"banded11": (8, 4.514834284121425),
            "banded12": (9, 4.844922766453251)}
+
+# the sparse paths: SparseSolver on problems.grid_qp(100) (N_kkt =
+# 30,000) and on the AUG2D-class QP of problems.make_grid_qp_qps(100)
+# (n = 19,800, m = 9,999) through QPS text; f32 fronts at k = 24;
+# BatchSparseSolver on problems.grid_qp_family(24, 256, 3) (N_kkt =
+# 1,728), q and b varying, then the P and A values too; the host QDLDL
+# Solver on these goldens and portfolio rows; a chordal SDP
+# (problems.sdp_chordal_banded(11, 2, 6)) through SparseSolver
+SPARSE_GRID_K = 100
+SPARSE_AUG2D_K = 100
+SPARSE_SMALL_K = 24
+SPARSE_BATCH = (24, 256, 3)   # (k, B, seed)
+SPARSE_REPS = 3               # warm batch solves for problems/s
+SPARSE_CHORDAL = (11, 2, 6)   # (nv, bw, seed)
+QDLDL_ROWS = ("qp", "lp", "socp", "portfolio64")
+TOL_KKT = 1e-7        # host-checked optimality conditions, relative
+TOL_AUG2D = 1e-6      # AUG2D-class objective vs scipy's spsolve, relative
+TOL_F32_X = 1e-6      # f32 fronts' x vs f64's (tests/test_sparse_solver.py)
+TOL_X_SINGLE = 1e-7   # a batch problem's x vs its single solve's
+# cuSOLVER's LDL^T through torch.linalg loops over the batch on the host
+# (seconds a call at B = 4096): at B = 4096 it is timed at the main
+# path's N = 76 only, so that the sparse phase fits the smoke's time
+LIBRARY_B4096_N = (76,)
 
 REPLACES = {
     "ldl_factor": "cuclarabel_tpu/kkt/pallas_dd.py:1318",
@@ -707,7 +761,7 @@ def solver_problems():
     tests/test_basic_socp.py (copied), and the portfolio SOCP of the
     batch path, one problem at each nass of SOLVER_PORTFOLIOS."""
     import cuclarabel_torch as ct
-    from cuclarabel_torch.problems import portfolio_socp
+    from cuclarabel_torch.problems import portfolio_socp, socp_golden
 
     nn3 = [ct.NonnegativeConeT(3), ct.NonnegativeConeT(3)]
     A0 = np.array([[1.0, 1.0], [1.0, 0.0], [0.0, 1.0]])
@@ -716,14 +770,7 @@ def solver_problems():
                  np.array([-1.0, 0.0, 0.0, 1.0, 0.7, 0.7]), nn3)
     A_box = np.vstack([np.eye(3), -np.eye(3)]) * 2.0
     yield "lp", (None, np.array([3.0, -2.0, 1.0]), A_box, np.ones(6), nn3)
-    P_socp = np.array([
-        [1.4652521089139698, 0.6137176286085666, -1.1527861771130112],
-        [0.6137176286085666, 2.219109946678485, -1.4400420548730628],
-        [-1.1527861771130112, -1.4400420548730628, 1.6014483534926371]])
-    yield "socp", (P_socp, np.array([0.1, -2.0, 1.0]),
-                   np.vstack([A_box, np.eye(3)]),
-                   np.concatenate([np.ones(6), np.zeros(3)]),
-                   nn3 + [ct.SecondOrderConeT(3)])
+    yield "socp", socp_golden()
     for nass in SOLVER_PORTFOLIOS:
         A, q, b, cones = portfolio_socp(nass, 1, seed=7)
         yield f"portfolio{nass}", (None, q[0], A, b[0], cones)
@@ -1476,6 +1523,412 @@ def phase_psd(card):
     return paths, recs
 
 
+# ---------------------------------------------------------------------
+# the sparse paths (phase 8)
+
+def sparse_kkt_launches(solver, Pv, Av):
+    """Kernel launches and device busy ms of one sparse factorization,
+    one refined solve and one paired refined solve of `solver`'s KKT
+    system (a SparseSolver's or a BatchSparseSolver's; Hs of the
+    identity scaling, right-hand sides of ones), each under
+    torch.profiler."""
+    from cuclarabel_torch.cones import ops as cone_ops
+    from cuclarabel_torch.kernel_timing import kernel_events
+    from cuclarabel_torch.kkt.sparse_tpu import make_sparse_tpu_kkt
+    from cuclarabel_torch.profiling import busy_ms
+
+    factorize, solve, _ = make_sparse_tpu_kkt(
+        solver.n, solver.m, solver.settings, solver.layout, solver._sp,
+        device=solver.device)
+    B = Av.shape[0]
+    scal = cone_ops.set_identity_scaling(solver.layout, B, solver.device)
+    parts = cone_ops.sparse_hs_values(solver.layout, scal,
+                                      cone_ops.sparse_hs_plan(solver.layout),
+                                      B, solver.device)
+    rx = torch.ones(B, solver.n, dtype=torch.float64, device=solver.device)
+    rz = torch.ones(B, solver.m, dtype=torch.float64, device=solver.device)
+    fac, ok = factorize(Pv, Av, parts)
+    check(bool(ok.all()), "sparse factorization at the identity scaling "
+          "failed")
+    out = {}
+    for what, fn in (("factor", lambda: factorize(Pv, Av, parts)),
+                     ("solve", lambda: solve(fac, rx, rz)),
+                     ("solve_pair", lambda: solve.pair(fac, rx, rz, rx,
+                                                       rz))):
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        kern = kernel_events(prof)
+        out[what] = {"launches": len(kern), "busy_ms": busy_ms(kern),
+                     "wall_ms": wall}
+        if what != "factor":
+            out[what]["refinement_passes"] = int(res[-1].max())
+    return out
+
+
+def sparse_row(card, name, solver, cold_ms, rerun, peak, estimate,
+               kkt=None, measured=None):
+    """The record of one sparse row: cold and warm wall ms, iterations,
+    loop passes and host syncs per pass, the launches per pass, per
+    factorization and per refined solve, device busy and idle share of
+    one profiled solve, and peak device memory beside the plan's
+    estimate; rerun(r) solves again, nudged by r.  measured = (warm ms,
+    loop passes, host syncs) of solves the caller ran already, else two
+    more solves give them."""
+    if measured is None:
+        (_, passes, syncs) = host_syncs(lambda: rerun(0))
+        t0 = time.perf_counter()
+        rerun(1)
+        warm = (time.perf_counter() - t0) * 1e3
+    else:
+        warm, passes, syncs = measured
+    busy, nkern, pwall = profiled(lambda t: rerun(2 + t))
+    raw = solver.raw if hasattr(solver, "raw") else solver.get_info()
+    it = np.atleast_1d(raw["iterations"])
+    rec = {"cold_ms": cold_ms, "warm_ms": warm,
+           "iterations_mean": float(it.mean()),
+           "iterations_max": int(it.max()), "loop_passes": passes,
+           "host_syncs": syncs, "syncs_per_pass": syncs / passes,
+           "kernel_launches": nkern,
+           "launches_per_pass": None if nkern is None else nkern / passes,
+           "device_busy_ms": busy, "profiled_wall_ms": pwall,
+           "idle_share": None if busy is None else 1.0 - busy / pwall,
+           "max_memory_allocated": peak, "plan_memory_estimate": estimate,
+           "kkt": kkt}
+    print(f"[{card}] {name}: cold {cold_ms:.1f} ms, warm {warm:.1f} ms, "
+          f"iterations mean {rec['iterations_mean']:.2f} max "
+          f"{rec['iterations_max']}, {passes} loop passes, {syncs} host "
+          f"syncs ({rec['syncs_per_pass']:.2f} per pass), "
+          + ("kernel launches not measured" if nkern is None else
+             f"{nkern} kernel launches ({rec['launches_per_pass']:.1f} per "
+             "pass)")
+          + f"; one profiled solve: {busy_text(busy, pwall)}; peak device "
+          f"memory {peak / 1e6:.1f} MB"
+          + ("" if estimate is None else
+             f" (plan estimate {estimate / 1e6:.1f} MB)"), flush=True)
+    if kkt is not None:
+        print(f"[{card}] {name} KKT: " + ", ".join(
+            f"{k} {v['launches']} launches, {v['wall_ms']:.1f} ms wall, "
+            f"{v['busy_ms']:.2f} ms busy"
+            + (f", {v['refinement_passes']} refinement passes"
+               if "refinement_passes" in v else "")
+            for k, v in kkt.items()), flush=True)
+    return rec
+
+
+def plan_estimate(solver):
+    """The NumericPlan's memory estimate of `solver`'s sparse KKT (at its
+    factor width)."""
+    from cuclarabel_torch.kkt.sparse_tpu import make_sparse_tpu_kkt
+
+    factorize, _, host_bufs = make_sparse_tpu_kkt(
+        solver.n, solver.m, solver.settings, solver.layout, solver._sp,
+        device=solver.device)
+    fbytes = 4 if solver.settings.kkt_factor_precision == "float32" else 8
+    return factorize.plan.memory_estimate_bytes(
+        int(host_bufs["kmap"].shape[0]), factor_bytes=fbytes)
+
+
+def cold(make):
+    """(make(), wall ms, peak device memory): a first construction and
+    solve, symbolic analysis included."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = make()
+    torch.cuda.synchronize()
+    return (out, (time.perf_counter() - t0) * 1e3,
+            torch.cuda.max_memory_allocated())
+
+
+def kkt_conditions(P, q, A, b, sol):
+    """The optimality conditions of a QP with nonnegative cones,
+    recomputed in numpy f64 on the host from the returned x, s, z, each
+    relative to the size of its terms: primal and dual residuals, s and
+    z in the cone, and the duality gap."""
+    import scipy.sparse as sp
+
+    Pf = (P + sp.triu(P, 1).T) if P is not None else None
+    x, s, z = sol.x, sol.s, sol.z
+    Ax, ATz = A @ x, A.T @ z
+    Px = Pf @ x if Pf is not None else np.zeros_like(x)
+    inf = lambda v: float(np.abs(v).max()) if v.size else 0.0  # noqa
+    return {
+        "primal": inf(Ax + s - b) / max(1.0, inf(b), inf(Ax), inf(s)),
+        "dual": inf(Px + q + ATz) / max(1.0, inf(q), inf(Px), inf(ATz)),
+        "s_cone": max(0.0, -float(s.min())) / max(1.0, inf(s)),
+        "z_cone": max(0.0, -float(z.min())) / max(1.0, inf(z)),
+        "gap": abs(x @ Px + q @ x + b @ z) / max(
+            1.0, abs(x @ Px), abs(q @ x), abs(b @ z)),
+    }
+
+
+def phase_sparse(card):
+    """The sparse paths on the card, each driven with the LDL^T kernels'
+    launch counters set to 0 just before it and read just after (the
+    sparse paths run none of csrc/'s kernels: the multifrontal is plain
+    torch, QDLDL host C++).  Returns (launches by path, records)."""
+    import scipy.sparse as sp
+
+    import cuclarabel_torch as ct
+    from cuclarabel_torch import problems, qps
+
+    paths, recs = {}, {}
+
+    # -- the grid QP at full width: N_kkt = 30,000
+    k = SPARSE_GRID_K
+    P, q, A, b, cones = problems.grid_qp(k)
+
+    def drive_grid():
+        return cold(lambda: (lambda s: (s, s.solve()))(
+            ct.SparseSolver(P, q, A, b, cones)))
+
+    ((solver, sol), cold_ms, peak), paths["sparse_grid100"] = counted(
+        "sparse_grid100", drive_grid)
+    check(solver.device.type == "cuda", "SparseSolver: not on CUDA")
+    info = solver.get_info()["linear_solver"]
+    check(info["kkt_dim"] == 3 * k * k, f"grid QP: N_kkt {info['kkt_dim']}")
+    check(sol.status == ct.SolverStatus.SOLVED,
+          f"grid QP: {sol.status.name}")
+    check(sol.r_prim < 1e-8 and sol.r_dual < 1e-8,
+          f"grid QP: r_prim {sol.r_prim:.2e}, r_dual {sol.r_dual:.2e}")
+    cond = kkt_conditions(P, q, A, b, sol)
+    check(max(cond.values()) <= TOL_KKT, f"grid QP: host-checked "
+          f"optimality {cond}")
+    t0 = time.perf_counter()
+    again = solver.solve()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(sol.x, again.x) and np.array_equal(sol.z, again.z)
+          and sol.iterations == again.iterations,
+          "grid QP: a second solve is not bitwise equal")
+    memo = dict(solver._sp._kkt_memo)
+    solver.update_data(q=1.01 * q)
+    t0 = time.perf_counter()
+    upd, passes, syncs = host_syncs(solver.solve)
+    upd_ms = (time.perf_counter() - t0) * 1e3
+    check(solver._sp._kkt_memo.keys() == memo.keys() and all(
+        solver._sp._kkt_memo[key] is memo[key] for key in memo),
+        "grid QP: update_data ran a new symbolic analysis")
+    check(upd.status == ct.SolverStatus.SOLVED,
+          f"grid QP after update_data: {upd.status.name}")
+    cond_upd = kkt_conditions(P, 1.01 * q, A, b, upd)
+    check(max(cond_upd.values()) <= TOL_KKT,
+          f"grid QP after update_data: {cond_upd}")
+    print(f"[{card}] sparse grid QP k={k}: N_kkt {info['kkt_dim']}, "
+          f"{info['levels']} levels, {info['supernodes']} supernodes, nnzL "
+          f"{info['nnzL']}; SOLVED in {sol.iterations} iterations, r_prim "
+          f"{sol.r_prim:.2e}, r_dual {sol.r_dual:.2e}, host-checked "
+          + ", ".join(f"{kk} {v:.2e}" for kk, v in cond.items())
+          + f"; a second solve bitwise equal; update_data(q=1.01 q) "
+          f"re-solved in {upd.iterations} iterations, {upd_ms:.1f} ms, no "
+          "new symbolic analysis", flush=True)
+    qg = 1.01 * q
+
+    def grid_rerun(r):
+        solver.update_data(q=qg * (1.0 + 1e-9 * r))
+        solver.solve()
+
+    recs["sparse_grid100"] = sparse_row(
+        card, "sparse_grid100", solver, cold_ms, grid_rerun, peak,
+        plan_estimate(solver),
+        sparse_kkt_launches(solver, solver._dev["Pv"], solver._dev["Av"]),
+        measured=(warm_ms, passes, syncs))
+    recs["sparse_grid100"].update(kkt_check=cond, info=info,
+                                  update_ms=upd_ms)
+
+    # -- the AUG2D class through QPS text
+    text = problems.make_grid_qp_qps(SPARSE_AUG2D_K)
+    p = qps.parse_qps(text)
+    P2, q2, A2, b2, cones2, sgn_c0 = qps.to_clarabel(p)
+
+    def drive_aug2d():
+        return cold(lambda: (lambda s: (s, s.solve()))(
+            ct.SparseSolver(P2, q2, A2, b2, cones2)))
+
+    ((aug, asol), acold, apeak), paths["sparse_aug2d"] = counted(
+        "sparse_aug2d", drive_aug2d)
+    want = problems.grid_qp_reference(SPARSE_AUG2D_K)
+    got = qps.qps_objective(sgn_c0, asol.obj_val)
+    err = abs(got - want) / abs(want)
+    check(asol.status == ct.SolverStatus.SOLVED,
+          f"AUG2D class: {asol.status.name}")
+    check(err <= TOL_AUG2D, f"AUG2D class: objective {got} vs scipy's "
+          f"{want}, {err:.2e} relative")
+    print(f"[{card}] AUG2D class k={SPARSE_AUG2D_K}: n {q2.shape[0]}, m "
+          f"{b2.shape[0]}, SOLVED in {asol.iterations} iterations, "
+          f"objective {got!r} vs scipy spsolve {want!r} ({err:.2e} "
+          "relative)", flush=True)
+
+    def aug_rerun(r):
+        aug.update_data(q=q2 * (1.0 + 1e-9 * r))
+        aug.solve()
+
+    recs["sparse_aug2d"] = sparse_row(
+        card, "sparse_aug2d", aug, acold, aug_rerun, apeak,
+        plan_estimate(aug),
+        sparse_kkt_launches(aug, aug._dev["Pv"], aug._dev["Av"]))
+    recs["sparse_aug2d"].update(objective=got, reference=want,
+                                rel_err=err)
+
+    # -- f32 fronts (tests/test_sparse_solver.py:281-292's bar)
+    P3, q3, A3, b3, cones3 = problems.grid_qp(SPARSE_SMALL_K)
+    s64 = ct.SparseSolver(P3, q3, A3, b3, cones3).solve()
+    s32 = ct.SparseSolver(P3, q3, A3, b3, cones3,
+                          kkt_factor_precision="float32").solve()
+    dx = float(np.abs(s32.x - s64.x).max())
+    check(s32.status == ct.SolverStatus.SOLVED
+          and s32.r_prim < 1e-8 and s32.r_dual < 1e-8,
+          f"f32 fronts: {s32.status.name}, r_prim {s32.r_prim:.2e}, "
+          f"r_dual {s32.r_dual:.2e}")
+    check(dx <= TOL_F32_X, f"f32 fronts: x {dx:.2e} from f64's")
+    print(f"[{card}] f32 fronts k={SPARSE_SMALL_K}: SOLVED in "
+          f"{s32.iterations} iterations (f64 {s64.iterations}), r_prim "
+          f"{s32.r_prim:.2e}, r_dual {s32.r_dual:.2e}, x within {dx:.2e} "
+          "of the f64 fronts'", flush=True)
+    recs["sparse_f32"] = {"iterations": s32.iterations,
+                          "iterations_f64": s64.iterations, "dx": dx}
+
+    # -- the batch: q, b varying, then P and A values varying
+    kb, B, seed = SPARSE_BATCH
+    batches = {}
+    for path, vary in (("sparse_batch_B256", False),
+                       ("sparse_batch_B256_values", True)):
+        P4, qs, A4, bs, cones4, Pv, Av = problems.grid_qp_family(
+            kb, B, seed, vary_values=vary)
+
+        def drive_batch():
+            return cold(lambda: (lambda s: (s, s.solve()))(
+                ct.BatchSparseSolver(P4, qs, A4, bs, cones4, P_vals=Pv,
+                                     A_vals=Av)))
+
+        ((batch, bsols), bcold, bpeak), paths[path] = counted(path,
+                                                              drive_batch)
+        status = collections.Counter(s.status.name for s in bsols)
+        check(set(status) == {"SOLVED"}, f"{path}: statuses {dict(status)}")
+        spp = batch._sp
+        worst = 0.0
+        for i in range(CPU_CHECK):
+            Pi = P4 if Pv is None else sp.coo_matrix(
+                (Pv[i], (spp.P_rows, spp.P_cols)), shape=P4.shape).tocsc()
+            Ai = A4 if Av is None else sp.coo_matrix(
+                (Av[i], (spp.A_rows, spp.A_cols)), shape=A4.shape).tocsc()
+            one = ct.SparseSolver(Pi, qs[i], Ai, bs[i], cones4,
+                                  presolve_enable=False).solve()
+            check(one.status == bsols[i].status
+                  and one.iterations == bsols[i].iterations,
+                  f"{path} problem {i}: {bsols[i].status.name} in "
+                  f"{bsols[i].iterations}, alone {one.status.name} in "
+                  f"{one.iterations}")
+            worst = max(worst, float(np.abs(one.x - bsols[i].x).max()))
+        check(worst <= TOL_X_SINGLE, f"{path}: x {worst:.2e} from single "
+              "solves")
+        rates, walls = [], []
+        for r in range(SPARSE_REPS):
+            t0 = time.perf_counter()
+            batch.update_data(q=qs * (1.0 + 1e-9 * (r + 1)))
+            if r == 0:
+                _, passes, syncs = host_syncs(batch.solve)
+            else:
+                batch.solve()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            rates.append(B * 1e3 / walls[-1])
+        it = np.array([s.iterations for s in bsols])
+        print(f"[{card}] {path}: all {B} SOLVED at k={kb} (N_kkt "
+              f"{3 * kb * kb}), iterations mean {it.mean():.2f} max "
+              f"{it.max()}; the first {CPU_CHECK} with single SparseSolver "
+              f"solves' statuses and iterations, x within {worst:.2e}; "
+              f"{np.median(rates):.2f} problems/s (median of {SPARSE_REPS},"
+              f" spread {min(rates):.2f} to {max(rates):.2f})", flush=True)
+        batches[path] = (batch, qs, bcold, bpeak, worst, rates,
+                         (float(np.median(walls)), passes, syncs))
+    batch, qs, bcold, bpeak, worst, rates, measured = batches[
+        "sparse_batch_B256"]
+
+    def batch_rerun(r):
+        batch.update_data(q=qs * (1.0 + 1e-9 * (r + 10)))
+        batch.solve()
+
+    Pvb, Avb = batch._args[:2]
+    recs["sparse_batch_B256"] = sparse_row(
+        card, "sparse_batch_B256", batch, bcold, batch_rerun, bpeak,
+        plan_estimate(batch), sparse_kkt_launches(batch, Pvb, Avb),
+        measured=measured)
+    recs["sparse_batch_B256"].update(
+        problems_per_s_median=float(np.median(rates)), problems_per_s=rates,
+        single_x_err=worst,
+        values_problems_per_s=batches["sparse_batch_B256_values"][5],
+        values_single_x_err=batches["sparse_batch_B256_values"][4])
+
+    # -- the host QDLDL backend of the dense Solver
+    rows = [(name, data) for name, data in solver_problems()
+            if name in QDLDL_ROWS]
+
+    def drive_qdldl():
+        return {name: cold(lambda data=data: (lambda s: (s, s.solve()))(
+            ct.Solver(*data, direct_solve_method="qdldl")))
+            for name, data in rows}
+
+    qd, paths["solver_qdldl"] = counted("solver_qdldl", drive_qdldl)
+    for name, data in rows:
+        (qsolver, got), _, _ = qd[name]
+        lu = ct.Solver(*data, kkt_solve_method="lu").solve()
+        check(qsolver.device.type == "cuda", "qdldl Solver: not on CUDA")
+        check(got.status == ct.SolverStatus.SOLVED,
+              f"qdldl {name}: {got.status.name}")
+        check(got.iterations == lu.iterations, f"qdldl {name}: "
+              f"{got.iterations} iterations, lu {lu.iterations}")
+        err = abs(got.obj_val - lu.obj_val) / max(1.0, abs(lu.obj_val))
+        check(err <= TOL_OBJ, f"qdldl {name}: objective {err:.2e} from lu")
+        print(f"[{card}] qdldl Solver {name}: SOLVED in {got.iterations} "
+              f"iterations (lu {lu.iterations}), objective "
+              f"{got.obj_val:.12g}, {err:.2e} from lu", flush=True)
+    (qsolver, _), qcold, qpeak = qd[QDLDL_ROWS[-1]]
+    qq = qsolver._qs / (qsolver._c * qsolver._d)
+
+    def qdldl_rerun(r):
+        qsolver.update_data(q=qq * (1.0 + 1e-9 * r))
+        qsolver.solve()
+
+    recs["solver_qdldl_portfolio64"] = sparse_row(
+        card, "solver_qdldl_portfolio64", qsolver, qcold, qdldl_rerun,
+        qpeak, None)
+
+    # -- a chordally decomposed SDP through the sparse path
+    nv, bw, cseed = SPARSE_CHORDAL
+    _, q5, A5, b5, cones5 = problems.sdp_chordal_banded(nv, bw, cseed)
+
+    def drive_chordal():
+        return (lambda s: (s, s.solve()))(
+            ct.SparseSolver(None, q5, sp.csc_matrix(A5), b5, cones5))
+
+    (csolver, csol), paths["sparse_chordal_banded11"] = counted(
+        "sparse_chordal_banded11", drive_chordal)
+    dense = ct.Solver(None, q5, A5, b5, cones5).solve()
+    err = abs(csol.obj_val - dense.obj_val) / max(1.0, abs(dense.obj_val))
+    check(csolver.chordal_info is not None, "chordal SDP: not decomposed")
+    check(csol.status == ct.SolverStatus.SOLVED,
+          f"chordal SDP: {csol.status.name}")
+    check(err <= TOL_OBJ, f"chordal SDP: objective {err:.2e} from the "
+          "dense Solver's")
+    print(f"[{card}] sparse chordal SDP banded nv={nv}: SOLVED in "
+          f"{csol.iterations} iterations (dense Solver "
+          f"{dense.iterations}), objective {csol.obj_val:.12g}, {err:.2e} "
+          f"from the dense Solver's; N_kkt "
+          f"{csolver.get_info()['linear_solver']['kkt_dim']}", flush=True)
+    recs["sparse_chordal_banded11"] = {
+        "iterations": csol.iterations, "dense_iterations": dense.iterations,
+        "objective": csol.obj_val, "rel_err": err}
+    for path, launches in paths.items():
+        check(not launches, f"{path}: the LDL^T kernels ran on a sparse "
+              f"path: {launches}")
+    return paths, recs
+
+
 def make_qd_kkt(rng, B, N):
     """Well-conditioned symmetric quasidefinite K = [[P, A'], [A, -H]]
     with P = F F' + 0.1 I and H = diag(U(0.5, 1.5)), as
@@ -1843,9 +2296,10 @@ def phase_kernel_timing(card):
     each of kernel_timing.NONSYM_WIDTHS, and at the PSD paths' (90, 4096)
     and (127, 1) (cuclarabel_torch.kernel_timing: device time, CUDA
     events at B = 4096, plain version, bound, occupancy), each beside its
-    library call where it has one, at every shape (cuSOLVER's LDL^T
-    through torch.linalg loops over the batch on the host, a call of
-    seconds at B = 4096, timed once).  Returns {kernel: {"B<B>_r<R>" at
+    library call where it has one, at every shape but (104, 4096) and
+    (90, 4096) (LIBRARY_B4096_N: cuSOLVER's LDL^T through torch.linalg
+    loops over the batch on the host, a call of seconds at B = 4096,
+    timed once).  Returns {kernel: {"B<B>_r<R>" at
     N = 76, "N<N>_B<B>_r<R>" elsewhere: numbers}}."""
     out = {}
     shapes = ([(kt.MAIN_NM, B, kt.F64_FORMS, kt.F64_FORMS, "")
@@ -1857,6 +2311,8 @@ def phase_kernel_timing(card):
                  if (sum(nm), B) in PSD_TIMED])
     for nm, B, forms, lib_forms, tag in shapes:
         rows, op = kt.time_width(B, forms=forms, nm=nm)
+        if B == 4096 and sum(nm) not in LIBRARY_B4096_N:
+            lib_forms = ()
         lib = library_calls(op, lib_forms)
         for row in rows:
             fn = lib.get((row["name"], row["R"]))
@@ -1980,27 +2436,42 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, "
           f"{torch.cuda.device_count()} device(s)")
-    phase_build()
-    errs = phase_kernels()
-    errs.update(phase_kernels_f32())
-    errs.update(phase_probes())
-    runs, paths, staged = phase_main(card)
-    paths["batch_B256_warm"], warm = phase_warm(card, runs)
-    paths["solver"], solver_times = phase_solver(card)
-    solver_times["phases_ms"] = phase_solver_backends(card)
-    paths["f32"], f32_data = phase_f32_path()
-    paths["probes"], probe_times = phase_probes_path(card)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        print(f"phase {name}: {seconds[name]} s", flush=True)
+        return out
+
+    timed("build", phase_build)
+    errs = timed("kernels", phase_kernels)
+    errs.update(timed("kernels_f32", phase_kernels_f32))
+    errs.update(timed("probes", phase_probes))
+    runs, paths, staged = timed("main", phase_main, card)
+    paths["batch_B256_warm"], warm = timed("warm", phase_warm, card, runs)
+    paths["solver"], solver_times = timed("solver", phase_solver, card)
+    solver_times["phases_ms"] = timed("solver_backends",
+                                      phase_solver_backends, card)
+    paths["f32"], f32_data = timed("f32", phase_f32_path)
+    paths["probes"], probe_times = timed("probes_path", phase_probes_path,
+                                         card)
     # the kernel timing before the profiled solves: after a session of
     # 10^4-10^5 launches the profiler has been seen to drop the events
     # of later sessions (kernel_timing.device_ms then times by CUDA
     # events, and a solve's busy share is not measured)
-    times = phase_kernel_timing(card)
-    times.update(phase_kernel_timing_f32(card, *f32_data))
-    batch_times = phase_timing(card, runs)
-    nonsym_paths, nonsym = phase_nonsym(card)
+    times = timed("kernel_timing", phase_kernel_timing, card)
+    times.update(timed("kernel_timing_f32", phase_kernel_timing_f32, card,
+                       *f32_data))
+    batch_times = timed("timing", phase_timing, card, runs)
+    nonsym_paths, nonsym = timed("nonsym", phase_nonsym, card)
     paths.update(nonsym_paths)
-    psd_paths, psd = phase_psd(card)
+    psd_paths, psd = timed("psd", phase_psd, card)
     paths.update(psd_paths)
+    sparse_paths, sparse = timed("sparse", phase_sparse, card)
+    paths.update(sparse_paths)
+    sparse["phase_seconds"] = seconds
     times.update(probe_times)
     print(json.dumps({"solver_n76": solver_times}))
     print(json.dumps({"batch_B4096": {"staged_vs_plain": staged,
@@ -2008,6 +2479,7 @@ def main():
                       "batch_B256_warm": warm}))
     print(json.dumps({"nonsymmetric": nonsym}))
     print(json.dumps({"psd": psd}))
+    print(json.dumps({"sparse": sparse}))
     print(json.dumps({"kernels": kernel_entries(paths, errs, times)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@ A port of `cuclarabel_tpu` (JAX, the reference) to one NVIDIA H100.  It
 imports torch and never jax, and nothing of the JAX package; the modules
 it shares with the reference are copies (`settings`, `statuscodes`,
 `infinity`, `cones/api`, `cones/layout`, `equilibration`, `presolve`,
-`warmstart`, `info_print`, `json_io`).
+`warmstart`, `info_print`, `json_io`, `qps`, `kkt/sparse_symbolic`,
+`native`).
 
 It covers the dense path on problems with zero, nonnegative,
 second-order, exponential, power and generalised power cones, with or
@@ -19,6 +20,13 @@ probes of the JAX package's `scripts/` have counterparts in `probes/`
 (`csrc/probes.cu`), run as their own entry points.  Solves run
 on the CUDA device unless the caller passes device="cpu", where the
 kernels' plain PyTorch versions run instead.
+
+The sparse paths: `SparseSolver` and `parallel.BatchSparseSolver` keep
+the data sparse and factor the KKT system with the level-scheduled
+multifrontal LDL^T (`kkt/sparse_device.py`, plain torch on the device),
+and `Solver(direct_solve_method="qdldl")` factors it on the host with
+the native sparse LDL^T (`native/`, C++ built with g++ on first use).
+`qps` reads and writes QPS files.
 """
 
 from .cones.api import (
@@ -34,8 +42,10 @@ from .cones.api import (
 from .infinity import default_infinity, get_infinity, set_infinity
 from .kkt.ldl_f32 import ldl_factor_batched, ldl_solve_batched
 from .parallel.batch import BatchSolver
+from .parallel.sparse_batch import BatchSparseSolver
 from .settings import Settings
 from .solver import DefaultSolution, Solver
+from .sparse_solver import SparseSolver
 from .statuscodes import SolverStatus
 
 __version__ = "0.1.0"
@@ -54,6 +64,7 @@ def version() -> str:
 
 __all__ = [
     "BatchSolver",
+    "BatchSparseSolver",
     "DefaultSolution",
     "ExponentialConeT",
     "GenPowerConeT",
@@ -64,6 +75,7 @@ __all__ = [
     "Settings",
     "Solver",
     "SolverStatus",
+    "SparseSolver",
     "SupportedCone",
     "ZeroConeT",
     "default_infinity",

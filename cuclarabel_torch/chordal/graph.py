@@ -8,11 +8,12 @@ PSD cone), so we use a plain greedy minimum-degree ordering and a
 classic row-subtree symbolic Cholesky — one-time setup work, quality
 equivalent for the clique analysis that follows.
 
-A copy of `cuclarabel_tpu/chordal/graph.py` (numpy only) without its
-`_native_symbolic`, which takes the filled pattern from the reference's
-C++ LDL^T package (`cuclarabel_tpu/native/`): the port has no such
-package, so `find_graph` always takes the row-subtree fill
-(`etree` + `symbolic_cholesky`), which gives the same pattern.
+A copy of `cuclarabel_tpu/chordal/graph.py` (numpy only).  As in the
+reference, `find_graph` takes the filled pattern from the C++ LDL^T of
+`native/` (`_native_symbolic`); the row-subtree fill (`etree` +
+`symbolic_cholesky`), which gives the same pattern, serves where that
+numeric factor fails.  The native library is built on first use, and a
+failed build raises.
 """
 
 from typing import List, Tuple
@@ -96,6 +97,33 @@ def connect_graph(cols: List[List[int]]) -> None:
             cols[j] = sorted(set(cols[j]) | {j + 1})
 
 
+def _native_symbolic(pat_u: np.ndarray):
+    """Filled-pattern column lists via the native C++ LDL kernel
+    (a diagonally dominant numeric factor on the pattern yields exactly
+    the symbolic fill).  Returns None if the numeric factor fails."""
+    from ..native import LDLFactor
+
+    n = pat_u.shape[0]
+    Ap = [0]
+    Ai, Ax = [], []
+    for j in range(n):
+        for i in range(j + 1):
+            if pat_u[i, j] or i == j:
+                Ai.append(i)
+                Ax.append(float(n + 1) if i == j else 1.0)
+        Ap.append(len(Ai))
+    fac = LDLFactor(
+        n, np.asarray(Ap), np.asarray(Ai),
+        np.ones(n, dtype=np.int64), reg_enable=False,
+    )
+    if not fac.refactor(np.asarray(Ax)):
+        return None
+    return [
+        sorted(int(r) for r in fac.Li[fac.Lp[j]: fac.Lp[j + 1]])
+        for j in range(n)
+    ]
+
+
 def find_graph(nz_mask: np.ndarray, nv: int) -> Tuple[List[List[int]], np.ndarray]:
     """From the svec aggregate-sparsity mask of one PSD cone, compute
     (L column patterns, ordering) of the permuted filled graph
@@ -116,6 +144,8 @@ def find_graph(nz_mask: np.ndarray, nv: int) -> Tuple[List[List[int]], np.ndarra
     pat_p = pat[np.ix_(perm, perm)]
     pat_u = np.triu(pat_p)
 
-    cols = symbolic_cholesky(pat_u, etree(pat_u))
+    cols = _native_symbolic(pat_u)
+    if cols is None:
+        cols = symbolic_cholesky(pat_u, etree(pat_u))
     connect_graph(cols)
     return cols, perm

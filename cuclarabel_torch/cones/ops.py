@@ -7,8 +7,10 @@ cones are masked elementwise ops; second-order cones run as segment sums
 (`index_add_`) over the gathered (B, msoc) subvector; exponential, power,
 generalised power and PSD triangle cones are dispatched to `exp.py`,
 `pow.py`, `genpow.py` and `psd.py` from the composite entry points here,
-as in the reference.  The reference's sparse-KKT Hs values
-(`sparse_hs_values`) are not ported: the port has no sparse KKT yet.
+as in the reference.  `sparse_hs_plan` and `sparse_hs_values` give the
+sparse KKT backends (`kkt/sparse_tpu.py`) Hs as a diagonal, the entries
+of its dense blocks and the columns of the SOC and generalised power
+cones' low-rank expansions.
 """
 
 import functools
@@ -396,6 +398,247 @@ def update_scaling(layout: ConeLayout, s, z, mu, scaling_flag):
 # ---------------------------------------------------------------------------
 # Hs assembly / products
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# sparse-KKT Hs (reference ops.py:378-600)
+# ---------------------------------------------------------------------------
+
+SOC_NO_EXPANSION_MAX_SIZE = 4  # cone_types.jl:65-119
+
+
+def sparse_hs_plan(layout: ConeLayout):
+    """Host-side static plan for sparse-KKT Hs assembly
+    (kkt/sparse_tpu.py; numpy, a copy of the reference's): coordinates
+    of every Hs entry in the z block plus the gather indices needed to
+    compute its value each iteration.
+
+    Returns numpy dict:
+      blk_rows/blk_cols: (r,) z-block coordinates (row <= col) of the
+        dense-block entries — small SOC blocks, exp/pow 3x3 blocks and
+        PSD svec blocks — ordered [small SOCs (cone, col-major upper)]
+        ++ [exp] ++ [pow] ++ [PSD groups by side length];
+      soc_small_*: gather plans for the SOC entries;
+      socx_*: per EXPANDED SOC (dim > 4): member rows, flat w range;
+    Value convention: values are the raw Hs entries; the assembly
+    negates them (K z-block is -Hs), mirroring the diagonal path."""
+    np_ = np
+    blk_rows, blk_cols = [], []
+    s_gi, s_gj, s_cone, s_sign = [], [], [], []
+    socx_rows, socx_wpos, socx_cone = [], [], []
+    if layout.has_soc:
+        pos = 0
+        for c in range(layout.nsoc):
+            d = int(layout.soc_dims[c])
+            rows = layout.soc_idx[pos: pos + d]
+            if d <= SOC_NO_EXPANSION_MAX_SIZE:
+                for j in range(d):
+                    for i in range(j + 1):
+                        blk_rows.append(int(rows[i]))
+                        blk_cols.append(int(rows[j]))
+                        s_gi.append(pos + i)
+                        s_gj.append(pos + j)
+                        s_cone.append(c)
+                        s_sign.append(
+                            0.0 if i != j else (1.0 if i == 0 else -1.0)
+                        )
+            else:
+                socx_rows.append(np_.asarray(rows, dtype=np_.int64))
+                socx_wpos.append((pos, pos + d))
+                socx_cone.append(c)
+            pos += d
+    n_small = len(blk_rows)
+
+    e_cone, e_a, e_b = [], [], []
+    if layout.has_exp:
+        for c in range(layout.nexp):
+            rows = layout.exp_idx[c]
+            for j in range(3):
+                for i in range(j + 1):
+                    blk_rows.append(int(rows[i]))
+                    blk_cols.append(int(rows[j]))
+                    e_cone.append(c)
+                    e_a.append(i)
+                    e_b.append(j)
+    n_exp = len(blk_rows) - n_small
+    p_cone, p_a, p_b = [], [], []
+    if layout.has_pow:
+        for c in range(layout.npow):
+            rows = layout.pow_idx[c]
+            for j in range(3):
+                for i in range(j + 1):
+                    blk_rows.append(int(rows[i]))
+                    blk_cols.append(int(rows[j]))
+                    p_cone.append(c)
+                    p_a.append(i)
+                    p_b.append(j)
+
+    # PSD svec blocks (Hs = skron(RR'), dense (sd, sd) per cone): the
+    # sparse path carries them exactly like the exp/pow blocks, which
+    # is what makes chordally-decomposed SDPs (many small cliques)
+    # sparse-KKT-able (reference: any Hs block enters the triu
+    # assembly, directldl_kkt_assembly.jl:15-175)
+    psd_groups_plan = []
+    if layout.has_psd:
+        for r in sorted(layout.psd_groups):
+            idx = layout.psd_groups[r]
+            k, sd = idx.shape
+            a_ut, b_ut = [], []
+            for jj in range(sd):
+                for ii in range(jj + 1):
+                    a_ut.append(ii)
+                    b_ut.append(jj)
+            a_ut = np_.asarray(a_ut, dtype=np_.int64)
+            b_ut = np_.asarray(b_ut, dtype=np_.int64)
+            for c in range(k):
+                rows = idx[c]
+                blk_rows.extend(int(rows[i]) for i in a_ut)
+                blk_cols.extend(int(rows[j]) for j in b_ut)
+            psd_groups_plan.append((
+                r,
+                np_.repeat(np_.arange(k), a_ut.shape[0]),
+                np_.tile(a_ut, k),
+                np_.tile(b_ut, k),
+            ))
+
+    gpx_rows1, gpx_rows2, gpx_cone = [], [], []
+    if layout.has_genpow:
+        for c in range(layout.ngp):
+            d1 = int(layout.gp_dim1[c])
+            rows1 = layout.gp_idx1[c, :d1].astype(np_.int64)
+            mask2 = layout.gp_mask2[c]
+            rows2 = layout.gp_idx2[c][mask2].astype(np_.int64)
+            gpx_rows1.append(rows1)
+            gpx_rows2.append(rows2)
+            gpx_cone.append(c)
+
+    ii = np_.asarray
+    return {
+        "blk_rows": ii(blk_rows, dtype=np_.int64),
+        "blk_cols": ii(blk_cols, dtype=np_.int64),
+        "soc_gi": ii(s_gi, dtype=np_.int64),
+        "soc_gj": ii(s_gj, dtype=np_.int64),
+        "soc_cone": ii(s_cone, dtype=np_.int64),
+        "soc_sign": ii(s_sign, dtype=np_.float64),
+        "exp_cone": ii(e_cone, dtype=np_.int64),
+        "exp_a": ii(e_a, dtype=np_.int64),
+        "exp_b": ii(e_b, dtype=np_.int64),
+        "pow_cone": ii(p_cone, dtype=np_.int64),
+        "pow_a": ii(p_a, dtype=np_.int64),
+        "pow_b": ii(p_b, dtype=np_.int64),
+        "psd_groups": psd_groups_plan,
+        "socx_rows": socx_rows,
+        "socx_wpos": socx_wpos,
+        "socx_cone": ii(socx_cone, dtype=np_.int64),
+        "gpx_rows1": gpx_rows1,
+        "gpx_rows2": gpx_rows2,
+        "gpx_cone": ii(gpx_cone, dtype=np_.int64),
+    }
+
+
+def _plan_tensors(hs_plan, device):
+    """The gather indices of sparse_hs_plan's dict as tensors on one
+    device, kept in the dict under "_tensors"."""
+    cache = hs_plan.setdefault("_tensors", {})
+    key = str(device)
+    if key not in cache:
+        t = {k: torch.as_tensor(hs_plan[k], device=device)
+             for k in ("soc_gi", "soc_gj", "soc_cone", "soc_sign",
+                       "exp_cone", "exp_a", "exp_b", "pow_cone", "pow_a",
+                       "pow_b")}
+        t["psd"] = [tuple(torch.as_tensor(a, device=device) for a in g[1:])
+                    for g in hs_plan["psd_groups"]]
+        t["socx_rows"] = [torch.as_tensor(r, device=device)
+                          for r in hs_plan["socx_rows"]]
+        t["gpx_rows1"] = [torch.as_tensor(r, device=device)
+                          for r in hs_plan["gpx_rows1"]]
+        t["gpx_rows2"] = [torch.as_tensor(r, device=device)
+                          for r in hs_plan["gpx_rows2"]]
+        cache[key] = t
+    return cache[key]
+
+
+def sparse_hs_values(layout: ConeLayout, state, hs_plan, batch: int,
+                     device):
+    """Per-iteration Hs values matching sparse_hs_plan's ordering, per
+    problem (reference ops.py:517-600, batched over a leading B).
+
+    Returns (diag, blk_vals, socx, gpx) where:
+      diag (B, m): elementwise Hs diagonal — NN w^2 plus, on EXPANDED SOC
+        rows, eta^2 * Dtilde (rank-2 form WtW = eta^2(Dt + uu' - vv'),
+        coneops_socone.jl:125-151), plus mu * d on GenPow rows;
+      blk_vals (B, r): raw Hs entries at (blk_rows, blk_cols);
+      socx: per expanded cone (u_scaled, v_scaled, ext_diag (B, 2)) with
+        the -eta^2 scaling of directldl_datamaps.jl:61-79 applied;
+      gpx: per GenPow cone (q, r, p, ext_diag (B, 3)) scaled by -sqrt(mu)
+        with ext diag (-1, -1, +1) (directldl_datamaps.jl:81-167).
+    Every scatter here writes distinct rows, so the values do not depend
+    on the order of the additions."""
+    f64 = torch.float64
+    t = _plan_tensors(hs_plan, device)
+    diag = torch.zeros(batch, layout.m, dtype=f64, device=device)
+    if layout.has_nn:
+        p = plan(layout, device)
+        diag = torch.where(p.nn_mask, state["nn_w"] ** 2, diag)
+
+    vals = []
+    if hs_plan["soc_gi"].size:
+        eta2 = state["soc_eta"] ** 2
+        w = state["soc_w"]
+        e2 = eta2[:, t["soc_cone"]]
+        vals.append(2.0 * e2 * w[:, t["soc_gi"]] * w[:, t["soc_gj"]]
+                    - e2 * t["soc_sign"])
+    if hs_plan["exp_cone"].size:
+        vals.append(state["exp_Hs"][:, t["exp_cone"], t["exp_a"],
+                                    t["exp_b"]])
+    if hs_plan["pow_cone"].size:
+        vals.append(state["pow_Hs"][:, t["pow_cone"], t["pow_a"],
+                                    t["pow_b"]])
+    if hs_plan["psd_groups"]:
+        groups = {g.r: g for g in plan(layout, device).psd_groups}
+        for (r, _, _, _), (cone_rep, a_t, b_t) in zip(hs_plan["psd_groups"],
+                                                      t["psd"]):
+            R = state[f"psd{r}_R"]
+            Hs_g = psdcone._skron(R @ R.transpose(-1, -2), groups[r])
+            vals.append(Hs_g[:, cone_rep, a_t, b_t])
+    blk_vals = (torch.cat(vals, dim=1) if vals
+                else torch.zeros(batch, 0, dtype=f64, device=device))
+
+    gpx = []
+    if layout.has_genpow:
+        mu = state["gp_mu"]
+        d1v = mu[:, None, None] * state["gp_d1"]
+        d2v = mu[:, None] * state["gp_d2"]
+        smu = torch.sqrt(mu)[:, None]
+        ext = torch.tensor([-1.0, -1.0, 1.0], dtype=f64,
+                           device=device).expand(batch, 3)
+        for k, c in enumerate(hs_plan["gpx_cone"]):
+            r1, r2 = t["gpx_rows1"][k], t["gpx_rows2"][k]
+            nd1, nd2 = r1.shape[0], r2.shape[0]
+            diag = diag.index_add(1, r1, d1v[:, c, :nd1])
+            diag = diag.index_add(1, r2, d2v[:, c, None].expand(-1, nd2))
+            qv = -smu * state["gp_q"][:, c, :nd1]
+            rv = -smu * state["gp_r"][:, c, :nd2]
+            pv = -smu * torch.cat([state["gp_p1"][:, c, :nd1],
+                                   state["gp_p2"][:, c, :nd2]], dim=1)
+            gpx.append((qv, rv, pv, ext))
+
+    socx = []
+    for rows, (lo, hi), c in zip(t["socx_rows"], hs_plan["socx_wpos"],
+                                 hs_plan["socx_cone"]):
+        eta2 = state["soc_eta"][:, c, None] ** 2       # (B, 1)
+        wbar = state["soc_w"][:, lo:hi]
+        wsq = (wbar * wbar).sum(dim=1, keepdim=True)
+        dsc = 0.5 / wsq
+        u0 = torch.sqrt(wsq - dsc)
+        u1 = 2.0 * wbar[:, :1] / u0
+        v1 = torch.sqrt(2.0 * (2.0 + 1.0 / wsq) / (2.0 * wsq - 1.0 / wsq))
+        u = torch.cat([u0, u1 * wbar[:, 1:]], dim=1)
+        vv = torch.cat([torch.zeros_like(u0), v1 * wbar[:, 1:]], dim=1)
+        dt = torch.cat([dsc, torch.ones_like(wbar[:, 1:])], dim=1)
+        diag = diag.index_add(1, rows, eta2 * dt)
+        socx.append((-eta2 * u, -eta2 * vv, torch.cat([-eta2, eta2], dim=1)))
+    return diag, blk_vals, socx, gpx
 
 
 def assemble_Hs_dense(layout: ConeLayout, state):

@@ -109,3 +109,20 @@ def scaling_state_from_reference(layout, states, device="cpu"):
                              f"{counts[kind]}")
         out[k] = torch.as_tensor(v, device=device)
     return out
+
+
+def sparse_problem_from_reference(sp_prob):
+    """The port's kkt.sparse_tpu.SparseProblem from the reference's (its
+    COO index arrays, numpy), without the reference's memo."""
+    from .kkt.sparse_tpu import SparseProblem
+
+    return SparseProblem(
+        n=int(sp_prob.n), m=int(sp_prob.m),
+        **{k: np.asarray(getattr(sp_prob, k), dtype=np.int64)
+           for k in ("P_rows", "P_cols", "A_rows", "A_cols")})
+
+
+def plan_arrays_from_reference(plan) -> dict:
+    """A reference NumericPlan's index maps (`device_arrays()`) as numpy
+    arrays, the form of the port's `NumericPlan.device_arrays()`."""
+    return {k: np.asarray(v) for k, v in plan.device_arrays().items()}

@@ -2,7 +2,9 @@
 
 The counterpart of `cuclarabel_tpu/ipm/loop.py` (reference solve! loop,
 `src/solver.jl:189-380`, with the homogeneous embedding that keeps the
-quadratic objective), for the dense KKT backend.  Layouts with
+quadratic objective), for the dense KKT backends, the host sparse
+LDL^T of direct_solve_method="qdldl" (`kkt/sparse_cpu.py`) and the
+device sparse multifrontal (`kkt/sparse_tpu.py`, `sparse=`).  Layouts with
 nonsymmetric cones start from the unit initialization and run the
 reference's strategy ladder per problem (solver.jl:453-514): the
 insufficient-progress restore, the numerical-error retry and the
@@ -107,7 +109,8 @@ def run_passes(state, loop_pass, more=lambda n_unsolved: n_unsolved > 0):
 
 
 def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
-                  device=None, stream: bool = False, parts: bool = False):
+                  device=None, stream: bool = False, parts: bool = False,
+                  sparse=None):
     """Builds the batched solve function for this (layout, settings,
     dims) signature.  The returned fn maps a dict of batched tensors
     {P, q, A, b, d, dinv, e, einv, cscale, normq, normb[, t_start]
@@ -122,24 +125,47 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
     parts=True returns `build(dev) -> (state0, loop_pass, post)`:
     state0() is the initial state, loop_pass(state, unsolved) one pass
     committed where `unsolved`, post(state) the results; `run_passes`
-    drives the passes."""
-    if settings.direct_solve_method not in ("auto", "dense"):
-        raise NotImplementedError(
-            f"direct_solve_method={settings.direct_solve_method!r} is not "
-            "ported to cuclarabel_torch yet; the dense backend is")
+    drives the passes.
 
+    With `sparse` (a kkt.sparse_tpu.SparseProblem) the KKT system is
+    the device sparse multifrontal's and the data stay nonzero values:
+    dev holds Pv (B, nnz(triu P)) and Av (B, nnz(A)) in place of P and A,
+    and P x, A x and A' z are sparse products over the COO triplets
+    (reference loop.py:88-97, :184-202).  direct_solve_method="qdldl"
+    factors and solves on the host with the native sparse LDL^T
+    (reference loop.py:98-104)."""
     sym = layout.is_symmetric
     deg1 = layout.degree + 1
     st = settings
     init_scaling = (PRIMAL_DUAL if layout.allows_primal_dual_scaling
                     else DUAL_ONLY)
-    factorize, kkt_solve = make_dense_kkt(n, m, settings, layout, device)
+    hs_plan = None
+    if sparse is not None:
+        from ..kkt.sparse_tpu import make_sparse_tpu_kkt
 
-    # multi-RHS ("pair") solves: off on the dense backend unless asked
-    # for (reference loop.py:133-147); the LP init always pairs its two
-    # solves when the backend offers it
-    kkt_solve_pair = (getattr(kkt_solve, "pair", None)
-                      if st.kkt_pair_solve else None)
+        factorize, kkt_solve, _ = make_sparse_tpu_kkt(
+            n, m, settings, layout, sparse, device=device)
+        products = factorize.products
+        hs_plan = cone_ops.sparse_hs_plan(layout)
+    elif settings.direct_solve_method == "qdldl":
+        from ..kkt.sparse_cpu import make_sparse_cpu_kkt
+
+        factorize, kkt_solve = make_sparse_cpu_kkt(n, m, settings, layout,
+                                                   device)
+    elif settings.direct_solve_method not in ("auto", "dense"):
+        raise NotImplementedError(
+            f"direct_solve_method={settings.direct_solve_method!r} is not "
+            "ported to cuclarabel_torch yet")
+    else:
+        factorize, kkt_solve = make_dense_kkt(n, m, settings, layout, device)
+
+    # multi-RHS ("pair") solves: None = auto — off on the dense backends,
+    # on for the sparse multifrontal, whose level walk is paid once for
+    # both columns (reference loop.py:133-147); the LP init always pairs
+    # its two solves when the backend offers it
+    pair_on = (st.kkt_pair_solve if st.kkt_pair_solve is not None
+               else sparse is not None)
+    kkt_solve_pair = getattr(kkt_solve, "pair", None) if pair_on else None
     init_pair = getattr(kkt_solve, "pair", None)
     has_time_limit = math.isfinite(st.time_limit)
     # the Gondzio correctors retarget a product that only symmetric
@@ -148,19 +174,47 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
 
     def build(dev: Dict[str, torch.Tensor]):
         q, b = dev["q"], dev["b"]
-        P, A = dev["P"], dev["A"]
         d, dinv = dev["d"], dev["dinv"]
         e, einv = dev["e"], dev["einv"]
         cinv = 1.0 / dev["cscale"]
         normq, normb = dev["normq"], dev["normb"]
         B = q.shape[0]
-        AT = A.transpose(1, 2)
-        # exp-cone iterates amplify a rounding difference about tenfold
-        # an iteration, so nonsymmetric layouts take the products whose
-        # rounding is the same at every batch width
-        mv = _bmv
-        if not sym:
-            AT, mv = AT.contiguous(), _rowdot
+        if sparse is None:
+            P, A = dev["P"], dev["A"]
+            AT = A.transpose(1, 2)
+            # exp-cone iterates amplify a rounding difference about
+            # tenfold an iteration, so nonsymmetric layouts take the
+            # products whose rounding is the same at every batch width
+            mv = _bmv
+            if not sym:
+                AT, mv = AT.contiguous(), _rowdot
+
+            def Amv(v):
+                return mv(A, v)
+
+            def ATmv(v):
+                return mv(AT, v)
+
+            def Pmv_data(v):
+                return mv(P, v)
+
+            def kkt_factorize(scal):
+                return factorize(P, A, hs_dense(scal))
+        else:
+            Pv, Av = dev["Pv"], dev["Av"]
+
+            def Amv(v):
+                return products.Amv(Av, v)
+
+            def ATmv(v):
+                return products.ATmv(Av, v)
+
+            def Pmv_data(v):
+                return products.Pmv(Pv, v)
+
+            def kkt_factorize(scal):
+                return factorize(Pv, Av, cone_ops.sparse_hs_values(
+                    layout, scal, hs_plan, B, q.device))
 
         def full(v):
             return torch.full((B,), v, dtype=torch.float64, device=q.device)
@@ -170,8 +224,7 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
                               device=q.device)
 
         if has_P:
-            def Pmv(v):
-                return mv(P, v)
+            Pmv = Pmv_data
 
             def quad(u, v):
                 return _vdot(u, Pmv(v))
@@ -191,8 +244,8 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
             bz = _vdot(b, z_)
             sz = _vdot(s_, z_)
             xPx = _vdot(x, Px)
-            rx_inf = -mv(AT, z_)
-            rz_inf = mv(A, x) + s_
+            rx_inf = -ATmv(z_)
+            rz_inf = Amv(x) + s_
             return {
                 "rx": rx_inf - Px - q * tau[:, None],
                 "rz": rz_inf - b * tau[:, None],
@@ -435,7 +488,7 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
 
         def default_start():
             scal0 = cone_ops.set_identity_scaling(layout, B, q.device)
-            fac, _ = factorize(P, A, hs_dense(scal0))
+            fac, _ = kkt_factorize(scal0)
             if has_P:
                 # QP init (kktsystem.jl:120-128)
                 x0, z0, _, _ = kkt_solve(fac, -q, b)
@@ -530,7 +583,7 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
             it = torch.where(proceed, s_["iter"] + 1, s_["iter"])
 
             # --- KKT update + constant-rhs solve (kktsystem.jl:62-92)
-            fac, okf = factorize(P, A, hs_dense(scal))
+            fac, okf = kkt_factorize(scal)
 
             # --- affine step (variables.jl:107-121)
             rhs_aff = {

@@ -213,3 +213,153 @@ def sdp_chordal_banded(nv: int, bw: int, seed: int):
     A = np.vstack([np.vstack(rows), Apsd])
     b = np.concatenate([np.asarray(bs), np.zeros(sd)])
     return None, q, A, b, [ZeroConeT(len(rows)), PSDTriangleConeT(nv)]
+
+
+# ---------------------------------------------------------------------
+# the sparse paths' problems (copies: the originals live beside code
+# that imports the JAX package)
+# ---------------------------------------------------------------------
+
+def grid_qp(k: int, seed=0):
+    """min 1/2 x'Lx - q'x s.t. 0 <= x <= 1 on a k-by-k grid Laplacian
+    (a copy of examples/sparse_and_sdp.py::grid_qp): n = k^2,
+    m = 2 k^2, N_kkt = 3 k^2.  Returns (triu(L), q, A, b, cones), the
+    matrices scipy.sparse."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    n = k * k
+    L = (sp.kronsum(sp.diags([[-1.0], [2.0], [-1.0]],
+                             offsets=[-1, 0, 1], shape=(k, k)),
+                    sp.diags([[-1.0], [2.0], [-1.0]],
+                             offsets=[-1, 0, 1], shape=(k, k)))
+         + 0.1 * sp.eye(n)).tocsc()
+    q = -rng.random(n)
+    A = sp.vstack([-sp.eye(n), sp.eye(n)]).tocsc()
+    b = np.concatenate([np.zeros(n), np.ones(n)])
+    return sp.triu(L).tocsc(), q, A, b, [NonnegativeConeT(2 * n)]
+
+
+def make_grid_qp_qps(k: int, name: str = None) -> str:
+    """AUG2D-class member: min (1/2)||x - t||^2 over edge variables of a
+    k x k grid, subject to node flow-balance equalities — the
+    'expanded system formulation of a 2-D PDE' structure of MM's AUG2D
+    family, with a deterministic target t.  Returns QPS text (a copy of
+    benchmarks/qps_corpus.py::make_grid_qp_qps: n = 2 k (k - 1),
+    m = k^2 - 1).
+
+    Being equality-constrained and strictly convex, the exact optimum
+    is one sparse KKT solve (grid_qp_reference)."""
+    nb = _grid_build(k)
+    lines = [f"NAME          {name or f'GRIDQ{k}'}", "ROWS", " N  OBJ"]
+    for i in range(nb["m"]):
+        lines.append(f" E  C{i+1}")
+    lines.append("COLUMNS")
+    cols = nb["cols"]
+    t = nb["t"]
+    for j in range(nb["n"]):
+        lines.append(f"    E{j+1}  OBJ  {float(-t[j])!r}")
+        for (i, v) in cols[j]:
+            lines.append(f"    E{j+1}  C{i+1}  {float(v)!r}")
+    lines.append("RHS")
+    lines.append(f"    RHS  OBJ  {-(0.5 * float(t @ t))!r}")
+    for i, v in enumerate(nb["b"]):
+        if v != 0.0:
+            lines.append(f"    RHS  C{i+1}  {float(v)!r}")
+    lines.append("BOUNDS")
+    for j in range(nb["n"]):
+        lines.append(f" FR BND  E{j+1}")
+    lines.append("QUADOBJ")
+    for j in range(nb["n"]):
+        lines.append(f"    E{j+1}  E{j+1}  1.0")
+    lines.append("ENDATA")
+    return "\n".join(lines) + "\n"
+
+
+def _grid_build(k: int):
+    """Edge-incidence structure of a k x k grid with deterministic
+    target and supplies."""
+    idx = lambda r, c: r * k + c  # noqa: E731
+    edges = []
+    for r in range(k):
+        for c in range(k):
+            if c + 1 < k:
+                edges.append((idx(r, c), idx(r, c + 1)))
+            if r + 1 < k:
+                edges.append((idx(r, c), idx(r + 1, c)))
+    n = len(edges)
+    m = k * k - 1  # drop the last node row (incidence is rank m)
+    cols = [[] for _ in range(n)]
+    for j, (u, v) in enumerate(edges):
+        if u < m:
+            cols[j].append((u, 1.0))
+        if v < m:
+            cols[j].append((v, -1.0))
+    # deterministic target + balanced supplies
+    t = np.sin(0.7 * np.arange(1, n + 1)) * 2.0
+    b = np.cos(1.3 * np.arange(1, m + 1))
+    return {"n": n, "m": m, "cols": cols, "t": t, "b": b}
+
+
+def grid_qp_reference(k: int) -> float:
+    """Exact optimum of make_grid_qp_qps(k) via one sparse KKT solve
+    (scipy's spsolve on the host)."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    nb = _grid_build(k)
+    n, m = nb["n"], nb["m"]
+    rows, colsj, vals = [], [], []
+    for j, entries in enumerate(nb["cols"]):
+        for (i, v) in entries:
+            rows.append(i)
+            colsj.append(j)
+            vals.append(v)
+    A = sp.coo_matrix((vals, (rows, colsj)), shape=(m, n)).tocsc()
+    t, b = nb["t"], nb["b"]
+    KKT = sp.bmat([[sp.eye(n), A.T], [A, None]], format="csc")
+    rhs = np.concatenate([t, b])
+    sol = spla.spsolve(KKT, rhs)
+    x = sol[:n]
+    return float(0.5 * x @ x - t @ x + 0.5 * t @ t)
+
+
+def grid_qp_family(k: int, batch: int, seed: int = 0,
+                   vary_values: bool = False):
+    """A batch over grid_qp(k)'s pattern for BatchSparseSolver: q scaled
+    per problem by 1 + 0.2 N(0, 1) entrywise and the upper bounds drawn
+    from [1, 1.5); with vary_values, P's diagonal scaled by [1, 1.5)
+    (P stays diagonally dominant) and A's values by [0.5, 1.5) per
+    problem.  Returns (P, qs, A, bs, cones, P_vals, A_vals), the values
+    None without vary_values, else (B, nnz) over SparseProblem's COO
+    order of triu(P) and A."""
+    import scipy.sparse as sp
+
+    P, q, A, b, cones = grid_qp(k, seed)
+    rng = np.random.default_rng(seed + 1)
+    n = q.shape[0]
+    qs = q * (1.0 + 0.2 * rng.standard_normal((batch, n)))
+    bs = np.concatenate([np.zeros((batch, n)),
+                         1.0 + 0.5 * rng.random((batch, n))], axis=1)
+    P_vals = A_vals = None
+    if vary_values:
+        Pu = sp.triu(sp.csc_matrix(P)).tocoo()
+        scale = np.where(Pu.row == Pu.col,
+                         1.0 + 0.5 * rng.random((batch, Pu.nnz)), 1.0)
+        P_vals = Pu.data[None, :] * scale
+        Ac = sp.coo_matrix(A)
+        A_vals = Ac.data[None, :] * (0.5 + rng.random((batch, Ac.nnz)))
+    return P, qs, A, bs, cones, P_vals, A_vals
+
+
+def socp_golden():
+    """The SOCP golden of tests/test_basic_socp.py (copied): objective
+    -0.8459 (BASELINE.md).  Returns (P, q, A, b, cones)."""
+    P = np.array([
+        [1.4652521089139698, 0.6137176286085666, -1.1527861771130112],
+        [0.6137176286085666, 2.219109946678485, -1.4400420548730628],
+        [-1.1527861771130112, -1.4400420548730628, 1.6014483534926371]])
+    A_box = np.vstack([np.eye(3), -np.eye(3)]) * 2.0
+    return (P, np.array([0.1, -2.0, 1.0]), np.vstack([A_box, np.eye(3)]),
+            np.concatenate([np.ones(6), np.zeros(3)]),
+            [NonnegativeConeT(3), NonnegativeConeT(3), SecondOrderConeT(3)])

@@ -23,11 +23,16 @@ B = 4096 (staged by default) and 256 (`batch_exp_B4096`,
 batch_compaction=0.0 and at B = 256 (`batch_maxcut_B4096_plain`,
 `batch_maxcut_B256`), and Solver on `problems.sdp_chordal_banded(11, 2,
 6)` after its chordal decomposition (N = 127, `solver_chordal_n127`).
+Then the sparse paths: SparseSolver on `problems.grid_qp(24)` (N_kkt =
+1,728, `sparse_solver_grid24`), BatchSparseSolver on
+`problems.grid_qp_family(8, 5, 3)` (`batch_sparse_k8_B5`), and Solver
+with direct_solve_method="qdldl" on the SOCP golden
+(`solver_qdldl_socp`).
 The module needs nothing of `cuclarabel_torch` that an earlier version
 lacks: a copy placed in another checkout's package digests that
 checkout's solves, so that two versions can be compared in one run; a
-version without the nonsymmetric or the PSD cones reports those paths as
-skipped.  Needs a CUDA device.
+version without the nonsymmetric or the PSD cones or the sparse paths
+reports those paths as skipped.  Needs a CUDA device.
 """
 
 import hashlib
@@ -58,6 +63,16 @@ PSD_PATHS = (
         *pr.maxcut_sdp(12, 256, 11)[:5]).solve()),
     ("solver_chordal_n127", lambda ct, pr: [
         ct.Solver(*pr.sdp_chordal_banded(11, 2, 6)).solve()]),
+)
+
+# (path, (cuclarabel_torch, its problems module) -> solutions)
+SPARSE_PATHS = (
+    ("sparse_solver_grid24", lambda ct, pr: [
+        ct.SparseSolver(*pr.grid_qp(24)).solve()]),
+    ("batch_sparse_k8_B5", lambda ct, pr: ct.BatchSparseSolver(
+        *pr.grid_qp_family(8, 5, 3)[:5]).solve()),
+    ("solver_qdldl_socp", lambda ct, pr: [
+        ct.Solver(*pr.socp_golden(), direct_solve_method="qdldl").solve()]),
 )
 
 
@@ -102,6 +117,12 @@ def main():
         report(path, sols)
     for path, make in PSD_PATHS:
         if not hasattr(problems, "maxcut_sdp"):
+            print(json.dumps({"path": path, "skipped": "not in this "
+                              "version"}), flush=True)
+            continue
+        report(path, make(ct, problems))
+    for path, make in SPARSE_PATHS:
+        if not hasattr(ct, "SparseSolver"):
             print(json.dumps({"path": path, "skipped": "not in this "
                               "version"}), flush=True)
             continue

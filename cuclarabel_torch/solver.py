@@ -87,8 +87,8 @@ def _to_dense(M, shape) -> np.ndarray:
         if cells * 8 > 1 << 30:
             raise ValueError(
                 f"refusing to densify a sparse {shape} matrix "
-                f"({cells * 8 / 1e9:.1f} GB dense); the sparse path is not "
-                "ported to cuclarabel_torch yet")
+                f"({cells * 8 / 1e9:.1f} GB dense); use SparseSolver, which "
+                "keeps the data sparse")
         out = np.asarray(M.toarray(), dtype=np.float64)
     else:
         out = np.asarray(M, dtype=np.float64)

@@ -1,15 +1,16 @@
 """The port's copy of the chordal decomposition (cuclarabel_torch/chordal/)
 against the reference's (cuclarabel_tpu/chordal/).
 
-The copy takes the filled graph from the row-subtree symbolic
-factorisation (`etree` + `symbolic_cholesky`) always, where the
-reference takes it from its native C++ LDL^T package when that is built
-(`graph._native_symbolic`), so the fills are held against each other,
-then the cliques, the vertex ordering and the clique tree of every
-decomposed cone, the augmented problems (`decomp_augment`) bit for bit
-and the reverse transforms (`decomp_reverse`) on seeded random iterates.
-Data: tests/test_sdp_chordal.py's problem under all 12 settings (compact
-x complete_dual x merge method) and problems.sdp_chordal_banded at
+Both take the filled graph from their native C++ LDL^T package
+(`graph._native_symbolic`; the port's own `native/`), with the
+row-subtree symbolic factorisation (`etree` + `symbolic_cholesky`)
+where that numeric factor fails, so the two fills are held against each
+other on each side and across, then the cliques, the vertex ordering
+and the clique tree of every decomposed cone, the augmented problems
+(`decomp_augment`) bit for bit and the reverse transforms
+(`decomp_reverse`) on seeded random iterates.  Data:
+tests/test_sdp_chordal.py's problem under all 12 settings (compact x
+complete_dual x merge method) and problems.sdp_chordal_banded at
 nv = 10, 11 and 12."""
 
 import itertools
@@ -81,9 +82,10 @@ def _tree(sp):
 
 @pytest.mark.parametrize("name", sorted(PROBLEMS))
 def test_the_two_fills_agree(name):
-    """The reference's fill (native when built) and the copy's
-    row-subtree fill give the same column patterns on every PSD cone's
-    aggregate sparsity pattern, at every permutation find_graph makes."""
+    """The reference's fill (native when built), the copy's native fill
+    and its row-subtree fill give the same column patterns on every PSD
+    cone's aggregate sparsity pattern, at every permutation find_graph
+    makes."""
     P, q, A, b, _ = PROBLEMS[name]
     nz = (np.abs(A).sum(axis=1) != 0) | (b != 0)
     ofs = 0
@@ -112,6 +114,39 @@ def test_the_two_fills_agree(name):
                 pat_u, ref_graph.etree(pat_u))
             if native is not None:
                 assert own == native
+            assert graph._native_symbolic(pat_u) == own
+        ofs += d
+
+
+@pytest.mark.parametrize("name", sorted(PROBLEMS))
+def test_find_graph_takes_the_native_fill(name, monkeypatch):
+    """find_graph's filled graph comes from the native package, and the
+    row-subtree fill, taken where the native factor fails, gives the
+    same graph."""
+    P, q, A, b, _ = PROBLEMS[name]
+    nz = (np.abs(A).sum(axis=1) != 0) | (b != 0)
+    ofs = 0
+    for c in _cones(name)[0]:
+        d = api.nvars(c)
+        if isinstance(c, api.PSDTriangleConeT):
+            mask = nz[ofs:ofs + d].copy()
+            for k in range(c.dim):
+                mask[(k + 1) * (k + 2) // 2 - 1] = True
+            calls = []
+            native_fill = graph._native_symbolic
+
+            def counted(pat_u):
+                calls.append(pat_u.shape[0])
+                return native_fill(pat_u)
+
+            monkeypatch.setattr(graph, "_native_symbolic", counted)
+            via_native = graph.find_graph(mask, c.dim)
+            assert calls == [c.dim]
+            monkeypatch.setattr(graph, "_native_symbolic", lambda pat_u: None)
+            via_subtree = graph.find_graph(mask, c.dim)
+            monkeypatch.setattr(graph, "_native_symbolic", native_fill)
+            assert via_native[0] == via_subtree[0]
+            np.testing.assert_array_equal(via_native[1], via_subtree[1])
         ofs += d
 
 

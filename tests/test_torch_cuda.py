@@ -13,7 +13,12 @@ relative (other summation orders), at the main shapes, at the edges of
 the substitution's 32-row panels and around the factor's 8-pivot panels
 and 4 x 4 tiles, and a pivot that cancels to exactly zero; the residual
 bit for bit with the refined solve's.  The issue-rate probes' kernels
-(csrc/probes.cu) are held to their plain versions bit for bit."""
+(csrc/probes.cu) are held to their plain versions bit for bit.  The
+sparse paths, which run no kernel of csrc/, are held to the CPU: the
+multifrontal factor and solve within 1e-12 relative and bitwise equal
+to themselves on the card, SparseSolver and BatchSparseSolver with the
+CPU's statuses and iterations, and the native library built for
+Solver(direct_solve_method="qdldl")."""
 
 import numpy as np
 import pytest
@@ -547,3 +552,95 @@ def test_probe_wrappers_reject_mixed_devices_and_dtypes(dev):
         p2.run(xi.cpu(), yi, p2.OPS, 1)
     with pytest.raises(TypeError):
         p2.run(xi.half(), yi.half(), p2.OPS, 1)
+
+
+# ---------------------------------------------------------------------
+# the sparse paths on the card (the multifrontal is plain torch: held to
+# the CPU within 1e-12 relative, and to itself bit for bit)
+
+
+def _sparse_kkt(seed, n, m):
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    A = sp.random(m, n, density=0.1, random_state=np.random.RandomState(1),
+                  format="csc") + 0.01 * sp.eye(m, n)
+    G = sp.random(n, n, density=0.1, random_state=np.random.RandomState(2),
+                  format="csc")
+    K = sp.bmat([[G @ G.T + sp.eye(n), A.T],
+                 [A, -sp.diags(10.0 ** rng.uniform(-2, 2, m))]], format="csc")
+    U = sp.triu(K).tocsc()
+    U.sort_indices()
+    return (K, U.indptr, U.indices, U.data,
+            np.concatenate([np.ones(n), -np.ones(m)]), rng)
+
+
+@pytest.mark.parametrize("n,m,mw", [(15, 20, 4), (40, 55, 8), (300, 400, 32)])
+def test_sparse_factor_and_solve_on_card_match_cpu(dev, n, m, mw):
+    from cuclarabel_torch.kkt.sparse_device import SparseDeviceLDL
+
+    K, Ap, Ai, Ax, dsigns, rng = _sparse_kkt(n + m, n, m)
+    N = n + m
+    Axs = np.stack([Ax * rng.uniform(0.8, 1.25, Ax.size) for _ in range(3)])
+    bs = rng.standard_normal((3, N))
+    card = SparseDeviceLDL(N, Ap, Ai, dsigns, max_width=mw, device=dev)
+    cpu = SparseDeviceLDL(N, Ap, Ai, dsigns, max_width=mw, device="cpu")
+    assert card.refactor(Axs).all() and cpu.refactor(Axs).all()
+    x, xc = card.solve(bs), cpu.solve(bs)
+    assert np.abs(x - xc).max() / np.abs(xc).max() < 1e-12
+    # bitwise equal factorizations and solves on the card
+    fronts = [f.clone() for f in card._fac["fronts"]]
+    dinv = card._fac["Dinv"].clone()
+    assert card.refactor(Axs).all()
+    for a, b in zip(fronts, card._fac["fronts"]):
+        assert torch.equal(a, b)
+    assert torch.equal(dinv, card._fac["Dinv"])
+    assert np.array_equal(card.solve(bs), x)
+
+
+def test_sparse_solver_on_card_matches_cpu(dev):
+    import cuclarabel_torch as ct
+    from cuclarabel_torch import problems
+
+    P, q, A, b, cones = problems.grid_qp(12)
+    card = ct.SparseSolver(P, q, A, b, cones)
+    assert card.device.type == "cuda"
+    s1, s2 = card.solve(), card.solve()
+    cpu = ct.SparseSolver(P, q, A, b, cones, device="cpu").solve()
+    assert s1.status == cpu.status == ct.SolverStatus.SOLVED
+    assert s1.iterations == cpu.iterations
+    assert np.abs(s1.x - cpu.x).max() < 1e-9
+    assert np.array_equal(s1.x, s2.x) and np.array_equal(s1.z, s2.z)
+
+
+def test_batch_sparse_solver_on_card_matches_cpu(dev):
+    import cuclarabel_torch as ct
+    from cuclarabel_torch import problems
+
+    P, q, A, b, cones = problems.grid_qp(8)
+    rng = np.random.default_rng(1)
+    qs = q * (1.0 + 0.1 * rng.standard_normal((6, q.size)))
+    bs = np.tile(b, (6, 1))
+    card = ct.BatchSparseSolver(P, qs, A, bs, cones).solve()
+    cpu = ct.BatchSparseSolver(P, qs, A, bs, cones, device="cpu").solve()
+    for s, c in zip(card, cpu):
+        assert s.status == c.status == ct.SolverStatus.SOLVED
+        assert s.iterations == c.iterations
+        assert np.abs(s.x - c.x).max() < 1e-9
+
+
+def test_qdldl_solver_on_card(dev):
+    import cuclarabel_torch as ct
+    from cuclarabel_torch import native
+
+    assert native.build().exists()
+    P = np.array([[4.0, 1.0], [1.0, 2.0]])
+    A0 = np.array([[1.0, 1.0], [1.0, 0.0], [0.0, 1.0]])
+    cones = [ct.NonnegativeConeT(3), ct.NonnegativeConeT(3)]
+    args = (P, np.ones(2), np.vstack([-A0, A0]),
+            np.array([-1.0, 0, 0, 1.0, 0.7, 0.7]), cones)
+    sol = ct.Solver(*args, direct_solve_method="qdldl").solve()
+    lu = ct.Solver(*args, kkt_solve_method="lu").solve()
+    assert sol.status == ct.SolverStatus.SOLVED
+    assert sol.iterations == lu.iterations
+    np.testing.assert_allclose(sol.x, [0.3, 0.7], atol=1e-7)

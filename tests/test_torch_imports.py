@@ -30,8 +30,8 @@ print("PORT", sorted(m for m in sys.modules if m.startswith("cuclarabel_torch"))
 """
 
 # modules added with the single-problem Solver, the f32 LDL^T kernels,
-# the issue-rate probes, the solve digests, the nonsymmetric cones, and
-# the PSD cones with the chordal decomposition
+# the issue-rate probes, the solve digests, the nonsymmetric cones, the
+# PSD cones with the chordal decomposition, and the sparse paths
 NEW_MODULES = ("cuclarabel_torch.device", "cuclarabel_torch.equilibration",
                "cuclarabel_torch.info_print", "cuclarabel_torch.json_io",
                "cuclarabel_torch.kkt.ldl_f32", "cuclarabel_torch.presolve",
@@ -45,7 +45,15 @@ NEW_MODULES = ("cuclarabel_torch.device", "cuclarabel_torch.equilibration",
                "cuclarabel_torch.chordal", "cuclarabel_torch.chordal.decomp",
                "cuclarabel_torch.chordal.graph",
                "cuclarabel_torch.chordal.merge",
-               "cuclarabel_torch.chordal.sntree")
+               "cuclarabel_torch.chordal.sntree",
+               "cuclarabel_torch.native", "cuclarabel_torch.qps",
+               "cuclarabel_torch.sparse_solver",
+               "cuclarabel_torch.parallel.sparse_batch",
+               "cuclarabel_torch.kkt.scatter",
+               "cuclarabel_torch.kkt.sparse_cpu",
+               "cuclarabel_torch.kkt.sparse_device",
+               "cuclarabel_torch.kkt.sparse_symbolic",
+               "cuclarabel_torch.kkt.sparse_tpu")
 
 
 def _env():
@@ -62,6 +70,41 @@ def test_port_imports_no_jax():
     assert "LOADED []" in out.stdout, out.stdout
     for mod in NEW_MODULES:
         assert repr(mod) in out.stdout, mod
+
+
+@pytest.mark.parametrize("module", [
+    "cuclarabel_torch.sparse_solver", "cuclarabel_torch.parallel.sparse_batch",
+    "cuclarabel_torch.qps", "cuclarabel_torch.native"])
+def test_sparse_modules_import_no_jax(module):
+    """Each sparse-path module alone pulls in neither jax nor the JAX
+    package, and the native library builds without them."""
+    code = (f"import sys, {module}\n"
+            "import cuclarabel_torch.native as nat; nat.build()\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'cuclarabel_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_sparse_entry_points_default_to_cuda():
+    """SparseSolver and BatchSparseSolver, like Solver, run on CUDA
+    unless given device="cpu"."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from cuclarabel_torch.problems import grid_qp
+
+    P, q, A, b, cones = grid_qp(3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ct.SparseSolver(P, q, A, b, cones)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ct.BatchSparseSolver(P, q[None], A, b[None], cones)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ct.Solver(P.toarray(), q, A.toarray(), b, cones,
+                  direct_solve_method="qdldl")
+    assert ct.SparseSolver(P, q, A, b, cones, device="cpu").solve().status \
+        == ct.SolverStatus.SOLVED
 
 
 def test_no_cuda_means_no_quiet_cpu_run():

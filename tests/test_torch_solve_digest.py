@@ -60,3 +60,25 @@ def test_psd_paths_run_on_the_cpu():
     for path, make in solve_digest.PSD_PATHS:
         d = solve_digest.digest(make(CpuCt(), Pr()))
         assert d["statuses"] == ["SOLVED"], path
+
+
+def test_sparse_paths_run_on_the_cpu():
+    """The sparse digest paths build and solve (device="cpu" here, at a
+    small size): each gives SOLVED solutions to digest."""
+    from cuclarabel_torch import problems
+
+    small = {"grid_qp": lambda k: problems.grid_qp(4),
+             "grid_qp_family": lambda k, B, seed: problems.grid_qp_family(
+                 4, 3, seed)}
+
+    class Pr:
+        def __getattr__(self, name):
+            return small.get(name, getattr(problems, name))
+
+    class CpuCt:
+        def __getattr__(self, name):
+            return lambda *a, **k: getattr(ct, name)(*a, device="cpu", **k)
+
+    for path, make in solve_digest.SPARSE_PATHS:
+        d = solve_digest.digest(make(CpuCt(), Pr()))
+        assert d["statuses"] == ["SOLVED"], path
