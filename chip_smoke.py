@@ -122,7 +122,7 @@ Phases, in order; any failure exits non-zero:
    beside the banded rows); then per batch path and the N = 127 Solver
    the record of phase 6.
 
-8. sparse paths, last, each driven with the LDL^T kernels' counters set
+8. sparse paths, each driven with the LDL^T kernels' counters set
    to 0 just before it and read just after (the sparse paths run none
    of them: the multifrontal LDL^T is plain torch, QDLDL host C++):
    SparseSolver on problems.grid_qp(100) (N_kkt = 30,000): SOLVED with
@@ -149,6 +149,32 @@ Phases, in order; any failure exits non-zero:
    and the peak device memory beside the plan's estimate.  To keep the
    smoke's time, cuSOLVER's LDL^T is timed at B = 4096 at N = 76 only
    (phase 5), no longer at N = 104 and 90.
+
+9. sharded: ShardedSolver on one card (the block-arrow KKT, which runs
+   none of the LDL^T kernels: cuBLAS products and a plain-torch saddle
+   inverse) on problems.box_budget_qp(512, 524288, 0) (n = 512,
+   m = 524,289, A 2.1 GB in f64), driven with the counters set to 0
+   just before it and read just after: SOLVED, the optimality
+   conditions recomputed in numpy f64 on the host within 1e-7, a second
+   solve bitwise equal; cold (construction included) and warm ms, loop
+   passes, host syncs and launches per pass, the idle share of one
+   profiled solve, peak memory and the saddle inverses kept
+   (kkt/arrow.py's guard); then problems.sharded_socp() with the CPU's
+   iterations and objective within 1e-7.
+10. multi, with 2 or more cards (with one, a line says it did not run
+   and why): the same QP over every card (objective within 1e-8 of one
+   card's, each card's peak memory against its slab of A), then
+   BatchSolver on the portfolio at B = 4096 over every card, K1-K4
+   launched on every card (kkt/ldl.py's LAUNCHES.by_device), each slab
+   bitwise equal to a one-card batch of it on its card, and warm
+   problems/s at 1, 2, 4 ... cards.  `python3 chip_smoke.py --multi`
+   runs the build and phases 9 and 10 alone.
+11. modeling: problems.portfolio_model(32) through the modeling layer on
+   the card, the dense backend bitwise equal to Solver on the same
+   data, the sparse backend (SparseSolver) SOLVED within 1e-7 of it.
+12. precompile: precompile() in a fresh process, each family's seconds
+   on its first call (the process's one-time costs, the port's
+   first-solve latency) and on a second.
 
 The line before the last is the `kernels` JSON, whose `launches` sums
 the main paths' runs and `launches_per_path` splits them, and whose
@@ -284,6 +310,14 @@ TOL_X_SINGLE = 1e-7   # a batch problem's x vs its single solve's
 # (seconds a call at B = 4096): at B = 4096 it is timed at the main
 # path's N = 76 only, so that the sparse phase fits the smoke's time
 LIBRARY_B4096_N = (76,)
+# several cards: ShardedSolver on problems.box_budget_qp(n, m_in, seed),
+# A (m_in + 1, n) = 2.1 GB in f64; its objective over several cards
+# within TOL_SHARDED_OBJ of one card's, relative; the data-parallel
+# batch on the portfolio at DP_BATCH, problems/s over DP_REPS warm solves
+SHARDED_QP = (512, 524288, 0)
+TOL_SHARDED_OBJ = 1e-8
+DP_BATCH = 4096
+DP_REPS = 3
 
 REPLACES = {
     "ldl_factor": "cuclarabel_tpu/kkt/pallas_dd.py:1318",
@@ -1646,11 +1680,13 @@ def cold(make):
             torch.cuda.max_memory_allocated())
 
 
-def kkt_conditions(P, q, A, b, sol):
-    """The optimality conditions of a QP with nonnegative cones,
+def kkt_conditions(P, q, A, b, sol, zero=0):
+    """The optimality conditions of a QP with nonnegative cones (after
+    `zero` zero-cone rows, whose s must vanish and whose z is free),
     recomputed in numpy f64 on the host from the returned x, s, z, each
     relative to the size of its terms: primal and dual residuals, s and
-    z in the cone, and the duality gap."""
+    z in the cone, and the duality gap.  P: the upper triangle, scipy
+    sparse, or None."""
     import scipy.sparse as sp
 
     Pf = (P + sp.triu(P, 1).T) if P is not None else None
@@ -1658,14 +1694,17 @@ def kkt_conditions(P, q, A, b, sol):
     Ax, ATz = A @ x, A.T @ z
     Px = Pf @ x if Pf is not None else np.zeros_like(x)
     inf = lambda v: float(np.abs(v).max()) if v.size else 0.0  # noqa
-    return {
+    out = {
         "primal": inf(Ax + s - b) / max(1.0, inf(b), inf(Ax), inf(s)),
         "dual": inf(Px + q + ATz) / max(1.0, inf(q), inf(Px), inf(ATz)),
-        "s_cone": max(0.0, -float(s.min())) / max(1.0, inf(s)),
-        "z_cone": max(0.0, -float(z.min())) / max(1.0, inf(z)),
+        "s_cone": max(0.0, -float(s[zero:].min())) / max(1.0, inf(s)),
+        "z_cone": max(0.0, -float(z[zero:].min())) / max(1.0, inf(z)),
         "gap": abs(x @ Px + q @ x + b @ z) / max(
             1.0, abs(x @ Px), abs(q @ x), abs(b @ z)),
     }
+    if zero:
+        out["s_zero"] = inf(s[:zero]) / max(1.0, inf(s))
+    return out
 
 
 def phase_sparse(card):
@@ -1853,7 +1892,7 @@ def phase_sparse(card):
         batch.update_data(q=qs * (1.0 + 1e-9 * (r + 10)))
         batch.solve()
 
-    Pvb, Avb = batch._args[:2]
+    Pvb, Avb = batch._slab_args[0][:2]  # one card: one slab
     recs["sparse_batch_B256"] = sparse_row(
         card, "sparse_batch_B256", batch, bcold, batch_rerun, bpeak,
         plan_estimate(batch), sparse_kkt_launches(batch, Pvb, Avb),
@@ -2390,6 +2429,299 @@ def phase_kernel_timing_f32(card, K, b, L, Dinv):
     return out
 
 
+# ---------------------------------------------------------------------
+# several cards, the modeling layer and precompile (phases 9-12)
+
+class _Iterations:
+    """What sparse_row reads of a solver: its iterations."""
+
+    def __init__(self, sol):
+        self.raw = {"iterations": [sol.iterations]}
+
+
+def phase_sharded(card):
+    """ShardedSolver on one card, driven with the LDL^T kernels' counters
+    set to 0 just before it and read just after (the block-arrow KKT
+    runs none of them: its products are cuBLAS's, its saddle inverse
+    plain torch): problems.box_budget_qp at SHARDED_QP (A 2.1 GB in
+    f64): SOLVED, the optimality conditions recomputed on the host
+    within 1e-7, a second solve bitwise equal; its record (cold and warm
+    ms, loop passes, host syncs and launches per pass, idle share, peak
+    memory, the saddle inverses kept); then problems.sharded_socp()
+    with the CPU's iterations.  Returns (launches by path, record, the
+    QP's data and one-card result for phase_multi)."""
+    import scipy.sparse as sp
+
+    import cuclarabel_torch as ct
+    from cuclarabel_torch import problems
+    from cuclarabel_torch.kkt import arrow
+
+    paths = {}
+    n, m_in, seed = SHARDED_QP
+    t0 = time.perf_counter()
+    data = problems.box_budget_qp(n, m_in, seed)
+    make_s = time.perf_counter() - t0
+    P, q, A, b, cones = data
+
+    def drive():
+        arrow.SADDLE_INVERSES.clear()
+        return cold(lambda: (lambda s: (s, s.solve()))(
+            ct.ShardedSolver(P, q, A, b, cones)))
+
+    ((solver, sol), cold_ms, peak), paths["sharded_qp"] = counted(
+        "sharded_qp", drive)
+    inverses = dict(arrow.SADDLE_INVERSES)
+    check(solver.device.type == "cuda" and len(solver._dev["A"].slabs) == 1,
+          "ShardedSolver: not on one CUDA device")
+    check(sol.status == ct.SolverStatus.SOLVED,
+          f"sharded QP: {sol.status.name}")
+    cond = kkt_conditions(sp.triu(sp.csr_matrix(P)), q, A, b, sol, zero=1)
+    check(max(cond.values()) <= TOL_KKT,
+          f"sharded QP: host-checked optimality {cond}")
+    t0 = time.perf_counter()
+    again = solver.solve()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    check(all(np.array_equal(getattr(sol, f), getattr(again, f))
+              for f in ("x", "s", "z"))
+          and sol.iterations == again.iterations,
+          "sharded QP: a second solve is not bitwise equal")
+    _, passes, syncs = host_syncs(solver.solve)
+
+    def rerun(r):
+        solver.update_data(q=q * (1.0 + 1e-9 * r))
+        solver.solve()
+
+    print(f"[{card}] sharded QP n={n} m={m_in + 1}: A {A.nbytes / 1e9:.2f}"
+          f" GB, data made in {make_s:.1f} s; SOLVED in {sol.iterations} "
+          f"iterations, objective {sol.obj_val:.12g}, r_prim "
+          f"{sol.r_prim:.2e}, r_dual {sol.r_dual:.2e}, host-checked "
+          + ", ".join(f"{k} {v:.2e}" for k, v in cond.items())
+          + f"; a second solve bitwise equal; saddle inverses kept "
+          f"{json.dumps(inverses, sort_keys=True)}", flush=True)
+    rec = sparse_row(card, "sharded_qp", _Iterations(sol), cold_ms, rerun,
+                     peak, None, measured=(warm_ms, passes, syncs))
+    rec.update(kkt_check=cond, data_seconds=make_s, saddle_inverses=inverses,
+               a_bytes=A.nbytes, objective=sol.obj_val)
+    del solver
+
+    # the sharded_socp problem against the CPU
+    small = problems.sharded_socp()
+    got = ct.ShardedSolver(*small).solve()
+    want = ct.ShardedSolver(*small, device="cpu").solve()
+    check(got.status == want.status == ct.SolverStatus.SOLVED
+          and got.iterations == want.iterations
+          and rel(torch.tensor(got.obj_val), torch.tensor(want.obj_val),
+                  1.0) <= TOL_OBJ,
+          f"sharded_socp on the card: {got.status.name} in "
+          f"{got.iterations} iterations, objective {got.obj_val} (CPU: "
+          f"{want.status.name}, {want.iterations}, {want.obj_val})")
+    print(f"[{card}] sharded_socp (n = 40, m = 56): SOLVED in "
+          f"{got.iterations} iterations, the CPU's; objective "
+          f"{got.obj_val:.12g} (CPU {want.obj_val:.12g})", flush=True)
+    rec["sharded_socp"] = {"iterations": got.iterations,
+                           "objective": got.obj_val,
+                           "cpu_objective": want.obj_val}
+    return paths, rec, (data, sol.obj_val, peak)
+
+
+def phase_multi(card, qp):
+    """With 2 or more cards: the QP of phase_sharded at n_devices = the
+    card count (objective within 1e-8 of one card's; each card's peak
+    memory beside its share of A), then BatchSolver on the portfolio at
+    B = DP_BATCH over every card, driven with the counters set to 0 just
+    before it and read just after (K1-K4 launched on every card, each
+    slab bitwise equal to a one-card batch of it on its card), and warm
+    problems/s at 1, 2, 4 ... cards (median of DP_REPS).  With one card
+    it says so and returns no path."""
+    import cuclarabel_torch as ct
+    from cuclarabel_torch import problems
+    from cuclarabel_torch.kkt import ldl
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        why = (f"this host has {count} CUDA device; the multi-card checks "
+               "(ShardedSolver over several cards, the data-parallel "
+               "batch) need 2 or more")
+        print(f"[{card}] multi-card phase not run: {why}", flush=True)
+        return {}, {"ran": False, "reason": why}
+    paths, rec = {}, {"ran": True, "cards": count}
+    (P, q, A, b, cones), one_obj, one_peak = qp
+    for i in range(count):
+        torch.cuda.reset_peak_memory_stats(i)
+
+    def drive_qp():
+        solver = ct.ShardedSolver(P, q, A, b, cones, n_devices=count)
+        t0 = time.perf_counter()
+        sol = solver.solve()
+        return solver, sol, (time.perf_counter() - t0) * 1e3
+
+    (solver, sol, ms), paths["sharded_qp_multi"] = counted(
+        "sharded_qp_multi", drive_qp)
+    check([a.device.index for a in solver._dev["A"].slabs]
+          == list(range(count)), "sharded QP: slabs not one per card")
+    peaks = [torch.cuda.max_memory_allocated(i) for i in range(count)]
+    err = abs(sol.obj_val - one_obj) / max(1.0, abs(one_obj))
+    check(sol.status == ct.SolverStatus.SOLVED and err <= TOL_SHARDED_OBJ,
+          f"sharded QP over {count} cards: {sol.status.name}, objective "
+          f"{sol.obj_val} against one card's {one_obj}")
+    slab = A.nbytes / count
+    # a card holds its slab of A and the temporary A' D^-1 of one
+    # factorization; the first card also the vectors and the saddle
+    # that one card held beside A and its temporary
+    home_extra = max(0.0, one_peak - 2.0 * A.nbytes)
+    bound = [2.2 * slab + (home_extra if i == 0 else 0.0) + 64e6
+             for i in range(count)]
+    check(all(p <= bd for p, bd in zip(peaks, bound)),
+          f"sharded QP: peak memory per card {peaks} above {bound}")
+    print(f"[{card}] sharded QP over {count} cards: SOLVED in "
+          f"{sol.iterations} iterations, objective within {err:.2e} of one "
+          f"card's, solve {ms:.1f} ms; peak memory per card "
+          + ", ".join(f"{p / 1e9:.2f} GB ({p / slab:.2f} x its slab of A)"
+                      for p in peaks)
+          + f" (one card: {one_peak / 1e9:.2f} GB)", flush=True)
+    rec["sharded_qp"] = {"iterations": sol.iterations, "obj_rel_err": err,
+                         "solve_ms": ms, "peak_bytes": peaks,
+                         "one_card_peak_bytes": one_peak}
+    del solver
+
+    Ab, qs, bs, pcones = problems.portfolio_socp(NASS, DP_BATCH, seed=7)
+    dp = ct.BatchSolver(None, qs, Ab, bs, pcones, n_devices=count)
+    dp.solve()
+    torch.cuda.synchronize()
+    ldl.reset_counts()
+    (got, _), paths["batch_dp"] = counted("batch_dp",
+                                          lambda: (dp.solve(), None))
+    by_card = {k: dict(v) for k, v in ldl.LAUNCHES.by_device.items()}
+    for i in range(count):
+        launched = by_card.get(f"cuda:{i}", {})
+        check(all(launched.get(f"{k}/r1", 0) > 0 for k in (
+            "ldl_factor", "ldl_solve_refine")),
+            f"batch over {count} cards: cuda:{i} launched {launched}")
+    w = DP_BATCH // count
+    for i in range(count):
+        one = ct.BatchSolver(None, qs[i * w:(i + 1) * w], Ab,
+                             bs[i * w:(i + 1) * w], pcones,
+                             device=f"cuda:{i}",
+                             batch_compaction=0.0).solve()
+        check(all(g.status == o.status and g.iterations == o.iterations
+                  and all(np.array_equal(getattr(g, f), getattr(o, f))
+                          for f in ("x", "s", "z"))
+                  for g, o in zip(got[i * w:(i + 1) * w], one)),
+              f"batch over {count} cards: slab {i} differs from a "
+              "one-card batch of it")
+    check(all(s.status == ct.SolverStatus.SOLVED for s in got),
+          "batch over several cards: not every problem SOLVED")
+    rates = {}
+    widths = sorted({k for k in (1, 2, 4, 8) if k <= count} | {count})
+    for k in widths:
+        solver = ct.BatchSolver(None, qs, Ab, bs, pcones, n_devices=k,
+                                batch_compaction=0.0)
+        solver.solve()
+        walls = []
+        for _ in range(DP_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solver.solve()
+            walls.append(time.perf_counter() - t0)
+        rates[k] = {"problems_per_s_median": DP_BATCH / float(
+            np.median(walls)), "problems_per_s": [DP_BATCH / t
+                                                  for t in walls]}
+    print(f"[{card}] batch B={DP_BATCH} over {count} cards: every slab "
+          f"bitwise equal to a one-card batch of it; launches by card "
+          f"{json.dumps(by_card, sort_keys=True)}; warm problems/s "
+          + ", ".join(f"{k} card(s) {v['problems_per_s_median']:.1f} "
+                      f"(spread {min(v['problems_per_s']):.1f} to "
+                      f"{max(v['problems_per_s']):.1f})"
+                      for k, v in rates.items()), flush=True)
+    rec["batch_dp"] = {"launches_by_card": by_card, "rates": rates}
+    return paths, rec
+
+
+def phase_modeling(card):
+    """The modeling layer on the card, driven with the counters set to 0
+    just before it and read just after: problems.portfolio_model(32)
+    solved with the dense backend (Solver, the f64 kernels at N = 76),
+    bitwise equal to Solver on the same data, and with the sparse
+    backend (SparseSolver), SOLVED within 1e-7 of the dense objective."""
+    import cuclarabel_torch as ct
+    from cuclarabel_torch import problems
+
+    paths = {}
+
+    def drive():
+        model, x, data = problems.portfolio_model(NASS)
+        t0 = time.perf_counter()
+        sol = model.solve()
+        return model, x, data, sol, (time.perf_counter() - t0) * 1e3
+
+    (model, x, (A, q, b, cones), sol, dense_ms), paths["modeling"] = \
+        counted("modeling", drive)
+    check(isinstance(model.solver, ct.Solver)
+          and model.solver.device.type == "cuda",
+          "Model: the dense backend is not a Solver on the card")
+    want = ct.Solver(None, q, A, b, cones).solve()
+    check(sol.status == ct.SolverStatus.SOLVED
+          and np.array_equal(x.value, want.x)
+          and sol.iterations == want.iterations,
+          f"Model (dense): {sol.status.name}, not Solver's result")
+    sparse_model = problems.portfolio_model(NASS)[0]
+    t0 = time.perf_counter()
+    ssol = sparse_model.solve(backend="sparse")
+    sparse_ms = (time.perf_counter() - t0) * 1e3
+    check(isinstance(sparse_model.solver, ct.SparseSolver)
+          and sparse_model.solver.device.type == "cuda",
+          "Model: the sparse backend is not a SparseSolver on the card")
+    err = abs(ssol.obj_val - sol.obj_val) / max(1.0, abs(sol.obj_val))
+    check(ssol.status == ct.SolverStatus.SOLVED and err <= TOL_OBJ,
+          f"Model (sparse): {ssol.status.name}, objective {ssol.obj_val} "
+          f"against the dense {sol.obj_val}")
+    print(f"[{card}] Model of the portfolio (n = 33, m = 43): dense SOLVED "
+          f"in {sol.iterations} iterations ({dense_ms:.1f} ms, bitwise "
+          f"Solver's), sparse SOLVED in {ssol.iterations} ({sparse_ms:.1f} "
+          f"ms, objective within {err:.2e})", flush=True)
+    return paths, {"dense_ms": dense_ms, "sparse_ms": sparse_ms,
+                   "iterations": [sol.iterations, ssol.iterations],
+                   "objective": sol.obj_val, "sparse_rel_err": err}
+
+
+PRECOMPILE_CODE = """
+import json, time
+t0 = time.perf_counter()
+import torch
+import cuclarabel_torch as ct
+t1 = time.perf_counter()
+first = ct.precompile()
+again = ct.precompile()
+print(json.dumps({"import_s": t1 - t0, "first": first, "again": again}))
+"""
+
+
+def phase_precompile(card):
+    """precompile() in a fresh process (the kernel library built in
+    build/ already): each family's seconds on the first call, which pays
+    the process's one-time costs, and on a second call in the same
+    process.  The first family's is the port's first-solve latency."""
+    import os
+    import subprocess
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run([sys.executable, "-c", PRECOMPILE_CODE], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, f"precompile: exit {out.returncode}: "
+          f"{out.stderr[-2000:]}")
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    families = ("lp", "qp", "socp", "exp", "pow", "genpow", "sdp")
+    check(set(rec["first"]) == set(families) == set(rec["again"]),
+          f"precompile: families {sorted(rec['first'])}")
+    print(f"[{card}] precompile in a fresh process: import "
+          f"{rec['import_s']:.2f} s; first call "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in rec["first"].items())
+          + "; second call "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in rec["again"].items()),
+          flush=True)
+    return rec
+
+
 def kernel_entries(paths, errs, times):
     """The `kernels` JSON rows: one per kernel function, its launches
     summed over the main paths' runs and split by path and by number of
@@ -2427,6 +2759,23 @@ def kernel_entries(paths, errs, times):
     return rows
 
 
+def run_last_phases(card, timed):
+    """Phases 9-12: sharded, multi, modeling, precompile.  Returns
+    (launches by path, their records)."""
+    paths, last = {}, {}
+    sharded_paths, last["sharded"], qp = timed("sharded", phase_sharded,
+                                               card)
+    paths.update(sharded_paths)
+    multi_paths, last["multi"] = timed("multi", phase_multi, card, qp)
+    paths.update(multi_paths)
+    del qp
+    modeling_paths, last["modeling"] = timed("modeling", phase_modeling,
+                                             card)
+    paths.update(modeling_paths)
+    last["precompile"] = timed("precompile", phase_precompile, card)
+    return paths, last
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2445,6 +2794,14 @@ def main():
         print(f"phase {name}: {seconds[name]} s", flush=True)
         return out
 
+    if sys.argv[1:] == ["--multi"]:
+        # the phases that need several cards, and what they compare with
+        timed("build", phase_build)
+        last = {}
+        _, last["sharded"], qp = timed("sharded", phase_sharded, card)
+        _, last["multi"] = timed("multi", phase_multi, card, qp)
+        print(json.dumps({"several_cards": last, "phase_seconds": seconds}))
+        return 0
     timed("build", phase_build)
     errs = timed("kernels", phase_kernels)
     errs.update(timed("kernels_f32", phase_kernels_f32))
@@ -2471,6 +2828,8 @@ def main():
     paths.update(psd_paths)
     sparse_paths, sparse = timed("sparse", phase_sparse, card)
     paths.update(sparse_paths)
+    last_paths, last = run_last_phases(card, timed)
+    paths.update(last_paths)
     sparse["phase_seconds"] = seconds
     times.update(probe_times)
     print(json.dumps({"solver_n76": solver_times}))
@@ -2480,6 +2839,7 @@ def main():
     print(json.dumps({"nonsymmetric": nonsym}))
     print(json.dumps({"psd": psd}))
     print(json.dumps({"sparse": sparse}))
+    print(json.dumps({"several_cards_modeling_precompile": last}))
     print(json.dumps({"kernels": kernel_entries(paths, errs, times)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,6 +27,15 @@ multifrontal LDL^T (`kkt/sparse_device.py`, plain torch on the device),
 and `Solver(direct_solve_method="qdldl")` factors it on the host with
 the native sparse LDL^T (`native/`, C++ built with g++ on first use).
 `qps` reads and writes QPS files.
+
+Several devices: `ShardedSolver` splits one large problem's constraint
+rows over several cards (the block-arrow KKT of `kkt/arrow.py`), and
+`BatchSolver` and `BatchSparseSolver` with n_devices > 1 split a batch
+into slabs, one per card, each run by its own host thread.  The
+modeling layer (`Model`, `Variable`, `vstack`, `sum_entries`, `norm2`,
+`quad_form`, `sumsq`) assembles `(P, q, A, b, cones)` and solves through
+`Solver` or `SparseSolver`; `precompile()` solves one small problem per
+cone family to pay the one-time costs up front.
 """
 
 from .cones.api import (
@@ -41,8 +50,19 @@ from .cones.api import (
 )
 from .infinity import default_infinity, get_infinity, set_infinity
 from .kkt.ldl_f32 import ldl_factor_batched, ldl_solve_batched
+from .modeling import (
+    Model,
+    Variable,
+    norm2,
+    quad_form,
+    sum_entries,
+    sumsq,
+    vstack,
+)
 from .parallel.batch import BatchSolver
+from .parallel.sharded import ShardedSolver
 from .parallel.sparse_batch import BatchSparseSolver
+from .precompile import precompile
 from .settings import Settings
 from .solver import DefaultSolution, Solver
 from .sparse_solver import SparseSolver
@@ -68,21 +88,30 @@ __all__ = [
     "DefaultSolution",
     "ExponentialConeT",
     "GenPowerConeT",
+    "Model",
     "NonnegativeConeT",
     "PowerConeT",
     "PSDTriangleConeT",
     "SecondOrderConeT",
     "Settings",
+    "ShardedSolver",
     "Solver",
     "SolverStatus",
     "SparseSolver",
     "SupportedCone",
+    "Variable",
     "ZeroConeT",
     "default_infinity",
     "get_infinity",
     "ldl_factor_batched",
     "ldl_solve_batched",
+    "norm2",
+    "precompile",
+    "quad_form",
     "set_infinity",
     "solver_name",
+    "sum_entries",
+    "sumsq",
     "version",
+    "vstack",
 ]

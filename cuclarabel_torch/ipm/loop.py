@@ -3,8 +3,9 @@
 The counterpart of `cuclarabel_tpu/ipm/loop.py` (reference solve! loop,
 `src/solver.jl:189-380`, with the homogeneous embedding that keeps the
 quadratic objective), for the dense KKT backends, the host sparse
-LDL^T of direct_solve_method="qdldl" (`kkt/sparse_cpu.py`) and the
-device sparse multifrontal (`kkt/sparse_tpu.py`, `sparse=`).  Layouts with
+LDL^T of direct_solve_method="qdldl" (`kkt/sparse_cpu.py`), the
+device sparse multifrontal (`kkt/sparse_tpu.py`, `sparse=`) and the
+block-arrow KKT over row shards (`kkt/arrow.py`, `devices=`).  Layouts with
 nonsymmetric cones start from the unit initialization and run the
 reference's strategy ladder per problem (solver.jl:453-514): the
 insufficient-progress restore, the numerical-error retry and the
@@ -110,7 +111,7 @@ def run_passes(state, loop_pass, more=lambda n_unsolved: n_unsolved > 0):
 
 def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
                   device=None, stream: bool = False, parts: bool = False,
-                  sparse=None):
+                  sparse=None, devices=None):
     """Builds the batched solve function for this (layout, settings,
     dims) signature.  The returned fn maps a dict of batched tensors
     {P, q, A, b, d, dinv, e, einv, cscale, normq, normb[, t_start]
@@ -133,7 +134,16 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
     and P x, A x and A' z are sparse products over the COO triplets
     (reference loop.py:88-97, :184-202).  direct_solve_method="qdldl"
     factors and solves on the host with the native sparse LDL^T
-    (reference loop.py:98-104)."""
+    (reference loop.py:98-104).
+
+    With `devices` (the ordered shard devices of parallel/sharded.py)
+    and direct_solve_method "auto" or "arrow", the KKT system is the
+    block-arrow Schur complement of `kkt/arrow.py` (reference
+    loop.py:105-113), one problem (B = 1): dev["A"] is a
+    kkt.arrow.ShardedRows, A x and A' z run slab by slab and sum on
+    devices[0] in shard order, and the cone scalings enter as the
+    structured Hs tuple, never as the dense (m, m) Hs.  "arrow" without
+    devices raises ValueError."""
     sym = layout.is_symmetric
     deg1 = layout.degree + 1
     st = settings
@@ -152,12 +162,22 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
 
         factorize, kkt_solve = make_sparse_cpu_kkt(n, m, settings, layout,
                                                    device)
-    elif settings.direct_solve_method not in ("auto", "dense"):
-        raise NotImplementedError(
-            f"direct_solve_method={settings.direct_solve_method!r} is not "
-            "ported to cuclarabel_torch yet")
+    elif devices is not None and settings.direct_solve_method in ("auto",
+                                                                  "arrow"):
+        from ..kkt.arrow import make_arrow_kkt
+
+        factorize, kkt_solve = make_arrow_kkt(n, m, settings, layout,
+                                              devices)
+    elif settings.direct_solve_method == "arrow":
+        raise ValueError("direct_solve_method='arrow' needs shard devices "
+                         "(use ShardedSolver)")
     else:
         factorize, kkt_solve = make_dense_kkt(n, m, settings, layout, device)
+    # backends that take the structured (diag, blk, socx, gpx) Hs tuple
+    # in place of the dense (m, m) Hs (reference loop.py:117-126)
+    structured_hs = getattr(factorize, "structured_hs", False)
+    if structured_hs:
+        hs_plan = cone_ops.sparse_hs_plan(layout)
 
     # multi-RHS ("pair") solves: None = auto — off on the dense backends,
     # on for the sparse multifrontal, whose level walk is paid once for
@@ -179,7 +199,22 @@ def make_solve_fn(layout: ConeLayout, settings, n: int, m: int, has_P: bool,
         cinv = 1.0 / dev["cscale"]
         normq, normb = dev["normq"], dev["normb"]
         B = q.shape[0]
-        if sparse is None:
+        if structured_hs:
+            P, A = dev["P"], dev["A"]  # A: kkt.arrow.ShardedRows
+
+            def Amv(v):
+                return A.mv(v)
+
+            def ATmv(v):
+                return A.rmv(v)
+
+            def Pmv_data(v):
+                return _bmv(P, v)
+
+            def kkt_factorize(scal):
+                return factorize(P, A, cone_ops.sparse_hs_values(
+                    layout, scal, hs_plan, B, q.device))
+        elif sparse is None:
             P, A = dev["P"], dev["A"]
             AT = A.transpose(1, 2)
             # exp-cone iterates amplify a rounding difference about

@@ -17,6 +17,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -152,9 +153,18 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
-@functools.lru_cache(maxsize=1)
+_LOAD_LOCK = threading.Lock()
+
+
 def load() -> ctypes.CDLL:
-    """The kernel library, built on first use."""
+    """The kernel library, built on first use (once, also when several
+    host threads ask for it at the same time)."""
+    with _LOAD_LOCK:
+        return _load()
+
+
+@functools.lru_cache(maxsize=1)
+def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()["path"]))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

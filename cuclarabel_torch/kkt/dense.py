@@ -48,6 +48,50 @@ from ..device import resolve_device
 from .ldl import MAX_N, kkt_residual, ldl_factor, ldl_solve, ldl_solve_refine
 
 
+def _gj_inv_small(M):
+    """No-pivot Gauss-Jordan inverse of a small (..., N, N) block
+    (reference dense.py:39-52): every diagonal block that the recursive
+    Schur split of a regularised quasidefinite matrix reaches is itself
+    quasidefinite, so its pivots are nonzero."""
+    N = M.shape[-1]
+    eye = torch.eye(N, dtype=M.dtype, device=M.device).expand(M.shape)
+    X = torch.cat([M, eye], dim=-1)
+    for i in range(N):
+        piv = X[..., i, :] / X[..., i, i:i + 1]
+        X = X - X[..., :, i:i + 1] * piv[..., None, :]
+        X[..., i, :] = piv
+    return X[..., N:]
+
+
+def pivotfree_inv(M):
+    """Pivot-free inverse of a regularised quasidefinite (..., N, N)
+    matrix by recursive 2x2 block Schur complements (reference
+    dense.py:55-83), split at N // 2, Gauss-Jordan at N <= 8:
+
+        inv([A B; C D]) = [Ai + AiB Si CAi,  -AiB Si]
+                          [      -Si CAi,        Si ]
+
+    with Ai = inv(A), S = D - C Ai B and Si = inv(S).  Leading principal
+    blocks of a quasidefinite matrix are quasidefinite, so no block needs
+    a pivot (Vanderbei 1995).  The block-arrow KKT (`kkt/arrow.py`)
+    inverts its saddle with it, as the reference does."""
+    N = M.shape[-1]
+    if N <= 8:
+        return _gj_inv_small(M)
+    k = N // 2
+    A = M[..., :k, :k]
+    B = M[..., :k, k:]
+    C = M[..., k:, :k]
+    D = M[..., k:, k:]
+    Ai = pivotfree_inv(A)
+    AiB = Ai @ B
+    Si = pivotfree_inv(D - C @ AiB)
+    SiCAi = Si @ (C @ Ai)
+    top = torch.cat([Ai + AiB @ SiCAi, -(AiB @ Si)], dim=-1)
+    bot = torch.cat([-SiCAi, Si], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
 def resolve_kkt_method(settings, N: int) -> str:
     """Resolve kkt_solve_method='auto': "pallas" (the LDL^T kernels) for
     N <= 128 and "lu" above.  This differs from the reference, which

@@ -18,10 +18,13 @@ versions alike.  Each wrapper takes its plain version when its tensors lie on
 the CPU and launches its CUDA kernel when they lie on a CUDA device;
 there is no fallback from one to the other.  `LAUNCHES` counts kernel
 launches and `PLAIN_CALLS` calls of the plain versions, keyed by
-"<name>/r<R>", so a run can show which path it took.
+"<name>/r<R>", so a run can show which path it took; both stay exact
+when several host threads launch at once, and `LAUNCHES.by_device`
+splits the launches by card.
 """
 
 import collections
+import threading
 
 import torch
 
@@ -29,8 +32,32 @@ from . import _build
 
 MAX_N = 128
 
-LAUNCHES = collections.Counter()
-PLAIN_CALLS = collections.Counter()
+
+class Counts(collections.Counter):
+    """A Counter that host threads bump under one lock (a batch over
+    several cards runs one thread per card); `by_device` holds each
+    device's own counts, keyed by str(device)."""
+
+    def __init__(self):
+        super().__init__()
+        self._lock = threading.Lock()
+        self.by_device = {}
+
+    def add(self, key, device=None):
+        with self._lock:
+            self[key] += 1
+            if device is not None:
+                self.by_device.setdefault(
+                    str(device), collections.Counter())[key] += 1
+
+    def clear(self):
+        with self._lock:
+            super().clear()
+            self.by_device = {}
+
+
+LAUNCHES = Counts()
+PLAIN_CALLS = Counts()
 
 
 def reset_counts() -> None:
@@ -119,22 +146,22 @@ def _r(b):
 
 
 def ldl_factor_plain(K, reg):
-    PLAIN_CALLS["ldl_factor/r1"] += 1
+    PLAIN_CALLS.add("ldl_factor/r1")
     return _factor(K, reg)
 
 
 def ldl_solve_plain(L, Dinv, b):
-    PLAIN_CALLS[f"ldl_solve/r{_r(b)}"] += 1
+    PLAIN_CALLS.add(f"ldl_solve/r{_r(b)}")
     return _solve(L, Dinv, b)
 
 
 def kkt_residual_plain(K, x, b):
-    PLAIN_CALLS[f"kkt_residual/r{_r(b)}"] += 1
+    PLAIN_CALLS.add(f"kkt_residual/r{_r(b)}")
     return _residual(_sym_from_lower(K), x, b)
 
 
 def ldl_solve_refine_plain(K, L, Dinv, b, npass):
-    PLAIN_CALLS[f"ldl_solve_refine/r{_r(b)}"] += 1
+    PLAIN_CALLS.add(f"ldl_solve_refine/r{_r(b)}")
     return _solve_refine(K, L, Dinv, b, npass)
 
 
@@ -211,7 +238,7 @@ def ldl_factor(K, reg):
                                Dinv.data_ptr(), ok.data_ptr(), B, N,
                                _stream(K))
     _raise_on(rc, "ldl_factor")
-    LAUNCHES["ldl_factor/r1"] += 1
+    LAUNCHES.add("ldl_factor/r1", K.device)
     return L, Dinv, ok
 
 
@@ -231,7 +258,7 @@ def ldl_solve(L, Dinv, b):
         rc = lib.cc_ldl_solve(L.data_ptr(), Dinv.data_ptr(), b.data_ptr(),
                               x.data_ptr(), B, N, R, _stream(L))
     _raise_on(rc, "ldl_solve")
-    LAUNCHES[f"ldl_solve/r{R}"] += 1
+    LAUNCHES.add(f"ldl_solve/r{R}", L.device)
     return x
 
 
@@ -252,7 +279,7 @@ def kkt_residual(K, x, b):
         rc = lib.cc_kkt_residual(K.data_ptr(), x.data_ptr(), b.data_ptr(),
                                  r.data_ptr(), B, N, R, _stream(K))
     _raise_on(rc, "kkt_residual")
-    LAUNCHES[f"kkt_residual/r{R}"] += 1
+    LAUNCHES.add(f"kkt_residual/r{R}", K.device)
     return r
 
 
@@ -280,5 +307,5 @@ def ldl_solve_refine(K, L, Dinv, b, npass):
             K.data_ptr(), L.data_ptr(), Dinv.data_ptr(), b.data_ptr(),
             x.data_ptr(), r.data_ptr(), B, N, R, int(npass), _stream(K))
     _raise_on(rc, "ldl_solve_refine")
-    LAUNCHES[f"ldl_solve_refine/r{R}"] += 1
+    LAUNCHES.add(f"ldl_solve_refine/r{R}", K.device)
     return x, r

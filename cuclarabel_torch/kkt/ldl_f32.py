@@ -31,13 +31,13 @@ F32 = torch.float32
 
 
 def ldl_factor_batched_plain(K):
-    PLAIN_CALLS["ldl_factor_batched/r1"] += 1
+    PLAIN_CALLS.add("ldl_factor_batched/r1")
     L, Dinv, _ = _factor(K, None)
     return L, Dinv
 
 
 def ldl_solve_batched_plain(L, Dinv, b):
-    PLAIN_CALLS["ldl_solve_batched/r1"] += 1
+    PLAIN_CALLS.add("ldl_solve_batched/r1")
     return _solve(L, Dinv, b)
 
 
@@ -55,7 +55,7 @@ def ldl_factor_batched(K):
         rc = lib.cc_ldl_factor_f32(K.data_ptr(), L.data_ptr(),
                                    Dinv.data_ptr(), B, N, _stream(K))
     _raise_on(rc, "ldl_factor_batched")
-    LAUNCHES["ldl_factor_batched/r1"] += 1
+    LAUNCHES.add("ldl_factor_batched/r1", K.device)
     return L, Dinv
 
 
@@ -74,5 +74,5 @@ def ldl_solve_batched(L, Dinv, b):
         rc = lib.cc_ldl_solve_f32(L.data_ptr(), Dinv.data_ptr(), b.data_ptr(),
                                   x.data_ptr(), B, N, _stream(L))
     _raise_on(rc, "ldl_solve_batched")
-    LAUNCHES["ldl_solve_batched/r1"] += 1
+    LAUNCHES.add("ldl_solve_batched/r1", L.device)
     return x

@@ -1,4 +1,4 @@
-"""Batched problem solving on one device.
+"""Batched problem solving, on one device or data-parallel over several.
 
 The counterpart of `cuclarabel_tpu/parallel/batch.py`: many conic
 programs with the same structure (cone layout, dimensions) and different
@@ -29,8 +29,11 @@ state (the PSD cones' R, Rinv and lambda among it) is recomputed from
 the iterate at the start of every pass and is not part of the loop
 state, so stage 2 needs nothing cone-specific.  A batch runs no chordal
 decomposition (its augmentation depends on each problem's sparsity, as
-the reference's batch path skips it too).  Not ported yet: sharding over
-several devices.
+the reference's batch path skips it too).
+
+With n_devices > 1 the batch splits into equal slabs, one per device,
+each solved by its own host thread with no collective (`slabs.py`;
+reference batch.py:219-236).
 """
 
 import time
@@ -45,10 +48,11 @@ from ..infinity import get_infinity
 from ..interop import batchify, problem_from_numpy, symmetrize_triu
 from ..ipm.loop import make_solve_fn, run_passes
 from ..settings import Settings
-from ..device import resolve_device
+from ..device import shard_devices
 from ..solver import DefaultSolution
 from ..statuscodes import SolverStatus
 from ..warmstart import scale_warm_start, validate_warm_start
+from .slabs import run_slabs, slab_bounds
 
 
 def _rect_plan(layout):
@@ -219,7 +223,16 @@ class BatchSolver:
     compaction or chunking, `last_compaction` records the last solve:
     {"remainder": stragglers resumed in stage 2, "stage1_iterations":
     the most iterations at the end of stage 1} when staged, plus
-    {"chunks": chunk count} when chunked."""
+    {"chunks": chunk count} when chunked.
+
+    With n_devices > 1 the batch splits in order into n_devices equal
+    slabs (B must divide evenly), slab i on the i-th card from `device`
+    on (every slab on the CPU with device="cpu"), and the slabs run at
+    once, one host thread each, with no collective: each stops at its
+    own slab's last iteration (reference batch.py:219-236).  Slab i's
+    results are those of a one-device BatchSolver on slab i alone at the
+    same settings.  Auto compaction and chunking resolve to 0 there;
+    an explicit batch_compaction > 0 raises ValueError."""
 
     def __init__(
         self,
@@ -239,16 +252,13 @@ class BatchSolver:
         # batched path: no host presolve (shapes must stay uniform)
         settings = settings.replace(presolve_enable=False)
         settings.validate()
-        if n_devices != 1:
-            if settings.batch_compaction > 0.0:
-                raise ValueError(
-                    "batch_compaction resumes stragglers in a narrower "
-                    "single-device batch and cannot combine with "
-                    "n_devices > 1; shard the batch OR compact it")
-            raise NotImplementedError(
-                "cuclarabel_torch runs a batch on one device; sharding "
-                "over n_devices > 1 is not ported yet")
-        self.device = resolve_device(device)
+        if n_devices != 1 and settings.batch_compaction > 0.0:
+            raise ValueError(
+                "batch_compaction resumes stragglers in a narrower "
+                "single-device batch and cannot combine with "
+                "n_devices > 1; shard the batch OR compact it")
+        self.devices = shard_devices(n_devices, device)
+        self.device = self.devices[0]
 
         prob = problem_from_numpy(P, q, A, b, cones)
         B, n = prob["q"].shape
@@ -256,46 +266,60 @@ class BatchSolver:
         self.layout = build_layout(tuple(prob["cones"]))
         if self.layout.m != m:
             raise ValueError("cone dimensions inconsistent with b")
-        # resolve the auto sentinel against the whole batch's width
-        settings = settings.replace(
-            batch_compaction=settings.resolved_batch_compaction(B))
+        self._bounds = slab_bounds(B, len(self.devices))
+        # resolve the auto sentinel against the whole batch's width; a
+        # batch over several devices neither compacts nor chunks
+        # (reference batch.py:399-411)
+        settings = settings.replace(batch_compaction=(
+            settings.resolved_batch_compaction(B) if n_devices == 1
+            else 0.0))
         self.settings = settings
         self._staged = settings.batch_compaction > 0.0
         self._has_P = bool(np.any(prob["P"] != 0.0))
         self.B, self.n, self.m = B, n, m
-        self._chunk = settings.resolved_batch_chunk(B)
-        self._fn = make_batch_solve_fn(self.layout, settings, n, m,
-                                       self._has_P, self.device)
-        self._args = tuple(self._put(prob[k]) for k in ("P", "A", "q", "b"))
+        self._chunk = (settings.resolved_batch_chunk(B) if n_devices == 1
+                       else 0)
+        self._fns = [make_batch_solve_fn(self.layout, settings, n, m,
+                                         self._has_P, dev)
+                     for dev in self.devices]
+        self._slab_args = [tuple(self._put(prob[k][lo:hi], dev)
+                                 for k in ("P", "A", "q", "b"))
+                           for (lo, hi), dev in zip(self._bounds,
+                                                    self.devices)]
 
-    def _put(self, a):
-        return torch.tensor(a, dtype=torch.float64, device=self.device)
+    @staticmethod
+    def _put(a, device):
+        return torch.tensor(a, dtype=torch.float64, device=device)
 
     def update_data(self, P=None, q=None, A=None, b=None) -> None:
         """Parametric re-solves (update_data!, data_updating.jl
         semantics): equilibration runs per solve, so new data is just
-        new arguments; nothing is re-analysed."""
-        Pd, Ad, qd, bd = self._args
+        new arguments, split into the slabs; nothing is re-analysed."""
+        new = {}
         if P is not None:
             Pn = symmetrize_triu(batchify(P, self.B, (self.n, self.n)))
             if bool(np.any(Pn != 0.0)) != self._has_P:
                 raise ValueError(
                     "update_data cannot change whether P is zero "
                     "(the solve function is specialised on it)")
-            Pd = self._put(Pn)
+            new[0] = Pn
         if A is not None:
-            Ad = self._put(batchify(A, self.B, (self.m, self.n)))
+            new[1] = batchify(A, self.B, (self.m, self.n))
         if q is not None:
             q = np.asarray(q, dtype=np.float64)
             if q.shape != (self.B, self.n):
                 raise ValueError("q must be (B, n)")
-            qd = self._put(q)
+            new[2] = q
         if b is not None:
             b = np.asarray(b, dtype=np.float64)
             if b.shape != (self.B, self.m):
                 raise ValueError("b must be (B, m)")
-            bd = self._put(b)
-        self._args = (Pd, Ad, qd, bd)
+            new[3] = b
+        self._slab_args = [
+            tuple(self._put(new[j][lo:hi], dev) if j in new else a
+                  for j, a in enumerate(args))
+            for args, (lo, hi), dev in zip(self._slab_args, self._bounds,
+                                           self.devices)]
 
     def _solve_chunked(self, t, ws):
         """Chunked wide-batch solve (settings.batch_chunk_size): the
@@ -307,8 +331,8 @@ class BatchSolver:
         comp = {"chunks": 0, "remainder": 0, "stage1_iterations": 0}
         for i in range(0, self.B, C):
             sl = slice(i, i + C)
-            out, c = self._fn(*(a[sl] for a in self._args), t,
-                              tuple(w[sl] for w in ws) if ws else None)
+            out, c = self._fns[0](*(a[sl] for a in self._slab_args[0]), t,
+                                  tuple(w[sl] for w in ws) if ws else None)
             out = {k: v.cpu().numpy() for k, v in out.items()}
             if merged is None:
                 merged = {k: np.empty((self.B,) + v.shape[1:], v.dtype)
@@ -324,6 +348,16 @@ class BatchSolver:
             comp = {"chunks": comp["chunks"]}
         return merged, comp
 
+    def _solve_slab(self, i, t, warm):
+        """Slab i on its device -> (host result dict, compaction record);
+        warm: the whole batch's host (X, S, Z) or None."""
+        dev = self.devices[i]
+        lo, hi = self._bounds[i]
+        ws = (tuple(self._put(w[lo:hi], dev) for w in warm) if warm
+              else None)
+        res, comp = self._fns[i](*self._slab_args[i], t, ws)
+        return {k: v.cpu().numpy() for k, v in res.items()}, comp
+
     def solve(self, warm_start=None):
         """Solve every problem of the batch; returns a list of
         DefaultSolution and keeps the batched result dict in self.raw.
@@ -331,16 +365,22 @@ class BatchSolver:
         original problem space (e.g. stacked fields of the previous
         batch's solutions) seeds every problem's iterates, as
         Solver.solve(warm_start=...) does; symmetric-cone layouts only."""
-        ws = ()
+        warm = None
         if warm_start is not None:
-            ws = tuple(self._put(w) for w in validate_warm_start(
-                self.layout, warm_start, self.n, self.m, batch=self.B))
+            warm = validate_warm_start(self.layout, warm_start, self.n,
+                                       self.m, batch=self.B)
         t = time.time()
         if self._chunk:
+            ws = (tuple(self._put(w, self.device) for w in warm) if warm
+                  else ())
             out, comp = self._solve_chunked(t, ws)
         else:
-            res, comp = self._fn(*self._args, t, ws or None)
-            out = {k: v.cpu().numpy() for k, v in res.items()}
+            slabs = run_slabs(self.devices, [
+                (lambda i=i: self._solve_slab(i, t, warm))
+                for i in range(len(self.devices))])
+            out = {k: np.concatenate([o[k] for o, _ in slabs])
+                   for k in slabs[0][0]}
+            comp = slabs[0][1]
         if comp is not None:
             self.last_compaction = comp
         sols = []

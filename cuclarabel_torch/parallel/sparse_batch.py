@@ -16,8 +16,9 @@ pipeline: per-problem sparse Ruiz equilibration over the nonzero values
 on the device (data_equilibrate!, problemdata.jl:133-221 semantics),
 then the sparse-KKT IPM loop over the batch.  No host presolve (batch
 shapes must stay uniform) and no staged compaction — mirroring the
-reference's BatchSparseSolver.  Sharding over several devices is not
-ported yet.
+reference's BatchSparseSolver.  With n_devices > 1 the batch splits
+into equal slabs, one per device, each solved by its own host thread
+(`slabs.py`).
 """
 
 import time
@@ -29,7 +30,7 @@ import torch
 from ..cones import api
 from ..cones.api import cones_collapsed
 from ..cones.layout import build_layout
-from ..device import resolve_device
+from ..device import shard_devices
 from ..infinity import get_infinity
 from ..ipm.loop import make_solve_fn
 from ..kkt.scatter import SegmentSum
@@ -38,6 +39,7 @@ from ..settings import Settings
 from ..solver import DefaultSolution
 from ..statuscodes import SolverStatus
 from ..warmstart import scale_warm_start, validate_warm_start
+from .slabs import run_slabs, slab_bounds
 
 
 def _seg_max(vals, idx, num):
@@ -157,7 +159,11 @@ class BatchSparseSolver:
     P_vals/A_vals: optional (B, nnz) per-problem nz values over the
     same pattern (nnz of triu(P) in CSC-COO order as produced by
     SparseProblem.P_vals / A_vals).  Runs on `device` (CUDA unless the
-    caller passes device="cpu"); n_devices > 1 is not ported yet.
+    caller passes device="cpu").  With n_devices > 1 the batch splits
+    into equal slabs, one per card from `device` on (every slab on the
+    CPU with device="cpu"), each solved by its own host thread, as
+    BatchSolver's are; the host symbolic analysis runs once and its
+    index maps are copied to each card.
 
     Cone coverage matches SparseSolver."""
 
@@ -172,12 +178,9 @@ class BatchSparseSolver:
             settings = settings.replace(**kwargs)
         settings = settings.replace(presolve_enable=False)
         settings.validate()
-        if n_devices != 1:
-            raise NotImplementedError(
-                "cuclarabel_torch runs a batch on one device; sharding "
-                "over n_devices > 1 is not ported yet")
         self.settings = settings
-        self.device = resolve_device(device)
+        self.devices = shard_devices(n_devices, device)
+        self.device = self.devices[0]
 
         q = np.asarray(q, dtype=np.float64)
         b = np.asarray(b, dtype=np.float64)
@@ -187,6 +190,7 @@ class BatchSparseSolver:
         m = b.shape[1]
         if A.shape != (m, n):
             raise ValueError("A shape inconsistent with q/b")
+        self._bounds = slab_bounds(B, len(self.devices))
 
         cones = cones_collapsed(list(cones))
         self.layout = build_layout(tuple(cones))
@@ -209,41 +213,67 @@ class BatchSparseSolver:
                     f"{what} must be (B, {V0.shape[0]}), got {V.shape}")
             return V
 
-        _, _, host_bufs = make_sparse_tpu_kkt(n, m, settings, self.layout,
-                                              self._sp, device=self.device)
-        self._maps = _EquilibrationMaps(host_bufs, self._sp, self.layout,
-                                        self.device)
-        self._fn = make_solve_fn(self.layout, settings, n, m, has_P,
-                                 self.device, sparse=self._sp)
-        self._args = tuple(self._put(a) for a in (
-            batch_vals(P_vals, Pv0, "P_vals"), batch_vals(A_vals, Av0,
-                                                          "A_vals"), q, b))
+        # one host analysis (memoised on the SparseProblem); each device
+        # gets its own copy of the index maps
+        self._maps, self._fns = [], []
+        for dev in self.devices:
+            _, _, host_bufs = make_sparse_tpu_kkt(n, m, settings,
+                                                  self.layout, self._sp,
+                                                  device=dev)
+            self._maps.append(_EquilibrationMaps(host_bufs, self._sp,
+                                                 self.layout, dev))
+            self._fns.append(make_solve_fn(self.layout, settings, n, m,
+                                           has_P, dev, sparse=self._sp))
+        full = (batch_vals(P_vals, Pv0, "P_vals"),
+                batch_vals(A_vals, Av0, "A_vals"), q, b)
+        self._slab_args = [tuple(self._put(a[lo:hi], dev) for a in full)
+                           for (lo, hi), dev in zip(self._bounds,
+                                                    self.devices)]
         self.raw = None
 
-    def _put(self, a):
+    @staticmethod
+    def _put(a, device):
         return torch.tensor(np.asarray(a), dtype=torch.float64,
-                            device=self.device)
+                            device=device)
 
     def update_data(self, q=None, b=None, P_vals=None, A_vals=None):
         """Parametric re-solve path (data_updating.jl semantics for the
         batched-values case): replace per-problem q/b/nz values without
         re-analysis.  Shapes must match the original batch."""
-        Pvb, Avb, qb, bb = self._args
-
-        def repl(new, old, what):
-            if new is None:
-                return old
-            new = np.asarray(new, dtype=np.float64)
-            if new.shape != tuple(old.shape):
+        B = self.B
+        new = {}
+        for j, (v, what) in enumerate(((P_vals, "P_vals"),
+                                       (A_vals, "A_vals"), (q, "q"),
+                                       (b, "b"))):
+            if v is None:
+                continue
+            v = np.asarray(v, dtype=np.float64)
+            want = (B,) + tuple(self._slab_args[0][j].shape[1:])
+            if v.shape != want:
                 raise ValueError(
-                    f"{what} must have shape {tuple(old.shape)}, got "
-                    f"{new.shape}")
-            return self._put(new)
+                    f"{what} must have shape {want}, got {v.shape}")
+            new[j] = v
+        self._slab_args = [
+            tuple(self._put(new[j][lo:hi], dev) if j in new else a
+                  for j, a in enumerate(args))
+            for args, (lo, hi), dev in zip(self._slab_args, self._bounds,
+                                           self.devices)]
 
-        self._args = (
-            repl(P_vals, Pvb, "P_vals"), repl(A_vals, Avb, "A_vals"),
-            repl(q, qb, "q"), repl(b, bb, "b"),
-        )
+    def _solve_slab(self, i, t, warm):
+        """Slab i on its device -> host result dict; warm: the whole
+        batch's host (X, S, Z) or None."""
+        dev_i = self.devices[i]
+        lo, hi = self._bounds[i]
+        Pv, Av, q, b = self._slab_args[i]
+        dev = device_sparse_equilibrate(
+            Pv, Av, q, torch.clamp(b, max=get_infinity()), self._maps[i],
+            self.n, self.m, self.settings)
+        dev["t_start"] = t
+        if warm is not None:
+            dev["ws_x"], dev["ws_s"], dev["ws_z"] = scale_warm_start(
+                *(self._put(w[lo:hi], dev_i) for w in warm), dev["d"],
+                dev["e"], dev["cscale"][:, None])
+        return {k: v.cpu().numpy() for k, v in self._fns[i](dev).items()}
 
     def solve(self, warm_start=None):
         """Solve every problem; returns a list of DefaultSolution and
@@ -251,18 +281,15 @@ class BatchSparseSolver:
         shapes (B, n)/(B, m)/(B, m) in the original problem space, seeds
         every problem's iterates (see Solver.solve); symmetric-cone
         layouts only."""
-        Pv, Av, q, b = self._args
-        dev = device_sparse_equilibrate(
-            Pv, Av, q, torch.clamp(b, max=get_infinity()), self._maps,
-            self.n, self.m, self.settings)
-        dev["t_start"] = time.time()
+        warm = None
         if warm_start is not None:
-            wx, ws, wz = validate_warm_start(self.layout, warm_start,
-                                             self.n, self.m, batch=self.B)
-            dev["ws_x"], dev["ws_s"], dev["ws_z"] = scale_warm_start(
-                self._put(wx), self._put(ws), self._put(wz), dev["d"],
-                dev["e"], dev["cscale"][:, None])
-        out = {k: v.cpu().numpy() for k, v in self._fn(dev).items()}
+            warm = validate_warm_start(self.layout, warm_start, self.n,
+                                       self.m, batch=self.B)
+        t = time.time()
+        slabs = run_slabs(self.devices, [
+            (lambda i=i: self._solve_slab(i, t, warm))
+            for i in range(len(self.devices))])
+        out = {k: np.concatenate([o[k] for o in slabs]) for k in slabs[0]}
         sols = []
         for i in range(self.B):
             sols.append(

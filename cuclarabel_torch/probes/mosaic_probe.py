@@ -98,7 +98,7 @@ def _validate(variant, rows):
 
 def chain_plain(x, y, variant, rows=None):
     _validate(variant, rows)
-    PLAIN_CALLS[f"probe_chain/{name(variant, rows)}"] += 1
+    PLAIN_CALLS.add(f"probe_chain/{name(variant, rows)}")
     if variant == "B":
         o = x.clone()
         o[WIN:, WIN:] = rounds_of(x[WIN:, WIN:], y[WIN:, WIN:], ROUNDS)
@@ -133,7 +133,7 @@ def chain(x, y, variant, rows=None):
             KERNEL_VARIANT[variant], rows or 1,
             ILP_ROUNDS if variant == "C" else ROUNDS, _stream(x))
     _raise_on(rc, "probe_chain")
-    LAUNCHES[f"probe_chain/{name(variant, rows)}"] += 1
+    LAUNCHES.add(f"probe_chain/{name(variant, rows)}", x.device)
     return o
 
 

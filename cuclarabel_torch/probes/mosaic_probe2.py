@@ -54,7 +54,7 @@ def name(R, streams):
 
 
 def make_plain(x, y, ops, streams):
-    PLAIN_CALLS[f"probe_issue/{name(x.shape[0], streams)}"] += 1
+    PLAIN_CALLS.add(f"probe_issue/{name(x.shape[0], streams)}")
     parts = [x * s for s in scales(streams)]
     for _ in range(rounds(ops, streams)):
         parts = [p * y + y for p in parts]
@@ -84,7 +84,7 @@ def run(x, y, ops, streams):
         rc = lib.cc_probe_issue(x.data_ptr(), y.data_ptr(), o.data_ptr(), R,
                                 streams, rounds(ops, streams), _stream(x))
     _raise_on(rc, "probe_issue")
-    LAUNCHES[f"probe_issue/{name(R, streams)}"] += 1
+    LAUNCHES.add(f"probe_issue/{name(R, streams)}", x.device)
     return o
 
 

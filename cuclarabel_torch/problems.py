@@ -363,3 +363,70 @@ def socp_golden():
     return (P, np.array([0.1, -2.0, 1.0]), np.vstack([A_box, np.eye(3)]),
             np.concatenate([np.ones(6), np.zeros(3)]),
             [NonnegativeConeT(3), NonnegativeConeT(3), SecondOrderConeT(3)])
+
+
+def box_budget_qp(n: int, m_in: int, seed: int = 0):
+    """The box-and-budget QP of `scripts/arrow_scaling.py::make_qp`: n
+    variables, one budget equality sum(x) = 1 and m_in nonnegative rows
+    (the box -1 <= x <= 1, then m_in - 2n random cuts g'x <= 2 with
+    g ~ N(0, I/n)), P = F F' + 0.1 I with F (n, n/4).  The same draws
+    and values as the script's, with A (1 + m_in, n) filled in place, so
+    that a large instance holds one copy of A.  -> (P, q, A, b, cones)."""
+    rng = np.random.default_rng(seed)
+    F = rng.standard_normal((n, max(2, n // 4)))
+    P = F @ F.T + 0.1 * np.eye(n)
+    q = rng.standard_normal(n) * 0.1
+    A = np.empty((1 + m_in, n))
+    A[0] = 1.0
+    A[1:n + 1] = np.eye(n)
+    A[n + 1:2 * n + 1] = -np.eye(n)
+    cuts = A[2 * n + 1:]
+    rng.standard_normal(out=cuts)
+    cuts /= np.sqrt(n)
+    b = np.concatenate([[1.0], np.ones(2 * n), np.full(m_in - 2 * n, 2.0)])
+    return P, q, A, b, [ZeroConeT(1), NonnegativeConeT(m_in)]
+
+
+def sharded_socp(n: int = 40, seed: int = 0):
+    """The problem of tests/test_sharded_single.py::make_problem (the
+    same draws): a QP with P = F F' + 0.1 I, 8 equality rows, n
+    nonnegative rows and one second-order cone of dim 8.
+    -> (P, q, A, b, cones)."""
+    rng = np.random.default_rng(seed)
+    F = rng.standard_normal((n, 8))
+    P = F @ F.T + 0.1 * np.eye(n)
+    q = rng.standard_normal(n)
+    meq = 8
+    Aeq = rng.standard_normal((meq, n))
+    beq = Aeq @ rng.standard_normal(n)
+    nfac = 7
+    Fs = rng.standard_normal((n, nfac))
+    A_soc = np.zeros((nfac + 1, n))
+    A_soc[1:, :] = -Fs.T
+    b_soc = np.zeros(nfac + 1)
+    b_soc[0] = 3.0
+    A = np.vstack([Aeq, -np.eye(n), A_soc])
+    b = np.concatenate([beq, np.zeros(n) + 3.0, b_soc])
+    return P, q, A, b, [ZeroConeT(meq), NonnegativeConeT(n),
+                        SecondOrderConeT(nfac + 1)]
+
+
+def portfolio_model(nass: int, seed: int = 7, **model_kw):
+    """Problem 0 of portfolio_socp(nass, 1, seed) written through the
+    modeling layer: one variable vector x, min q'x, and each cone's rows
+    as the membership b_k - A_k x in K_k (A x + s = b, s in K).  The
+    Model assembles exactly that (A, b).  model_kw go to Model (settings
+    fields, device).  -> (model, x, (A, q, b, cones))."""
+    from .modeling import Model
+
+    A, qs, bs, cones = portfolio_socp(nass, 1, seed)
+    q, b = qs[0], bs[0]
+    model = Model(**model_kw)
+    x = model.add_variables(A.shape[1])
+    lo = 0
+    for cone in cones:
+        hi = lo + cone.dim
+        model.add_constraint(b[lo:hi] - A[lo:hi] @ x, cone)
+        lo = hi
+    model.minimize(q @ x)
+    return model, x, (A, q, b, cones)

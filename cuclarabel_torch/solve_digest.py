@@ -27,7 +27,10 @@ Then the sparse paths: SparseSolver on `problems.grid_qp(24)` (N_kkt =
 1,728, `sparse_solver_grid24`), BatchSparseSolver on
 `problems.grid_qp_family(8, 5, 3)` (`batch_sparse_k8_B5`), and Solver
 with direct_solve_method="qdldl" on the SOCP golden
-(`solver_qdldl_socp`).
+(`solver_qdldl_socp`).  Then ShardedSolver on one card on
+`problems.box_budget_qp(512, 16384, 0)` (`sharded_qp_n1`) and the
+modeling layer's Model of the portfolio's problem 0
+(`problems.portfolio_model(32)`, `model_portfolio`).
 The module needs nothing of `cuclarabel_torch` that an earlier version
 lacks: a copy placed in another checkout's package digests that
 checkout's solves, so that two versions can be compared in one run; a
@@ -73,6 +76,14 @@ SPARSE_PATHS = (
         *pr.grid_qp_family(8, 5, 3)[:5]).solve()),
     ("solver_qdldl_socp", lambda ct, pr: [
         ct.Solver(*pr.socp_golden(), direct_solve_method="qdldl").solve()]),
+)
+
+
+# (path, (cuclarabel_torch, its problems module) -> solutions)
+LAST_PATHS = (
+    ("sharded_qp_n1", lambda ct, pr: [ct.ShardedSolver(
+        *pr.box_budget_qp(512, 16384, 0)).solve()]),
+    ("model_portfolio", lambda ct, pr: [pr.portfolio_model(NASS)[0].solve()]),
 )
 
 
@@ -123,6 +134,12 @@ def main():
         report(path, make(ct, problems))
     for path, make in SPARSE_PATHS:
         if not hasattr(ct, "SparseSolver"):
+            print(json.dumps({"path": path, "skipped": "not in this "
+                              "version"}), flush=True)
+            continue
+        report(path, make(ct, problems))
+    for path, make in LAST_PATHS:
+        if not hasattr(ct, "ShardedSolver"):
             print(json.dumps({"path": path, "skipped": "not in this "
                               "version"}), flush=True)
             continue

@@ -175,9 +175,27 @@ def test_update_data_resolves():
 
 
 def test_unported_options_raise():
-    data = _data("socp", ct)
-    with pytest.raises(NotImplementedError):
-        ct.BatchSolver(*data, device="cpu", n_devices=2)
+    """n_devices = 2, which raised before it was ported: each slab of the
+    socp batch (B = 3 is uneven, so a 4th problem joins it: slabs of 2)
+    bitwise equal to a one-device batch of that slab, and the options
+    the data-parallel batch refuses still raise ValueError."""
+    P, q, A, b, cones = _data("socp", ct)
+    q4, b4 = np.vstack([q, q[:1] * 1.1]), np.vstack([b, b[:1]])
+    got = ct.BatchSolver(P, q4, A, b4, cones, device="cpu",
+                         n_devices=2).solve()
+    for i in (0, 2):
+        one = ct.BatchSolver(P, q4[i:i + 2], A, b4[i:i + 2], cones,
+                             device="cpu").solve()
+        for g, w in zip(got[i:i + 2], one):
+            assert g.status == w.status == ct.SolverStatus.SOLVED
+            assert g.iterations == w.iterations
+            for f in ("x", "s", "z"):
+                np.testing.assert_array_equal(getattr(g, f), getattr(w, f))
+    with pytest.raises(ValueError, match="divide evenly"):
+        ct.BatchSolver(P, q, A, b, cones, device="cpu", n_devices=2)
+    with pytest.raises(ValueError, match="batch_compaction"):
+        ct.BatchSolver(P, q4, A, b4, cones, device="cpu", n_devices=2,
+                       batch_compaction=0.9)
 
 
 def test_exponential_cone_batch_matches_reference():

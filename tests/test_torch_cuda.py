@@ -18,7 +18,11 @@ sparse paths, which run no kernel of csrc/, are held to the CPU: the
 multifrontal factor and solve within 1e-12 relative and bitwise equal
 to themselves on the card, SparseSolver and BatchSparseSolver with the
 CPU's statuses and iterations, and the native library built for
-Solver(direct_solve_method="qdldl")."""
+Solver(direct_solve_method="qdldl").  The block-arrow ShardedSolver on one
+card is held to the CPU; with 2 or more cards, ShardedSolver over two
+cards to one card's objective within 1e-8, and BatchSolver and
+BatchSparseSolver over two cards slab by slab to one-card batches, bit
+for bit (these skip, saying so, on a host with one card)."""
 
 import numpy as np
 import pytest
@@ -644,3 +648,131 @@ def test_qdldl_solver_on_card(dev):
     assert sol.status == ct.SolverStatus.SOLVED
     assert sol.iterations == lu.iterations
     np.testing.assert_allclose(sol.x, [0.3, 0.7], atol=1e-7)
+
+
+# ------------------------------------------------ several cards
+
+@pytest.fixture(scope="module")
+def two_cards(dev):
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs 2 CUDA devices, this host has {n}")
+    return n
+
+
+@pytest.mark.parametrize("problem", ["sharded_socp", "box_budget_qp"])
+def test_arrow_on_card_matches_cpu(dev, problem):
+    """ShardedSolver on one card (the block-arrow KKT) against the CPU:
+    the same status and iterations, objective within 1e-9 relative, a
+    repeat solve bitwise equal, and none of the LDL^T kernels run."""
+    import cuclarabel_torch as ct
+    from cuclarabel_torch import problems
+    from cuclarabel_torch.kkt import ldl
+
+    data = (problems.sharded_socp() if problem == "sharded_socp"
+            else problems.box_budget_qp(64, 2048, 1))
+    ldl.reset_counts()
+    card = ct.ShardedSolver(*data)
+    assert card.device.type == "cuda"
+    s1, s2 = card.solve(), card.solve()
+    assert not ldl.LAUNCHES and not ldl.PLAIN_CALLS
+    cpu = ct.ShardedSolver(*data, device="cpu").solve()
+    assert s1.status == cpu.status == ct.SolverStatus.SOLVED
+    assert s1.iterations == cpu.iterations
+    assert abs(s1.obj_val - cpu.obj_val) <= 1e-9 * max(1.0, abs(cpu.obj_val))
+    for f in ("x", "s", "z"):
+        assert np.array_equal(getattr(s1, f), getattr(s2, f))
+
+
+def test_too_many_cards_raise(dev):
+    import cuclarabel_torch as ct
+    from cuclarabel_torch import problems
+    from cuclarabel_torch.problems import portfolio_socp
+
+    have = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"has {have}"):
+        ct.ShardedSolver(*problems.sharded_socp(), n_devices=have + 1)
+    A, qs, bs, cones = portfolio_socp(nass=4, batch=2 * (have + 1))
+    with pytest.raises(ValueError, match=f"has {have}"):
+        ct.BatchSolver(None, qs, A, bs, cones, n_devices=have + 1)
+
+
+def test_model_on_card(dev):
+    import cuclarabel_torch as ct
+    from cuclarabel_torch import problems
+
+    model, x, (A, q, b, cones) = problems.portfolio_model(8)
+    sol = model.solve()
+    assert model.solver.device.type == "cuda"
+    want = ct.Solver(None, q, A, b, cones).solve()
+    assert sol.status == ct.SolverStatus.SOLVED
+    assert np.array_equal(x.value, want.x)
+    sparse = problems.portfolio_model(8)[0]
+    ssol = sparse.solve(backend="sparse")
+    assert isinstance(sparse.solver, ct.SparseSolver)
+    assert ssol.status == ct.SolverStatus.SOLVED
+    assert abs(ssol.obj_val - sol.obj_val) <= 1e-7 * max(1.0,
+                                                          abs(sol.obj_val))
+
+
+def test_sharded_over_cards(two_cards):
+    """The QP's rows over two cards: the slabs on cuda:0 and cuda:1, the
+    objective within 1e-8 of one card's, a repeat bitwise equal."""
+    import cuclarabel_torch as ct
+    from cuclarabel_torch import problems
+
+    data = problems.box_budget_qp(64, 2047, 1)  # m = 2048: no padding
+    one = ct.ShardedSolver(*data).solve()
+    solver = ct.ShardedSolver(*data, n_devices=2)
+    assert [a.device.index for a in solver._dev["A"].slabs] == [0, 1]
+    s1, s2 = solver.solve(), solver.solve()
+    assert s1.status == ct.SolverStatus.SOLVED
+    assert abs(s1.obj_val - one.obj_val) <= 1e-8 * max(1.0, abs(one.obj_val))
+    for f in ("x", "s", "z"):
+        assert np.array_equal(getattr(s1, f), getattr(s2, f))
+
+
+def test_batch_slabs_over_cards(two_cards):
+    """BatchSolver over two cards: K1-K4 launched on each, each slab
+    bitwise equal to a one-card batch of it on its card."""
+    import cuclarabel_torch as ct
+    from cuclarabel_torch.kkt import ldl
+    from cuclarabel_torch.problems import portfolio_socp
+
+    A, qs, bs, cones = portfolio_socp(nass=32, batch=512, seed=7)
+    solver = ct.BatchSolver(None, qs, A, bs, cones, n_devices=2)
+    ldl.reset_counts()
+    got = solver.solve()
+    for i in (0, 1):
+        launched = ldl.LAUNCHES.by_device[f"cuda:{i}"]
+        assert launched["ldl_factor/r1"] > 0, launched
+        one = ct.BatchSolver(None, qs[i * 256:(i + 1) * 256], A,
+                             bs[i * 256:(i + 1) * 256], cones,
+                             device=f"cuda:{i}", batch_compaction=0.0).solve()
+        for g, o in zip(got[i * 256:(i + 1) * 256], one):
+            assert g.status == o.status == ct.SolverStatus.SOLVED
+            assert g.iterations == o.iterations
+            for f in ("x", "s", "z"):
+                assert np.array_equal(getattr(g, f), getattr(o, f))
+    assert sum(ldl.LAUNCHES.values()) == sum(
+        sum(c.values()) for c in ldl.LAUNCHES.by_device.values())
+
+
+def test_sparse_batch_slabs_over_cards(two_cards):
+    import cuclarabel_torch as ct
+    from cuclarabel_torch import problems
+
+    P, q, A, b, cones = problems.grid_qp(8)
+    rng = np.random.default_rng(2)
+    qs = q * (1.0 + 0.1 * rng.standard_normal((6, q.size)))
+    bs = np.tile(b, (6, 1))
+    got = ct.BatchSparseSolver(P, qs, A, bs, cones, n_devices=2).solve()
+    for i in (0, 1):
+        one = ct.BatchSparseSolver(P, qs[i * 3:(i + 1) * 3], A,
+                                   bs[i * 3:(i + 1) * 3], cones,
+                                   device=f"cuda:{i}").solve()
+        for g, o in zip(got[i * 3:(i + 1) * 3], one):
+            assert g.status == o.status == ct.SolverStatus.SOLVED
+            assert g.iterations == o.iterations
+            for f in ("x", "s", "z"):
+                assert np.array_equal(getattr(g, f), getattr(o, f))

@@ -31,7 +31,8 @@ print("PORT", sorted(m for m in sys.modules if m.startswith("cuclarabel_torch"))
 
 # modules added with the single-problem Solver, the f32 LDL^T kernels,
 # the issue-rate probes, the solve digests, the nonsymmetric cones, the
-# PSD cones with the chordal decomposition, and the sparse paths
+# PSD cones with the chordal decomposition, the sparse paths, and the
+# multi-device paths, the modeling layer and precompile
 NEW_MODULES = ("cuclarabel_torch.device", "cuclarabel_torch.equilibration",
                "cuclarabel_torch.info_print", "cuclarabel_torch.json_io",
                "cuclarabel_torch.kkt.ldl_f32", "cuclarabel_torch.presolve",
@@ -53,7 +54,11 @@ NEW_MODULES = ("cuclarabel_torch.device", "cuclarabel_torch.equilibration",
                "cuclarabel_torch.kkt.sparse_cpu",
                "cuclarabel_torch.kkt.sparse_device",
                "cuclarabel_torch.kkt.sparse_symbolic",
-               "cuclarabel_torch.kkt.sparse_tpu")
+               "cuclarabel_torch.kkt.sparse_tpu",
+               "cuclarabel_torch.modeling", "cuclarabel_torch.precompile",
+               "cuclarabel_torch.parallel.sharded",
+               "cuclarabel_torch.parallel.slabs",
+               "cuclarabel_torch.kkt.arrow")
 
 
 def _env():
@@ -80,6 +85,27 @@ def test_sparse_modules_import_no_jax(module):
     package, and the native library builds without them."""
     code = (f"import sys, {module}\n"
             "import cuclarabel_torch.native as nat; nat.build()\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'cuclarabel_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+@pytest.mark.parametrize("module", [
+    "cuclarabel_torch.modeling", "cuclarabel_torch.precompile",
+    "cuclarabel_torch.parallel.sharded", "cuclarabel_torch.kkt.arrow"])
+def test_last_modules_import_no_jax(module):
+    """The modeling layer, precompile and the sharded path, each alone,
+    pull in neither jax nor the JAX package, and the package exports
+    their public names as the reference's does."""
+    code = (f"import sys, {module}\n"
+            "from cuclarabel_torch import (Model, Variable, vstack, "
+            "sum_entries, norm2, quad_form, sumsq, precompile, "
+            "ShardedSolver)\n"
+            "from cuclarabel_torch.parallel import ShardedSolver as S2\n"
+            "assert S2 is ShardedSolver\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'cuclarabel_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),

@@ -9,7 +9,7 @@ within 1e-7 relative.  Families (tests/test_sparse_batch.py's): the
 k = 8 grid QP with q and b varying (B = 5), per-problem P values
 (k = 6, B = 4, also checked against the scenario's own KKT residual),
 an SOCP (rectified equilibration), PSD blocks, and update_data; the
-device equilibration against the host one; n_devices = 2 raises."""
+device equilibration against the host one; n_devices = 2."""
 
 import numpy as np
 import pytest
@@ -176,8 +176,19 @@ def test_device_equilibration_matches_host():
 
 
 def test_n_devices_above_one_raises():
+    """n_devices = 2, which raised before it was ported: each problem
+    with the statuses, iterations and x of its single reference solve,
+    and bitwise equal to a one-device batch of its slab; an uneven batch
+    and values of the wrong shape still raise ValueError."""
     P, qs, A, bs, cones, _, _ = _grid_family(k=4, B=2, seed=2)
-    with pytest.raises(NotImplementedError):
-        _batch(P, qs, A, bs, cones, n_devices=2)
+    got = _batch(P, qs, A, bs, cones, n_devices=2).solve()
+    for i, s in enumerate(got):
+        _hold(s, _single(P, qs[i], A, bs[i], cones))
+        one = _batch(P, qs[i:i + 1], A, bs[i:i + 1], cones).solve()[0]
+        assert s.iterations == one.iterations
+        for f in ("x", "s", "z"):
+            np.testing.assert_array_equal(getattr(s, f), getattr(one, f))
+    with pytest.raises(ValueError, match="divide evenly"):
+        _batch(P, qs[:1], A, bs[:1], cones, n_devices=2)
     with pytest.raises(ValueError, match="P_vals"):
         _batch(P, qs, A, bs, cones, P_vals=np.ones((2, 3)))
