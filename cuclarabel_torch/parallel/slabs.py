@@ -5,6 +5,9 @@ The data-parallel axis of `BatchSolver` and `BatchSparseSolver`
 (n_devices > 1; reference parallel/batch.py:219-236): slab i of the
 batch lives on device i, and every device runs an independent loop over
 its slab and stops at its own slab's last iteration, with no collective.
+The threads share one interpreter lock, which every torch call releases
+and takes back, so their host work serialises: more cards do not yet
+raise a batch's problems/s (PERF.md §6).
 """
 
 import contextlib
