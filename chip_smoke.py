@@ -176,6 +176,26 @@ Phases, in order; any failure exits non-zero:
    on its first call (the process's one-time costs, the port's
    first-solve latency) and on a second.
 
+13. wide (after the f32 kernel timing, before the profiled batch
+   solves of phase 5's timing): the "pallas" path above N = 128, where
+   the wrappers launch the kernels' wide forms (csrc/ldl_wide.cu).  Each
+   wide form against its plain version at (N, B) = (129, 5),
+   (148, 4096), (148, 1), (169, 64) and (292, 256), R = 1 and 2, npass
+   0, 1 and 2 (factor and substitution bit for bit, residual and refined
+   solve within 1e-12 relative), the f32 ones at (129, 5), (148, 4096)
+   and (292, 256); then, each driven with the counters set to 0 just
+   before it and read just after (wide forms only): BatchSolver on the
+   portfolio at nass = 64 (N = 148), B = 4096, kkt_solve_method="pallas",
+   staged and plain (every problem SOLVED, staged equal to plain in
+   status and iterations, the first 8 within 1e-7 of the CPU), the
+   Solver on its problem 0, nass = 128 (N = 292) at B = 256 and the f32
+   entry points at (148, 4096); the same batch under "lu", the
+   per-problem difference in iterations printed, and warm problems/s of
+   both, staged, in turns; the wide forms' device ms at (148, 4096),
+   (148, 1) and (292, 256) beside bound, plain and library (cuSOLVER's
+   LDL^T at B = 256, baddbmm for the residual).  `python3 chip_smoke.py
+   --wide` runs the build and this phase alone.
+
 The line before the last is the `kernels` JSON, whose `launches` sums
 the main paths' runs and `launches_per_path` splits them, and whose
 `by_shape` holds the f64 kernels' times at every timed shape; the last
@@ -340,6 +360,41 @@ REPLACES_PROBES = {
     "probe_issue": "scripts/mosaic_probe2.py:14",
 }
 SOURCE_PROBES = "cuclarabel_torch/csrc/probes.cu"
+# the wide forms (csrc/ldl_wide.cu), which the wrappers launch above
+# N = 128, and the TPU functions they replace
+REPLACES_WIDE = {
+    "ldl_factor_wide": "cuclarabel_tpu/kkt/pallas_dd.py:1318",
+    "ldl_solve_wide": "cuclarabel_tpu/kkt/pallas_dd.py:1346",
+    "kkt_residual_wide": "cuclarabel_tpu/kkt/pallas_dd.py:1370",
+    "ldl_solve_refine_wide": "cuclarabel_tpu/kkt/pallas_dd.py:1395",
+    "ldl_factor_batched_wide": "cuclarabel_tpu/kkt/pallas_ldl.py:89",
+    "ldl_solve_batched_wide": "cuclarabel_tpu/kkt/pallas_ldl.py:114",
+}
+ALSO_REPLACES.update({
+    "ldl_solve_wide": "cuclarabel_tpu/kkt/pallas_dd.py:1430",
+    "ldl_solve_refine_wide": "cuclarabel_tpu/kkt/pallas_dd.py:1455",
+})
+SOURCE_WIDE = "cuclarabel_torch/csrc/ldl_wide.cu"
+# the wide phase: every wide form against its plain version at (n, m, B):
+# N = 129, the portfolio's N = 148 at B = 4096 and 1, N = 169 and the
+# nass = 128 portfolio's N = 292; K's Hs spread as tests/test_torch_cuda.py
+# draws it (10^(+-3)), where two summation orders of a refinement pass
+# agree to 1e-12 (at 10^(+-4) the narrow forms' 1e-9 bar)
+WIDE_KERNEL_SHAPES = ((5, 124, 5), (65, 83, 4096), (65, 83, 1),
+                      (5, 164, 64), (129, 163, 256))
+WIDE_SPREAD = 3.0
+TOL_WIDE = 1e-12      # residual and refined solve vs plain, relative
+WIDE_F32_SHAPES = ((129, 5), (148, 4096), (292, 256))  # (N, B)
+# the "pallas" path above 128: the portfolio at nass = 64 (N = 148),
+# B = 4096 staged and plain, its Solver, and nass = 128 (N = 292) at
+# B = 256; problems/s of "pallas" and "lu" over WIDE_REPS warm solves
+WIDE_NASS, WIDE_B = 64, 4096
+WIDE_BIG = (128, 256)  # (nass, B)
+WIDE_REPS = 3
+# the wide kernels' timed shapes: kernel_timing.WIDE_SHAPES; cuSOLVER's
+# LDL^T through torch.linalg is timed at B = 256 only (a host loop over
+# the batch), baddbmm for the residual at every shape
+WIDE_LIBRARY_B = 256
 # P1 at the reference's default and at a ragged small shape; P2 at every
 # (R, streams) of its sweep; seeded random inputs and the constants
 PROBE_SHAPES = ((83, 4096), (13, 256))  # (N, B)
@@ -595,9 +650,10 @@ def compare_staged(card, staged, plain, what="batch_B4096",
     return {"bitwise": bitwise, "max_abs_diff": worst, "obj_rel": obj}
 
 
-def width_dependent_ops(B=4096, keep=300, reps=2, dev="cuda"):
+def width_dependent_ops(B=4096, keep=300, reps=2, dev="cuda", nass=NASS):
     """The loop's reductions and products at the main path's shapes
-    (n = 33, m = 43, the SOC segment sums of the portfolio layout), on B
+    (nass = 32: n = 33, m = 43, the SOC segment sums of the portfolio
+    layout; or those of another nass), on B
     rows and on `keep` of them gathered as stage 2 gathers them: the
     names of those whose gathered rows differ from the same rows of the
     full-width result, or from another run at the same width."""
@@ -605,10 +661,10 @@ def width_dependent_ops(B=4096, keep=300, reps=2, dev="cuda"):
     from cuclarabel_torch.cones.ops import plan
     from cuclarabel_torch.problems import portfolio_socp
 
-    _, _, _, cones = portfolio_socp(NASS, 1, seed=7)
+    _, _, _, cones = portfolio_socp(nass, 1, seed=7)
     layout = build_layout(tuple(cones))
     seg = plan(layout, dev).soc_seg
-    n, m = 33, layout.m
+    n, m = nass + 1, layout.m
     g = torch.Generator(device=dev).manual_seed(11)
 
     def rnd(*shape):
@@ -2430,6 +2486,400 @@ def phase_kernel_timing_f32(card, K, b, L, Dinv):
 
 
 # ---------------------------------------------------------------------
+# the wide forms and the "pallas" path above N = 128 (phase 13)
+
+def hold_wide_to_plain():
+    """Every wide form against its plain version on the card at
+    WIDE_KERNEL_SHAPES (f64) and WIDE_F32_SHAPES (f32): the factor and the
+    substitution bit for bit, the residual and the refined solve's x
+    (R = 1, 2; npass = 0, 1, 2) within TOL_WIDE relative, its r
+    bit for bit the wide residual's and within TOL_RETURNED_R of b - K x
+    summed in twice the precision; x against numpy f64 for the first
+    problems; K with junk above its diagonal.  Returns the max abs error
+    per kernel."""
+    from cuclarabel_torch.kkt import ldl, ldl_f32
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(13)
+    errs = {k: 0.0 for k in REPLACES_WIDE}
+
+    def note(name, got, want):
+        errs[name] = max(errs[name], float((got - want).abs().max()))
+
+    for n, m, B in WIDE_KERNEL_SHAPES:
+        N = n + m
+        tag = f"N={N} B={B}"
+        Kn, regn = make_kkt(rng, B, n, m, spread=WIDE_SPREAD)
+        junk = np.triu(rng.standard_normal(Kn.shape), 1) * JUNK
+        K = torch.tensor(Kn + junk, device=dev)
+        reg = torch.tensor(regn, device=dev)
+        L, Dinv, ok = ldl.ldl_factor(K, reg)
+        torch.cuda.synchronize()
+        Lp, Dinvp, okp = ldl.ldl_factor_plain(K, reg)
+        check(torch.equal(L, Lp) and torch.equal(Dinv, Dinvp)
+              and torch.equal(ok, okp) and bool(ok.all()),
+              f"wide ldl_factor vs plain at {tag}: {rel(L, Lp):.2e} (bar: "
+              "bit for bit)")
+        check(bool((L.triu() == 0).all()), f"wide L not strictly lower at "
+              f"{tag}")
+        note("ldl_factor_wide", L, Lp)
+        note("ldl_factor_wide", Dinv, Dinvp)
+        c = min(B, NUMPY_CHECK)
+        Kreg = Kn[:c] + np.einsum("bi,ij->bij", regn[:c], np.eye(N))
+        worst = {}
+        for R in (1, 2):
+            shape = (B, N) if R == 1 else (B, N, R)
+            b = torch.tensor(rng.standard_normal(shape), device=dev)
+            bref = b.cpu().numpy()[:c].reshape(c, N, R)
+            x = ldl.ldl_solve(L, Dinv, b)
+            torch.cuda.synchronize()
+            xp = ldl.ldl_solve_plain(L, Dinv, b)
+            e = rel(x[:c].cpu(), torch.tensor(np.linalg.solve(
+                Kreg, bref)).reshape((c,) + shape[1:]), 1.0)
+            check(torch.equal(x, xp) and e < TOL_SOLVE,
+                  f"wide ldl_solve r={R} at {tag}: vs plain "
+                  f"{rel(x, xp, 1.0):.2e} (bar: bit for bit), vs numpy "
+                  f"{e:.2e}")
+            note("ldl_solve_wide", x, xp)
+            # at a random x, as phase 3 checks the narrow form: at the
+            # solution r is rounding noise of terms up to |K| |x|
+            x0 = torch.tensor(rng.standard_normal(shape), device=dev)
+            r = ldl.kkt_residual(K, x0, b)
+            torch.cuda.synchronize()
+            rp = ldl.kkt_residual_plain(K, x0, b)
+            e = rel(r, rp, 1.0)
+            check(e < TOL_WIDE, f"wide kkt_residual r={R} at {tag}: "
+                  f"{e:.2e} (bar {TOL_WIDE:g})")
+            worst["kkt_residual"] = max(worst.get("kkt_residual", 0.0), e)
+            note("kkt_residual_wide", r, rp)
+            for npass in (0, 1, 2):
+                xr, rr = ldl.ldl_solve_refine(K, L, Dinv, b, npass)
+                torch.cuda.synchronize()
+                xrp, _ = ldl.ldl_solve_refine_plain(K, L, Dinv, b, npass)
+                e1 = rel(xr, xrp, 1.0)
+                e3 = float((rr - kkt_residual_exact(K, xr, b)).abs().max())
+                e4 = rel(xr[:c].cpu(), torch.tensor(numpy_refine(
+                    Kn[:c], Kreg, bref, npass)).reshape((c,) + shape[1:]),
+                    1.0)
+                check(e1 < TOL_WIDE and e3 < TOL_RETURNED_R
+                      and e4 < TOL_SOLVE,
+                      f"wide ldl_solve_refine r={R} npass={npass} at {tag}:"
+                      f" x vs plain {e1:.2e}, returned r {e3:.2e} from "
+                      f"b - K x, x vs numpy {e4:.2e}")
+                check(torch.equal(rr, ldl.kkt_residual(K, xr, b)),
+                      f"wide ldl_solve_refine r={R} npass={npass} at {tag}:"
+                      " its r differs from kkt_residual's (bar: bit for "
+                      "bit)")
+                worst["ldl_solve_refine"] = max(
+                    worst.get("ldl_solve_refine", 0.0), e1)
+                note("ldl_solve_refine_wide", xr, xrp)
+        print(f"wide kernels ok at {tag}: factor and substitution bit for "
+              "bit with plain, " + ", ".join(
+                  f"{k} within {v:.3e}" for k, v in worst.items())
+              + " of plain (relative)", flush=True)
+    for N, B in WIDE_F32_SHAPES:
+        tag = f"N={N} B={B}"
+        Kn, n, m = make_qd_kkt(rng, B, N)
+        K = torch.tensor(Kn, dtype=torch.float32, device=dev)
+        Kj = K + torch.triu(torch.tensor(rng.standard_normal(Kn.shape),
+                                         dtype=torch.float32, device=dev), 1)
+        b = torch.tensor(rng.standard_normal((B, N)), dtype=torch.float32,
+                         device=dev)
+        L, Dinv = ldl_f32.ldl_factor_batched(Kj)
+        x = ldl_f32.ldl_solve_batched(L, Dinv, b)
+        torch.cuda.synchronize()
+        Lp, Dinvp = ldl_f32.ldl_factor_batched_plain(Kj)
+        xp = ldl_f32.ldl_solve_batched_plain(L, Dinv, b)
+        Dall = 1.0 / Dinv.double()
+        check(torch.equal(L, Lp) and torch.equal(Dinv, Dinvp)
+              and torch.equal(x, xp) and bool((L.triu() == 0).all())
+              and bool(((Dall > 0).sum(dim=1) == n).all()
+                       and ((Dall < 0).sum(dim=1) == m).all()),
+              f"wide f32 kernels vs plain at {tag} (bar: bit for bit, "
+              f"inertia ({n}, {m}))")
+        note("ldl_factor_batched_wide", L, Lp)
+        note("ldl_solve_batched_wide", x, xp)
+        print(f"wide f32 kernels ok at {tag}: bit for bit with plain, "
+              f"inertia ({n}, {m})", flush=True)
+    return errs
+
+
+def wide_kernels_only(launches, path):
+    """A path above N = 128 launched the wide forms and no narrow one."""
+    narrow = {k: v for k, v in launches.items() if "_wide/" not in k}
+    check(not narrow, f"{path}: narrow forms launched above N = 128: "
+          f"{narrow}")
+
+
+def first_call_ms(name, fn, pick, want, tol):
+    """A library call's ms: its first call timed by CUDA events and its x
+    (pick(result)) held against the kernel's; a call under LIB_SLOW_MS is
+    timed again over 20 calls.  cuSOLVER's LDL^T through torch.linalg
+    loops over the batch on the host, so its first call is its time."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    check_library(name, pick(out), want, tol)
+    ms = t0.elapsed_time(t1)
+    return ms if ms >= LIB_SLOW_MS else cuda_ms(fn, 20)
+
+
+def wide_library_ms(op, B):
+    """{(name, R): library ms} of the wide timing at width B: baddbmm for
+    the residual; at B = WIDE_LIBRARY_B also cuSOLVER's LDL^T through
+    torch.linalg for the factor (of K + diag(reg), pivoted) and the
+    substitution (the port's factor, identity pivots), f64 and f32, each
+    checked against the kernel's x."""
+    out = {key: library_ms(fn) for key, fn in library_calls(
+        op, [("kkt_residual", 1), ("kkt_residual", 2)]).items()}
+    if B != WIDE_LIBRARY_B:
+        return out
+    from cuclarabel_torch.kkt import ldl_f32
+
+    K, reg, b = op["K"], op["reg"], op["b"][:, :, None]
+    # the factor's time, without the solve that checks it
+    out[("ldl_factor", 1)] = first_call_ms(
+        "ldl_factor", lambda: torch.linalg.ldl_factor(
+            K + torch.diag_embed(reg)), lambda f: torch.linalg.ldl_solve(
+                *f, b)[..., 0], op["x"], TOL_LIB_F64)
+    LD, piv = ldl_library_operands(op["L"], op["Dinv"])
+    for R, (rhs, x) in {1: (b, op["x"][:, :, None]),
+                        2: (op["b2"], op["x2"])}.items():
+        out[("ldl_solve", R)] = first_call_ms(
+            f"ldl_solve r={R}", lambda rhs=rhs: torch.linalg.ldl_solve(
+                LD, piv, rhs), lambda y: y, x, TOL_LIB_F64)
+    # the f32 calls on a well-conditioned K of the same shape (the f64
+    # K's Hs spread of 10^(+-4) is beyond f32 without pivoting)
+    N = op["b"].shape[1]
+    Kq, _, _ = make_qd_kkt(np.random.default_rng(15), B, N)
+    Kf = torch.tensor(Kq, dtype=torch.float32, device=b.device)
+    bf = op["bf"]
+    Lf, Df = ldl_f32.ldl_factor_batched(Kf)
+    xf = ldl_f32.ldl_solve_batched(Lf, Df, bf)
+    out[("ldl_factor_batched", 1)] = first_call_ms(
+        "ldl_factor_batched", lambda: torch.linalg.ldl_factor(Kf),
+        lambda f: torch.linalg.ldl_solve(*f, bf[:, :, None])[..., 0], xf,
+        TOL_LIB_F32)
+    LDf, pivf = ldl_library_operands(Lf, Df)
+    out[("ldl_solve_batched", 1)] = first_call_ms(
+        "ldl_solve_batched", lambda: torch.linalg.ldl_solve(
+            LDf, pivf, bf[:, :, None]), lambda y: y[..., 0], xf, TOL_LIB_F32)
+    return out
+
+
+def wide_kernel_timing(card):
+    """Each wide form at kernel_timing.WIDE_SHAPES ((148, 4096), (148, 1),
+    (292, 256)): device ms per launch, bound, plain ms, occupancy and
+    registers (kernel_timing.time_width), beside its library call's ms
+    (wide_library_ms) or null.  Returns {kernel: {"N<N>_B<B>_r<R>":
+    numbers}} under the wide names."""
+    out = {}
+    for nm, B in kt.WIDE_SHAPES:
+        rows, op = kt.time_width(B, forms=kt.WIDE_FORMS, nm=nm)
+        lib = wide_library_ms(op, B)
+        for row in rows:
+            row["library_ms"] = lib.get((row["name"], row["R"]))
+            print(kt.row_line(card, row) + ", library "
+                  + (f"{row['library_ms']:.4f} ms"
+                     if row["library_ms"] is not None else
+                     "none" if row["name"] == "ldl_solve_refine" else
+                     "not timed"), flush=True)
+            out.setdefault(f"{row['name']}_wide", {})[
+                f"N{row['N']}_B{B}_r{row['R']}"] = {
+                    k: row[k] for k in ROW_KEYS if k in row}
+    return out
+
+
+def phase_wide(card):
+    """The "pallas" path above N = 128 on the card (phase 13): the wide
+    forms against plain (hold_wide_to_plain); then, each driven with the
+    counters set to 0 just before it and read just after, BatchSolver on
+    problems.portfolio_socp(64, 4096, 7) (N = 148) under explicit
+    "pallas", staged (the default at B = 4096) and plain: every problem
+    SOLVED, staged equal to plain in status and iterations (compare_staged),
+    the first CPU_CHECK problems within 1e-7 of the port's CPU solve; the
+    Solver on problem 0 (SOLVED, the CPU's iterations); nass = 128
+    (N = 292) at B = 256: every problem SOLVED; the f32 entry points at
+    (148, 4096).  The same B = 4096 batch under "lu": the per-problem
+    difference in iterations from "pallas" printed, and warm problems/s
+    of both (staged) over WIDE_REPS solves in turns; then the wide
+    kernels' times.  Returns (launches by path, errors, times, record)."""
+    import cuclarabel_torch as ct
+    from cuclarabel_torch.problems import portfolio_socp
+
+    steps, mark = {}, [time.perf_counter()]
+
+    def step(name):
+        now = time.perf_counter()
+        steps[name] = round(now - mark[0], 1)
+        mark[0] = now
+
+    errs = hold_wide_to_plain()
+    step("kernels_vs_plain")
+    paths, rec, runs = {}, {}, {}
+    A, qs, bs, cones = portfolio_socp(WIDE_NASS, WIDE_B, seed=7)
+    N = qs.shape[1] + bs.shape[1]
+    for path, settings in (("wide_B4096", {}),
+                           ("wide_B4096_plain", {"batch_compaction": 0.0})):
+        def drive():
+            t0 = time.perf_counter()
+            solver = ct.BatchSolver(None, qs, A, bs, cones,
+                                    kkt_solve_method="pallas", **settings)
+            return solver, solver.solve(), time.perf_counter() - t0
+
+        (solver, sols, cold), paths[path] = counted(path, drive)
+        check(all(s.status == ct.SolverStatus.SOLVED for s in sols),
+              f"{path}: not all SOLVED: "
+              f"{collections.Counter(s.status.name for s in sols)}")
+        check(all(np.isfinite(s.x).all() for s in sols),
+              f"{path}: non-finite x")
+        for key in ("ldl_factor_wide/r1", "ldl_solve_refine_wide/r1",
+                    "ldl_solve_refine_wide/r2"):
+            check(paths[path].get(key, 0) > 0, f"{path}: {key} never "
+                  "launched")
+        wide_kernels_only(paths[path], path)
+        runs[path] = (solver, sols, cold)
+        print(f"[{card}] {path} (N = {N}): all SOLVED, first solve "
+              f"{cold:.2f} s", flush=True)
+    check(runs["wide_B4096"][0].last_compaction["remainder"] > 0,
+          "wide_B4096: stage 2 did not run")
+    step("batch_pallas")
+    rec["staged_vs_plain"] = compare_staged(
+        card, runs["wide_B4096"][1], runs["wide_B4096_plain"][1],
+        what="wide_B4096",
+        width_ops=lambda: width_dependent_ops(nass=WIDE_NASS))
+
+    sols = runs["wide_B4096"][1]
+    cpu = ct.BatchSolver(None, qs[:CPU_CHECK], A, bs[:CPU_CHECK], cones,
+                         device="cpu", kkt_solve_method="pallas").solve()
+    worst_x = worst_obj = 0.0
+    for g, c in zip(sols[:CPU_CHECK], cpu):
+        check(g.status == c.status, f"wide: status {g.status.name} vs CPU "
+              f"{c.status.name}")
+        worst_x = max(worst_x, float(np.abs(g.x - c.x).max())
+                      / max(float(np.abs(c.x).max()), 1.0))
+        worst_obj = max(worst_obj, abs(g.obj_val - c.obj_val)
+                        / abs(c.obj_val))
+    check(worst_x <= TOL_X_SINGLE and worst_obj <= TOL_OBJ,
+          f"wide: the first {CPU_CHECK} problems: x {worst_x:.2e}, "
+          f"objective {worst_obj:.2e} from the CPU solve")
+    its = [(g.iterations, c.iterations) for g, c in
+           zip(sols[:CPU_CHECK], cpu)]
+    step("cpu_check")
+    print(f"[{card}] wide: the first {CPU_CHECK} problems within "
+          f"{worst_x:.3e} (x) and {worst_obj:.3e} (objective) of the CPU "
+          f"solve; iterations (card, CPU) {its}", flush=True)
+
+    lu = ct.BatchSolver(None, qs, A, bs, cones, kkt_solve_method="lu")
+    t0 = time.perf_counter()
+    lu_sols = lu.solve()
+    lu_cold = time.perf_counter() - t0
+    check(all(s.status == ct.SolverStatus.SOLVED for s in lu_sols),
+          "wide: the lu batch not all SOLVED")
+    diff = collections.Counter(p.iterations - q.iterations
+                               for p, q in zip(sols, lu_sols))
+    far = [i for i, (p, q) in enumerate(zip(sols, lu_sols))
+           if abs(p.iterations - q.iterations) > 1]
+    print(f"[{card}] wide_B4096 iterations, pallas minus lu: "
+          f"{dict(sorted(diff.items()))} (problems more than one off: "
+          f"{far[:20]}{' ...' if len(far) > 20 else ''}); lu first solve "
+          f"{lu_cold:.2f} s", flush=True)
+    rec["iterations_pallas_minus_lu"] = dict(sorted(diff.items()))
+    rec["more_than_one_off"] = far
+
+    step("batch_lu")
+    solver = runs["wide_B4096"][0]
+    ms = {"pallas": [], "lu": []}
+    for r in range(WIDE_REPS):
+        for name in (("pallas", "lu") if r % 2 == 0 else ("lu", "pallas")):
+            ms[name].append(solve_ms(solver if name == "pallas" else lu, qs,
+                                     r))
+    rate = {k: [WIDE_B * 1e3 / t for t in v] for k, v in ms.items()}
+    rec["problems_per_s"] = {k: {"median": float(np.median(v)),
+                                 "all": v} for k, v in rate.items()}
+    print(f"[{card}] wide_B4096 staged, warm problems/s (median of "
+          f"{WIDE_REPS}, in turns): pallas "
+          f"{np.median(rate['pallas']):.1f} (spread "
+          f"{min(rate['pallas']):.1f}-{max(rate['pallas']):.1f}), lu "
+          f"{np.median(rate['lu']):.1f} (spread {min(rate['lu']):.1f}-"
+          f"{max(rate['lu']):.1f})", flush=True)
+    del lu, lu_sols, runs
+    step("problems_per_s")
+
+    def drive_solver():
+        s = ct.Solver(None, qs[0], A, bs[0], cones,
+                      kkt_solve_method="pallas")
+        t0 = time.perf_counter()
+        return s, s.solve(), (time.perf_counter() - t0) * 1e3
+
+    (s1, got, one_ms), paths["wide_solver"] = counted("wide_solver",
+                                                     drive_solver)
+    want = ct.Solver(None, qs[0], A, bs[0], cones, device="cpu",
+                     kkt_solve_method="pallas").solve()
+    err = abs(got.obj_val - want.obj_val) / abs(want.obj_val)
+    check(got.status == ct.SolverStatus.SOLVED and err <= TOL_OBJ
+          and s1.get_info()["linear_solver"]["method"] == "pallas",
+          f"wide Solver: {got.status.name}, objective {err:.2e} from the "
+          "CPU's")
+    check(paths["wide_solver"].get("ldl_factor_wide/r1", 0) > 0,
+          "wide Solver: ldl_factor_wide never launched")
+    wide_kernels_only(paths["wide_solver"], "wide_solver")
+    print(f"[{card}] wide Solver (N = {N}, pallas): SOLVED in "
+          f"{got.iterations} iterations (CPU {want.iterations}), objective "
+          f"{err:.2e} from the CPU's, {one_ms:.1f} ms", flush=True)
+    rec["solver"] = {"iterations": got.iterations,
+                     "cpu_iterations": want.iterations, "ms": one_ms}
+    step("solver")
+
+    nass, B = WIDE_BIG
+    Ab, qb, bb, cb = portfolio_socp(nass, B, seed=7)
+
+    def drive_big():
+        t0 = time.perf_counter()
+        big = ct.BatchSolver(None, qb, Ab, bb, cb, kkt_solve_method="pallas")
+        return big.solve(), time.perf_counter() - t0
+
+    (big, big_s), paths["wide_B256_n292"] = counted("wide_B256_n292",
+                                                    drive_big)
+    check(all(s.status == ct.SolverStatus.SOLVED for s in big),
+          f"wide nass={nass} B={B}: not all SOLVED: "
+          f"{collections.Counter(s.status.name for s in big)}")
+    wide_kernels_only(paths["wide_B256_n292"], "wide_B256_n292")
+    Nb = qb.shape[1] + bb.shape[1]
+    print(f"[{card}] wide nass={nass} (N = {Nb}) B={B}: all SOLVED, "
+          f"iterations mean {np.mean([s.iterations for s in big]):.2f}, "
+          f"first solve {big_s:.2f} s", flush=True)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(14)
+    Kn, _, _ = make_qd_kkt(rng, WIDE_B, N)
+    bn = rng.standard_normal((WIDE_B, N))
+    K32 = torch.tensor(Kn, dtype=torch.float32, device=dev)
+    b32 = torch.tensor(bn, dtype=torch.float32, device=dev)
+
+    def drive_f32():
+        L, Dinv = ct.ldl_factor_batched(K32)
+        return ct.ldl_solve_batched(L, Dinv, b32)
+
+    x32, paths["wide_f32"] = counted("wide_f32", drive_f32)
+    wide_kernels_only(paths["wide_f32"], "wide_f32")
+    res = np.abs(np.einsum("bij,bj->bi", Kn[:F32_CHECK],
+                           x32[:F32_CHECK].double().cpu().numpy())
+                 - bn[:F32_CHECK]).max()
+    check(res < 1e-3, f"wide f32 path: residual {res:.2e} (bar 1e-3)")
+    print(f"wide f32 path at N={N} B={WIDE_B}: max |K x - b| {res:.2e}")
+    step("n292_and_f32")
+    times = wide_kernel_timing(card)
+    step("kernel_timing")
+    rec["step_seconds"] = steps
+    print(f"wide phase, seconds by step: {json.dumps(steps)}", flush=True)
+    return paths, errs, times, rec
+
+
+# ---------------------------------------------------------------------
 # several cards, the modeling layer and precompile (phases 9-12)
 
 class _Iterations:
@@ -2725,14 +3175,15 @@ def phase_precompile(card):
 def kernel_entries(paths, errs, times):
     """The `kernels` JSON rows: one per kernel function, its launches
     summed over the main paths' runs and split by path and by number of
-    right-hand sides; an f64 kernel's times at (76, 4096) with R = 1,
-    and under `by_shape` at every timed width and R.  `ms` is device
-    time per launch throughout."""
+    right-hand sides; an f64 kernel's times at (76, 4096) with R = 1, a
+    wide form's at (148, 4096), and under `by_shape` at every timed
+    width and R.  `ms` is device time per launch throughout."""
     rows = []
     for name, replaces, source in (
             [(k, v, SOURCE) for k, v in REPLACES.items()]
             + [(k, v, SOURCE_F32) for k, v in REPLACES_F32.items()]
-            + [(k, v, SOURCE_PROBES) for k, v in REPLACES_PROBES.items()]):
+            + [(k, v, SOURCE_PROBES) for k, v in REPLACES_PROBES.items()]
+            + [(k, v, SOURCE_WIDE) for k, v in REPLACES_WIDE.items()]):
         per_path = {path: sum(v for kk, v in launches.items()
                               if kk.split("/")[0] == name)
                     for path, launches in paths.items()}
@@ -2749,8 +3200,12 @@ def kernel_entries(paths, errs, times):
         entry.update(launches=sum(per_path.values()),
                      launches_per_path=per_path, max_abs_err=errs[name])
         t = times[name]
-        if "B4096_r1" in t:  # an f64 kernel: (76, 4096), R = 1, up front
-            entry.update({k: t["B4096_r1"][k] for k in (
+        # an f64 kernel: (76, 4096), R = 1, up front; a wide form:
+        # (148, 4096), R = 1
+        front = next((k for k in ("B4096_r1", "N148_B4096_r1") if k in t),
+                     None)
+        if front is not None:
+            entry.update({k: t[front][k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
                 by_shape=t)
         else:
@@ -2794,6 +3249,18 @@ def main():
         print(f"phase {name}: {seconds[name]} s", flush=True)
         return out
 
+    if sys.argv[1:] == ["--wide"]:
+        # the build and the "pallas" path above N = 128 alone
+        timed("build", phase_build)
+        paths, errs, times, rec = timed("wide", phase_wide, card)
+        print(json.dumps({"wide": rec, "phase_seconds": seconds}))
+        print(json.dumps({"kernels": [
+            dict(name=k, launches=sum(v for p in paths.values()
+                                      for kk, v in p.items()
+                                      if kk.split("/")[0] == k),
+                 max_abs_err=errs[k], **times[k].get("N148_B4096_r1", {}))
+            for k in REPLACES_WIDE]}))
+        return 0
     if sys.argv[1:] == ["--multi"]:
         # the phases that need several cards, and what they compare with
         timed("build", phase_build)
@@ -2821,6 +3288,10 @@ def main():
     times = timed("kernel_timing", phase_kernel_timing, card)
     times.update(timed("kernel_timing_f32", phase_kernel_timing_f32, card,
                        *f32_data))
+    wide_paths, wide_errs, wide_times, wide = timed("wide", phase_wide, card)
+    paths.update(wide_paths)
+    errs.update(wide_errs)
+    times.update(wide_times)
     batch_times = timed("timing", phase_timing, card, runs)
     nonsym_paths, nonsym = timed("nonsym", phase_nonsym, card)
     paths.update(nonsym_paths)
@@ -2840,6 +3311,7 @@ def main():
     print(json.dumps({"psd": psd}))
     print(json.dumps({"sparse": sparse}))
     print(json.dumps({"several_cards_modeling_precompile": last}))
+    print(json.dumps({"wide": wide}))
     print(json.dumps({"kernels": kernel_entries(paths, errs, times)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

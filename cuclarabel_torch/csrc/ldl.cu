@@ -5,8 +5,9 @@
 // regularised quasidefinite K, its substitution, the residual
 // r = b - K x, and a fused refined solve.  Every operand is batch-first
 // and row-major: K and L are (B, N, N), D^-1 is (B, N), right-hand sides
-// are (B, N, R) with R in {1, 2}.  N <= 128.  One thread block solves one
-// problem; the B problems are independent blocks.
+// are (B, N, R) with R in {1, 2}.  N <= 128 (kkt/ldl.py launches the wide
+// forms of ldl_wide.cu above).  One thread block solves one problem; the B
+// problems are independent blocks.
 //
 // They replace the double-float Pallas kernels of
 // cuclarabel_tpu/kkt/pallas_dd.py.  Those carried f64 accuracy as

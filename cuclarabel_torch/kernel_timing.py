@@ -6,8 +6,9 @@ main path's shapes.
 At N = 76 (the KKT dimension of the portfolio SOCP with nass = 32) and
 each width B of WIDTHS, at N = 104 (`problems.exp_logistic(4, 10,
 ...)`) and each width of NONSYM_WIDTHS for the forms that path launches,
-and at the PSD paths' (N, B) of PSD_SHAPES for theirs, every kernel form
-of `kkt/ldl.py` -- ldl_factor, and ldl_solve, kkt_residual and
+at the PSD paths' (N, B) of PSD_SHAPES for theirs, and at the wide
+forms' (N, B) of WIDE_SHAPES (N = 148 and 292, above 128), every kernel
+form of `kkt/ldl.py` -- ldl_factor, and ldl_solve, kkt_residual and
 ldl_solve_refine (npass = 1) with R = 1 and R = 2 -- and the f32
 ldl_factor_batched and ldl_solve_batched of `kkt/ldl_f32.py`, on the
 same K in f32, is timed:
@@ -93,8 +94,25 @@ KERNEL_NAMES = {"ldl_factor": "ldl_factor_kernel",
                 "ldl_solve_refine": "ldl_solve_refine_kernel<{R}",
                 "ldl_factor_batched": "ldl_factor_f32_kernel",
                 "ldl_solve_batched": "ldl_solve_f32_kernel<"}
+# the wide forms (csrc/ldl_wide.cu), which the wrappers launch above
+# N = 128: templates on the scalar type (and R)
+WIDE_KERNEL_NAMES = {
+    "ldl_factor": "ldl_factor_wide_kernel<double",
+    "ldl_solve": "ldl_solve_wide_kernel<double, {R}",
+    "kkt_residual": "kkt_residual_wide_kernel<double, {R}",
+    "ldl_solve_refine": "ldl_solve_refine_wide_kernel<double, {R}",
+    "ldl_factor_batched": "ldl_factor_wide_kernel<float",
+    "ldl_solve_batched": "ldl_solve_wide_kernel<float"}
 OCCUPANCY_ID = {"ldl_factor": 0, "ldl_solve": 1, "kkt_residual": 2,
                 "ldl_solve_refine": 3}
+WIDE_OCCUPANCY_ID = dict(OCCUPANCY_ID, ldl_factor_batched=4,
+                         ldl_solve_batched=5)
+# the wide forms' shapes: the portfolio SOCP at nass = 64 (n = 65,
+# m = 83, N = 148) at B = 4096 and 1, and at nass = 128 (n = 129,
+# m = 163, N = 292) at B = 256; the forms its batch launches
+WIDE_SHAPES = (((65, 83), 4096), ((65, 83), 1), ((129, 163), 256))
+WIDE_FORMS = F64_FORMS + (("ldl_factor_batched", 1),
+                          ("ldl_solve_batched", 1))
 OCCUPANCY_F32 = {"ldl_factor_batched": "cc_occupancy_f32",
                  "ldl_solve_batched": "cc_occupancy_f32_solve"}
 
@@ -277,6 +295,13 @@ def device_ms(fns, reps, flush=None, tries=3, timed_by=None):
     return out
 
 
+def kernel_name(name, R, N):
+    """The profiler's name (a prefix) of the kernel that form (name, R)
+    launches at N: its wide form above 128."""
+    names = WIDE_KERNEL_NAMES if ldl.wide(N) else KERNEL_NAMES
+    return names[name].format(R=R)
+
+
 def occupancy(name, R, N):
     """(resident blocks, resident warps) per SM of the kernel's launch at
     N, from cudaOccupancyMaxActiveBlocksPerMultiprocessor; None where the
@@ -284,7 +309,10 @@ def occupancy(name, R, N):
     lib = _build.load()
     blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
     out = (ctypes.addressof(blocks), ctypes.addressof(threads))
-    if name in OCCUPANCY_ID:
+    if ldl.wide(N):
+        fn = getattr(lib, "cc_occupancy_wide", None)
+        args = (WIDE_OCCUPANCY_ID[name], N, R) + out
+    elif name in OCCUPANCY_ID:
         fn = getattr(lib, "cc_occupancy", None)
         args = (OCCUPANCY_ID[name], N, R) + out
     else:
@@ -305,16 +333,28 @@ def ptxas(name, R, N, report):
     arguments agree with (R, slots) -- (slots) for the factors and the
     f32 kernels -- as far as it has any; None where the report has
     none."""
-    func = re.match(r"\w+", KERNEL_NAMES[name]).group(0)
+    wide = ldl.wide(N)
+    func = re.match(r"\w+", kernel_name(name, R, N)).group(0)
     slots = (N + 31) // 32
     one = "factor" in name or name.endswith("_batched")
-    want = [slots] if one else [R, slots]
+    if wide:  # <T> or <T, R>: the type's letter, then R
+        want = [1] if name == "ldl_solve_batched" else [] if one else [R]
+        kind = "f" if name.endswith("_batched") else "d"
+    else:
+        want = [slots] if one else [R, slots]
     tag = f"{len(func)}{func}"
     for mangled, rec in report.items():
         at = mangled.find(tag)
         if at < 0:
             continue
-        m = re.match(r"I((?:Li-?\d+E)+)E", mangled[at + len(tag):])
+        rest = mangled[at + len(tag):]
+        if wide:
+            m = re.match(r"I([df])((?:Li-?\d+E)*)E", rest)
+            if m and m.group(1) == kind and [int(v) for v in re.findall(
+                    r"Li(-?\d+)E", m.group(2))] == want:
+                return rec
+            continue
+        m = re.match(r"I((?:Li-?\d+E)+)E", rest)
         got = [int(v) for v in re.findall(r"Li(-?\d+)E", m.group(1))] if m else []
         if got == want[:len(got)]:
             return rec
@@ -377,7 +417,7 @@ def time_width(B, forms=FORMS, reps=20, plain_reps=3, cold=False,
     N = op["b"].shape[1]
     fns = calls(op)
     report = _build.ptxas_report(_build.build()["log"])
-    keyed = {(form, KERNEL_NAMES[form[0]].format(R=form[1])): fns[form][0]
+    keyed = {(form, kernel_name(form[0], form[1], N)): fns[form][0]
              for form in forms}
     how = {}
     warm = device_ms(keyed, reps, timed_by=how)
@@ -422,7 +462,8 @@ def row_line(card, row):
     if row.get("registers") is not None:
         occ += (f", ptxas {row['registers']} registers, "
                 f"{row['spill_bytes']} B spilled")
-    return (f"[{card}] {row['name']} r={row['R']} at N={row['N']} "
+    wide = " (wide)" if ldl.wide(row["N"]) else ""
+    return (f"[{card}] {row['name']}{wide} r={row['R']} at N={row['N']} "
             f"B={row['B']}: device {row['ms']:.4f} ms (L2 warm"
             f"{', CUDA events' if row.get('timed_by') == 'events' else ''})"
             f"{extra}, "
@@ -446,6 +487,9 @@ def main():
             print(row_line(card, row), flush=True)
     for nm, B in PSD_SHAPES:
         for row in time_width(B, PSD_FORMS, cold=True, nm=nm)[0]:
+            print(row_line(card, row), flush=True)
+    for nm, B in WIDE_SHAPES:
+        for row in time_width(B, WIDE_FORMS, cold=True, nm=nm)[0]:
             print(row_line(card, row), flush=True)
     return 0
 

@@ -24,7 +24,8 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
-SOURCES = (CSRC / "ldl.cu", CSRC / "ldl_f32.cu", CSRC / "probes.cu")
+SOURCES = (CSRC / "ldl.cu", CSRC / "ldl_f32.cu", CSRC / "ldl_wide.cu",
+           CSRC / "probes.cu")
 HEADERS = (CSRC / "ldl_core.cuh",)
 BUILD_DIR = PACKAGE_DIR.parent / "build"
 # -fmad=false: no contraction of a multiply and an add into one FMA, so
@@ -41,9 +42,10 @@ NVCC_FLAGS = ARCH + (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures of csrc/ldl.cu, csrc/ldl_f32.cu and csrc/probes.cu
-# (pointers, then ints, then the stream; the cc_occupancy* functions:
-# ints, then two int pointers)
+# C signatures of csrc/ldl.cu, csrc/ldl_f32.cu, csrc/ldl_wide.cu and
+# csrc/probes.cu (pointers, then ints, then the stream; the cc_occupancy*
+# functions: ints, then two int pointers).  Each wide form (N > 128) has
+# its narrow form's signature.
 SIGNATURES = {
     "cc_ldl_factor": (_P, _P, _P, _P, _P, _I, _I, _P),
     "cc_ldl_solve": (_P, _P, _P, _P, _I, _I, _I, _P),
@@ -51,9 +53,16 @@ SIGNATURES = {
     "cc_ldl_solve_refine": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "cc_ldl_factor_f32": (_P, _P, _P, _I, _I, _P),
     "cc_ldl_solve_f32": (_P, _P, _P, _P, _I, _I, _P),
+    "cc_ldl_factor_wide": (_P, _P, _P, _P, _P, _I, _I, _P),
+    "cc_ldl_solve_wide": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "cc_kkt_residual_wide": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "cc_ldl_solve_refine_wide": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "cc_ldl_factor_wide_f32": (_P, _P, _P, _I, _I, _P),
+    "cc_ldl_solve_wide_f32": (_P, _P, _P, _P, _I, _I, _P),
     "cc_occupancy": (_I, _I, _I, _P, _P),
     "cc_occupancy_f32": (_I, _P, _P),
     "cc_occupancy_f32_solve": (_I, _P, _P),
+    "cc_occupancy_wide": (_I, _I, _I, _P, _P),
     "cc_probe_chain": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "cc_probe_issue": (_P, _P, _P, _I, _I, _I, _P),
 }

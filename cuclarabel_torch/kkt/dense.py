@@ -15,8 +15,10 @@ right-hand sides (B, n) and (B, m).  Flags (`ok`) and refinement counts
 
 Methods (`resolve_kkt_method`):
   * "pallas": the hand-written LDL^T kernels of `kkt/ldl.py` on the
-    scaled, permuted K (N <= 128).  The name stays for parity with the
-    reference `Settings`; the kernels are CUDA, not Pallas.  On layouts
+    scaled, permuted K, at any N (the narrow forms at N <= 128, the wide
+    ones above, as the reference's factor takes any N).  The name stays
+    for parity with the reference `Settings`; the kernels are CUDA, not
+    Pallas.  On layouts
     with nonsymmetric cones its refinement holds x to the regularised
     K + diag(reg), the matrix the kernel factors, so that it corrects
     the factor's rounding and leaves the static regularisation in
@@ -45,7 +47,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .ldl import MAX_N, kkt_residual, ldl_factor, ldl_solve, ldl_solve_refine
+from .ldl import (NARROW_MAX_N, kkt_residual, ldl_factor, ldl_solve,
+                  ldl_solve_refine)
 
 
 def _gj_inv_small(M):
@@ -96,14 +99,11 @@ def resolve_kkt_method(settings, N: int) -> str:
     """Resolve kkt_solve_method='auto': "pallas" (the LDL^T kernels) for
     N <= 128 and "lu" above.  This differs from the reference, which
     picks "qr" or "inverse" above its Pallas cap because XLA on a TPU has
-    no f64 LU; CUDA has one."""
+    no f64 LU; CUDA has one.  An explicit "pallas" runs the kernels at
+    any N, as the reference's does (their wide forms above 128)."""
     method = settings.kkt_solve_method
     if method == "auto":
-        method = "pallas" if N <= MAX_N else "lu"
-    if method == "pallas" and N > MAX_N:
-        raise NotImplementedError(
-            f"kkt_solve_method='pallas' covers KKT dims N <= {MAX_N}, got "
-            f"N = {N}; use 'lu'")
+        method = "pallas" if N <= NARROW_MAX_N else "lu"
     return method
 
 

@@ -1,9 +1,10 @@
-"""Batched f64 LDL^T KKT engine: the four hand-written Hopper kernels of
-`csrc/ldl.cu` and their plain PyTorch versions.
+"""Batched f64 LDL^T KKT engine: the hand-written Hopper kernels of
+`csrc/ldl.cu` (N <= 128) and `csrc/ldl_wide.cu` (N > 128) and their plain
+PyTorch versions.
 
 The counterpart of `cuclarabel_tpu/kkt/pallas_dd.py`.  Layout is
 batch-first: K and L are (B, N, N), D^-1 is (B, N), right-hand sides are
-(B, N) or (B, N, R) with R in {1, 2}; everything is float64 and N <= 128.
+(B, N) or (B, N, R) with R in {1, 2}; everything is float64, any N >= 1.
 
   ldl_factor(K, reg)                     -> (L, Dinv, ok)
   ldl_solve(L, Dinv, b)                  -> x
@@ -16,11 +17,15 @@ reference.  K is symmetric: ldl_factor, kkt_residual and
 ldl_solve_refine read only its lower triangle, kernels and plain
 versions alike.  Each wrapper takes its plain version when its tensors lie on
 the CPU and launches its CUDA kernel when they lie on a CUDA device;
-there is no fallback from one to the other.  `LAUNCHES` counts kernel
-launches and `PLAIN_CALLS` calls of the plain versions, keyed by
-"<name>/r<R>", so a run can show which path it took; both stay exact
-when several host threads launch at once, and `LAUNCHES.by_device`
-splits the launches by card.
+there is no fallback from one to the other.  On the card each wrapper
+launches its narrow form at N <= NARROW_MAX_N = 128 and its wide form
+above (one block of 256 threads per problem, the triangles read from
+device memory: `csrc/ldl_wide.cu`).  `LAUNCHES` counts kernel launches,
+keyed by "<name>/r<R>" for a narrow form and "<name>_wide/r<R>" for a
+wide one, and `PLAIN_CALLS` calls of the plain versions, keyed by
+"<name>/r<R>" at every N, so a run can show which path it took; both
+stay exact when several host threads launch at once, and
+`LAUNCHES.by_device` splits the launches by card.
 """
 
 import collections
@@ -30,7 +35,8 @@ import torch
 
 from . import _build
 
-MAX_N = 128
+# the largest N of the narrow forms (csrc/ldl.cu, csrc/ldl_f32.cu)
+NARROW_MAX_N = 128
 
 
 class Counts(collections.Counter):
@@ -119,8 +125,13 @@ def _solve(L, Dinv, b):
 
 
 def _residual(K, x, b):
+    """b - K x, each right-hand side summed as one alone is, so that a
+    2-RHS residual equals two 1-RHS ones bit for bit, as the kernels'
+    do (a sum over dim 2 of a (B, N, N, 2) product runs in another
+    order)."""
     xr = _as_rhs(x)
-    Kx = (K[:, :, :, None] * xr[:, None, :, :]).sum(dim=2)
+    Kx = torch.cat([(K[:, :, :, None] * xr[:, None, :, t:t + 1]).sum(dim=2)
+                    for t in range(xr.shape[2])], dim=2)
     return (_as_rhs(b) - Kx).reshape(b.shape)
 
 
@@ -194,9 +205,19 @@ def _dims(M, name):
     if M.dim() != 3 or M.shape[1] != M.shape[2]:
         raise ValueError(f"{name} must be (B, N, N), got {tuple(M.shape)}")
     B, N = M.shape[0], M.shape[1]
-    if not 1 <= N <= MAX_N:
-        raise ValueError(f"the LDL^T kernels take 1 <= N <= {MAX_N}, got {N}")
+    if N < 1:
+        raise ValueError(f"the LDL^T kernels take N >= 1, got {N}")
     return B, N
+
+
+def wide(N) -> bool:
+    """Whether the wrappers launch the wide forms at N."""
+    return N > NARROW_MAX_N
+
+
+def launch_key(name, N, R):
+    """The LAUNCHES key of a kernel launch of `name` at N, R."""
+    return f"{name}_wide/r{R}" if wide(N) else f"{name}/r{R}"
 
 
 def _rhs_shape(b, B, N, name):
@@ -233,12 +254,12 @@ def ldl_factor(K, reg):
     Dinv = torch.empty_like(reg)
     ok = torch.empty(B, dtype=torch.bool, device=K.device)
     lib = _build.load()
+    fn = lib.cc_ldl_factor_wide if wide(N) else lib.cc_ldl_factor
     with torch.cuda.device(K.device):
-        rc = lib.cc_ldl_factor(K.data_ptr(), reg.data_ptr(), L.data_ptr(),
-                               Dinv.data_ptr(), ok.data_ptr(), B, N,
-                               _stream(K))
+        rc = fn(K.data_ptr(), reg.data_ptr(), L.data_ptr(), Dinv.data_ptr(),
+                ok.data_ptr(), B, N, _stream(K))
     _raise_on(rc, "ldl_factor")
-    LAUNCHES.add("ldl_factor/r1", K.device)
+    LAUNCHES.add(launch_key("ldl_factor", N, 1), K.device)
     return L, Dinv, ok
 
 
@@ -254,11 +275,12 @@ def ldl_solve(L, Dinv, b):
     R = _r(b)
     x = torch.empty_like(b)
     lib = _build.load()
+    fn = lib.cc_ldl_solve_wide if wide(N) else lib.cc_ldl_solve
     with torch.cuda.device(L.device):
-        rc = lib.cc_ldl_solve(L.data_ptr(), Dinv.data_ptr(), b.data_ptr(),
-                              x.data_ptr(), B, N, R, _stream(L))
+        rc = fn(L.data_ptr(), Dinv.data_ptr(), b.data_ptr(), x.data_ptr(), B,
+                N, R, _stream(L))
     _raise_on(rc, "ldl_solve")
-    LAUNCHES.add(f"ldl_solve/r{R}", L.device)
+    LAUNCHES.add(launch_key("ldl_solve", N, R), L.device)
     return x
 
 
@@ -275,11 +297,12 @@ def kkt_residual(K, x, b):
     R = _r(b)
     r = torch.empty_like(b)
     lib = _build.load()
+    fn = lib.cc_kkt_residual_wide if wide(N) else lib.cc_kkt_residual
     with torch.cuda.device(K.device):
-        rc = lib.cc_kkt_residual(K.data_ptr(), x.data_ptr(), b.data_ptr(),
-                                 r.data_ptr(), B, N, R, _stream(K))
+        rc = fn(K.data_ptr(), x.data_ptr(), b.data_ptr(), r.data_ptr(), B, N,
+                R, _stream(K))
     _raise_on(rc, "kkt_residual")
-    LAUNCHES.add(f"kkt_residual/r{R}", K.device)
+    LAUNCHES.add(launch_key("kkt_residual", N, R), K.device)
     return r
 
 
@@ -302,10 +325,10 @@ def ldl_solve_refine(K, L, Dinv, b, npass):
     x = torch.empty_like(b)
     r = torch.empty_like(b)
     lib = _build.load()
+    fn = lib.cc_ldl_solve_refine_wide if wide(N) else lib.cc_ldl_solve_refine
     with torch.cuda.device(K.device):
-        rc = lib.cc_ldl_solve_refine(
-            K.data_ptr(), L.data_ptr(), Dinv.data_ptr(), b.data_ptr(),
-            x.data_ptr(), r.data_ptr(), B, N, R, int(npass), _stream(K))
+        rc = fn(K.data_ptr(), L.data_ptr(), Dinv.data_ptr(), b.data_ptr(),
+                x.data_ptr(), r.data_ptr(), B, N, R, int(npass), _stream(K))
     _raise_on(rc, "ldl_solve_refine")
-    LAUNCHES.add(f"ldl_solve_refine/r{R}", K.device)
+    LAUNCHES.add(launch_key("ldl_solve_refine", N, R), K.device)
     return x, r

@@ -1,5 +1,6 @@
 """Batched f32 LDL^T factor and solve: the hand-written Hopper kernels of
-`csrc/ldl_f32.cu` and their plain PyTorch versions.
+`csrc/ldl_f32.cu` (N <= 128) and `csrc/ldl_wide.cu` (N > 128) and their
+plain PyTorch versions.
 
 The counterpart of `cuclarabel_tpu/kkt/pallas_ldl.py`, the single-float
 LDL^T that the JAX package keeps beside its f64-grade engine as the f32
@@ -10,22 +11,24 @@ baseline.  No solver path calls it; these are its public entry points:
 
 Everything is float32 in and out (the reference runs with x64 off; no
 operand is upcast here), batch-first: K and L (B, N, N), Dinv and b
-(B, N), any B, N <= 128.  K must be symmetric quasidefinite: only its
+(B, N), any B and N.  K must be symmetric quasidefinite: only its
 lower triangle is read, as the reference reads the column below each
 pivot.  L is the strict-lower unit factor of K = (I + L) D (I + L)^T
 with zeros on and above the diagonal (the reference leaves junk there),
 and Dinv holds D^-1.  On CPU tensors the plain versions run; on CUDA
-tensors the kernels launch, with no fallback from one to the other.
-Launches and plain calls are counted in `ldl.LAUNCHES` and
-`ldl.PLAIN_CALLS` under "ldl_factor_batched/r1" and
-"ldl_solve_batched/r1".
+tensors the kernels launch, with no fallback from one to the other: the
+narrow forms at N <= 128, the wide ones above (the f64 wide bodies at
+T = float, without regularisation).  Launches are counted in
+`ldl.LAUNCHES` under "ldl_factor_batched/r1" and "ldl_solve_batched/r1"
+(narrow) or "ldl_factor_batched_wide/r1" and "ldl_solve_batched_wide/r1"
+(wide), plain calls in `ldl.PLAIN_CALLS` under the narrow keys.
 """
 
 import torch
 
 from . import _build
 from .ldl import (LAUNCHES, PLAIN_CALLS, _check, _dims, _factor, _on_cpu,
-                  _raise_on, _solve, _stream)
+                  _raise_on, _solve, _stream, launch_key, wide)
 
 F32 = torch.float32
 
@@ -51,11 +54,11 @@ def ldl_factor_batched(K):
     L = torch.empty_like(K)
     Dinv = K.new_empty(B, N)
     lib = _build.load()
+    fn = lib.cc_ldl_factor_wide_f32 if wide(N) else lib.cc_ldl_factor_f32
     with torch.cuda.device(K.device):
-        rc = lib.cc_ldl_factor_f32(K.data_ptr(), L.data_ptr(),
-                                   Dinv.data_ptr(), B, N, _stream(K))
+        rc = fn(K.data_ptr(), L.data_ptr(), Dinv.data_ptr(), B, N, _stream(K))
     _raise_on(rc, "ldl_factor_batched")
-    LAUNCHES.add("ldl_factor_batched/r1", K.device)
+    LAUNCHES.add(launch_key("ldl_factor_batched", N, 1), K.device)
     return L, Dinv
 
 
@@ -70,9 +73,10 @@ def ldl_solve_batched(L, Dinv, b):
         return ldl_solve_batched_plain(L, Dinv, b)
     x = torch.empty_like(b)
     lib = _build.load()
+    fn = lib.cc_ldl_solve_wide_f32 if wide(N) else lib.cc_ldl_solve_f32
     with torch.cuda.device(L.device):
-        rc = lib.cc_ldl_solve_f32(L.data_ptr(), Dinv.data_ptr(), b.data_ptr(),
-                                  x.data_ptr(), B, N, _stream(L))
+        rc = fn(L.data_ptr(), Dinv.data_ptr(), b.data_ptr(), x.data_ptr(), B,
+                N, _stream(L))
     _raise_on(rc, "ldl_solve_batched")
-    LAUNCHES.add("ldl_solve_batched/r1", L.device)
+    LAUNCHES.add(launch_key("ldl_solve_batched", N, 1), L.device)
     return x

@@ -11,10 +11,10 @@ comments below are the JAX package's and describe its TPU measurements;
 in this package:
 
   * `kkt_solve_method="pallas"` selects the hand-written Hopper LDL^T
-    kernels (`kkt/ldl.py`, `csrc/ldl.cu`) for KKT dims N <= 128; the
-    name stays for parity with the reference `Settings`.  "auto" picks
-    "pallas" for N <= 128 and "lu" (f64 `torch.linalg.lu_factor`)
-    above; "qr" and "inverse" take `torch.linalg`'s QR and inverse
+    kernels (`kkt/ldl.py`; `csrc/ldl.cu` for KKT dims N <= 128,
+    `csrc/ldl_wide.cu` above) at any N; the name stays for parity with
+    the reference `Settings`.  "auto" picks "pallas" for N <= 128 and
+    "lu" (f64 `torch.linalg.lu_factor`) above; "qr" and "inverse" take `torch.linalg`'s QR and inverse
     (`kkt/dense.py`).
   * `kkt_factor_precision="float32"` factors in f32 under "lu", "qr"
     and "inverse" and refines in f64, as in the reference; "pallas"

@@ -30,7 +30,12 @@ with direct_solve_method="qdldl" on the SOCP golden
 (`solver_qdldl_socp`).  Then ShardedSolver on one card on
 `problems.box_budget_qp(512, 16384, 0)` (`sharded_qp_n1`) and the
 modeling layer's Model of the portfolio's problem 0
-(`problems.portfolio_model(32)`, `model_portfolio`).
+(`problems.portfolio_model(32)`, `model_portfolio`).  Then the "pallas"
+path above N = 128 (the kernels' wide forms): BatchSolver on the
+portfolio at nass = 64 (N = 148) at B = 256 and the Solver on its first
+instance, both with kkt_solve_method="pallas" (`batch_wide_n148_B256`,
+reported, `"compare": false`, since that batch is not bitwise
+reproducible from run to run, and `solver_wide_n148`).
 The module needs nothing of `cuclarabel_torch` that an earlier version
 lacks: a copy placed in another checkout's package digests that
 checkout's solves, so that two versions can be compared in one run; a
@@ -85,6 +90,31 @@ LAST_PATHS = (
         *pr.box_budget_qp(512, 16384, 0)).solve()]),
     ("model_portfolio", lambda ct, pr: [pr.portfolio_model(NASS)[0].solve()]),
 )
+
+
+# the "pallas" path above N = 128, where the kernels' wide forms run: the
+# portfolio at nass = 64 (N = 148) at B = 256 and its Solver
+WIDE_NASS = 64
+
+
+def _wide_batch(ct, pr):
+    A, qs, bs, cones = pr.portfolio_socp(WIDE_NASS, 256, seed=7)
+    return ct.BatchSolver(None, qs, A, bs, cones,
+                          kkt_solve_method="pallas").solve()
+
+
+def _wide_solver(ct, pr):
+    A, qs, bs, cones = pr.portfolio_socp(WIDE_NASS, 1, seed=7)
+    return [ct.Solver(None, qs[0], A, bs[0], cones,
+                      kkt_solve_method="pallas").solve()]
+
+
+# (path, (cuclarabel_torch, its problems module) -> solutions, compared
+# across versions): at nass = 64 the batch is not bitwise reproducible
+# from run to run on the card, under "lu" as under "pallas" (ROADMAP F14),
+# so its digest is reported and the Solver's compared
+WIDE_PATHS = (("batch_wide_n148_B256", _wide_batch, False),
+              ("solver_wide_n148", _wide_solver, True))
 
 
 def digest(sols):
@@ -144,6 +174,14 @@ def main():
                               "version"}), flush=True)
             continue
         report(path, make(ct, problems))
+    from cuclarabel_torch.kkt import ldl
+
+    for path, make, compare in WIDE_PATHS:
+        if not hasattr(ldl, "NARROW_MAX_N"):
+            print(json.dumps({"path": path, "skipped": "not in this "
+                              "version"}), flush=True)
+            continue
+        report(path, make(ct, problems), compare)
     return 0
 
 

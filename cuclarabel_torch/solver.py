@@ -10,7 +10,8 @@ equilibration and the cone layout, as in the reference.  `solve` runs
 the batched IPM loop of `ipm/loop.py` at B = 1 on the solver's device:
 CUDA unless the caller passes device="cpu", raising without a card.
 On the card the dense KKT backend takes the hand-written LDL^T kernels
-("pallas", N <= 128) or pivoted LU ("lu", above).
+("pallas", by default at N <= 128, and at any N when asked for) or
+pivoted LU ("lu", by default above 128).
 
 Differences from the reference:
   * `Settings.host_solve` is accepted and has no effect: the reference

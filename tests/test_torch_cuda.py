@@ -12,7 +12,8 @@ plain versions do), the residual and the refined solve within 1e-12
 relative (other summation orders), at the main shapes, at the edges of
 the substitution's 32-row panels and around the factor's 8-pivot panels
 and 4 x 4 tiles, and a pivot that cancels to exactly zero; the residual
-bit for bit with the refined solve's.  The issue-rate probes' kernels
+bit for bit with the refined solve's.  The same for the wide forms that
+run above N = 128 (csrc/ldl_wide.cu), at N from 129 to 292.  The issue-rate probes' kernels
 (csrc/probes.cu) are held to their plain versions bit for bit.  The
 sparse paths, which run no kernel of csrc/, are held to the CPU: the
 multifrontal factor and solve within 1e-12 relative and bitwise equal
@@ -124,11 +125,12 @@ def test_warp_kernels_at_panel_edges(dev, N, B, R):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("N", [33, 76, 128])
+@pytest.mark.parametrize("N", [33, 76, 128, 129, 148, 292])
 @pytest.mark.parametrize("R", [1, 2])
 def test_warp_kernels_keep_problems_apart(dev, N, R):
     """A NaN in one problem's b, or a non-finite D^-1 of one problem,
-    leaves every other problem's x and r as they were."""
+    leaves every other problem's x and r as they were (above N = 128 in
+    the wide forms)."""
     from cuclarabel_torch.kkt import ldl
 
     rng = np.random.default_rng(N + R)
@@ -186,7 +188,7 @@ def test_factor_at_panel_and_tile_edges(dev, N, B):
     assert torch.equal(L, L0) and torch.equal(Dinv, Dinv0)
 
 
-@pytest.mark.parametrize("N", [1, 9, 76, 128])
+@pytest.mark.parametrize("N", [1, 9, 76, 128, 148, 292])
 def test_factor_zero_pivot_stays_in_its_problem(dev, N):
     """A zero pivot in one problem (row j of its lower triangle and reg_j
     zero, so D_j = 0 exactly) sets ok false there alone; every other
@@ -242,12 +244,87 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         ldl.ldl_factor(K.float(), reg.float())
     with pytest.raises(ValueError):
         ldl.ldl_factor(K.transpose(1, 2), reg)  # not contiguous
-    big = torch.zeros(1, 129, 129, dtype=torch.float64, device=dev)
-    with pytest.raises(ValueError):
-        ldl.ldl_factor(big, big[:, 0])
+    empty = torch.zeros(1, 0, 0, dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError):  # N >= 1; any N above (wide forms)
+        ldl.ldl_factor(empty, torch.zeros(1, 0, dtype=torch.float64,
+                                          device=dev))
     with pytest.raises(ValueError):
         ldl.ldl_solve(K, reg, torch.zeros(2, 13, 3, dtype=torch.float64,
                                           device=dev))
+
+
+# the wide forms (csrc/ldl_wide.cu, N > 128): around the first N they
+# take, the portfolio's N = 148, the 32-row panels of the substitution
+# (160, 169), where one triangle stops fitting in 227 KB of shared
+# memory (237, 238), and the nass = 128 portfolio's N = 292
+WIDE_N = (129, 148, 160, 169, 237, 238, 292)
+
+
+@pytest.mark.parametrize("N", WIDE_N)
+@pytest.mark.parametrize("B", [1, 5])
+@pytest.mark.parametrize("R", [1, 2])
+def test_wide_kernels_match_plain(dev, N, B, R):
+    """Each wide form against its plain version: the factor and the
+    substitution bit for bit, the residual and the refined solve (npass
+    0, 1, 2) within 1e-12, the refined solve's r bit for bit the wide
+    residual's; K carries junk above its diagonal, which no kernel may
+    read; the launches counted under the wide keys."""
+    from cuclarabel_torch.kkt import ldl
+
+    rng = np.random.default_rng(7 * N + B + R)
+    m = (N + 1) // 2
+    K, reg = _kkt(rng, B, N - m, m, dev)
+    Kj = _junk(rng, K)
+    shape = (B, N) if R == 1 else (B, N, R)
+    b = torch.tensor(rng.standard_normal(shape), device=dev)
+    ldl.reset_counts()
+    L, Dinv, ok = ldl.ldl_factor(Kj, reg)
+    Lp, Dinvp, okp = ldl.ldl_factor_plain(Kj, reg)
+    assert torch.equal(L, Lp) and torch.equal(Dinv, Dinvp)
+    assert torch.equal(ok, okp) and bool(ok.all())
+    assert bool((L.triu() == 0).all())
+    x = ldl.ldl_solve(L, Dinv, b)
+    assert torch.equal(x, ldl.ldl_solve_plain(L, Dinv, b))
+    r = ldl.kkt_residual(Kj, x, b)
+    assert torch.equal(r, ldl.kkt_residual(K, x, b))
+    torch.testing.assert_close(r, ldl.kkt_residual_plain(Kj, x, b),
+                               rtol=1e-12, atol=1e-12)
+    for npass in (0, 1, 2):
+        xr, rr = ldl.ldl_solve_refine(Kj, L, Dinv, b, npass)
+        xp, rp = ldl.ldl_solve_refine_plain(Kj, L, Dinv, b, npass)
+        torch.testing.assert_close(xr, xp, rtol=1e-12, atol=1e-12)
+        torch.testing.assert_close(rr, rp, rtol=1e-12, atol=1e-12)
+        assert torch.equal(rr, ldl.kkt_residual(Kj, xr, b))
+    torch.cuda.synchronize()
+    assert ldl.LAUNCHES["ldl_factor_wide/r1"] == 1
+    assert ldl.LAUNCHES[f"ldl_solve_refine_wide/r{R}"] == 3
+    assert not any("/" in k and "_wide/" not in k for k in ldl.LAUNCHES)
+
+
+def test_wide_batch_on_card_matches_cpu(dev):
+    """BatchSolver under explicit "pallas" on the portfolio at nass = 64
+    (N = 148, the wide forms) on the card against the CPU: the same
+    statuses and iterations, x within 1e-7; the wide kernels launched and
+    no narrow one."""
+    import cuclarabel_torch as ct
+    from cuclarabel_torch.kkt import ldl
+    from cuclarabel_torch.problems import portfolio_socp
+
+    A, qs, bs, cones = portfolio_socp(64, 6, seed=7)
+    ldl.reset_counts()
+    got = ct.BatchSolver(None, qs, A, bs, cones,
+                         kkt_solve_method="pallas").solve()
+    torch.cuda.synchronize()
+    launched = dict(ldl.LAUNCHES)
+    assert launched.get("ldl_factor_wide/r1", 0) > 0
+    assert launched.get("ldl_solve_refine_wide/r1", 0) > 0
+    assert all("_wide/" in k for k in launched), launched
+    want = ct.BatchSolver(None, qs, A, bs, cones, device="cpu",
+                          kkt_solve_method="pallas").solve()
+    for g, c in zip(got, want):
+        assert g.status == c.status == ct.SolverStatus.SOLVED
+        assert abs(g.iterations - c.iterations) <= 1
+        assert np.abs(g.x - c.x).max() <= 1e-7 * max(np.abs(c.x).max(), 1.0)
 
 
 def test_kernels_on_two_devices(dev):
@@ -268,7 +345,7 @@ def test_kernels_on_two_devices(dev):
         torch.testing.assert_close(xr, xp, rtol=1e-12, atol=1e-12)
 
 
-@pytest.mark.parametrize("N", [1, 9, 76, 104, 128])
+@pytest.mark.parametrize("N", [1, 9, 76, 104, 128, 129, 148, 292])
 def test_factor_zero_pivot_takes_the_regularization(dev, N):
     """A pivot that cancels to exactly zero (row j of the lower triangle
     zero, K_jj = -reg_j) takes reg_j as its D_j, in the kernel as in the
@@ -371,10 +448,12 @@ def test_batch_solver_on_card_matches_cpu(dev):
         assert abs(g.obj_val - c.obj_val) <= 1e-7 * abs(c.obj_val)
 
 
-@pytest.mark.parametrize("N,B", [(16, 5), (128, 37)])
+@pytest.mark.parametrize("N,B", [(16, 5), (128, 37), (129, 5), (148, 37),
+                                 (292, 3)])
 def test_f32_kernels_match_plain(dev, N, B):
-    """ldl_factor_batched / ldl_solve_batched (csrc/ldl_f32.cu) on
-    quasidefinite K as tests/test_pallas_ldl.py builds them."""
+    """ldl_factor_batched / ldl_solve_batched (csrc/ldl_f32.cu; above
+    N = 128 the wide forms of csrc/ldl_wide.cu) on quasidefinite K as
+    tests/test_pallas_ldl.py builds them."""
     from cuclarabel_torch.kkt import ldl, ldl_f32
 
     rng = np.random.default_rng(N + B)
@@ -393,8 +472,9 @@ def test_f32_kernels_match_plain(dev, N, B):
     L, Dinv = ldl_f32.ldl_factor_batched(K)
     x = ldl_f32.ldl_solve_batched(L, Dinv, b)
     torch.cuda.synchronize()
-    assert dict(ldl.LAUNCHES) == {"ldl_factor_batched/r1": 1,
-                                  "ldl_solve_batched/r1": 1}
+    assert dict(ldl.LAUNCHES) == {
+        ldl.launch_key("ldl_factor_batched", N, 1): 1,
+        ldl.launch_key("ldl_solve_batched", N, 1): 1}
     assert L.dtype == Dinv.dtype == x.dtype == torch.float32
     Lp, Dinvp = ldl_f32.ldl_factor_batched_plain(K)
     assert torch.equal(L, Lp) and torch.equal(Dinv, Dinvp)

@@ -128,5 +128,8 @@ def test_resolve_kkt_method():
     for method in ("lu", "qr", "inverse"):
         assert resolve_kkt_method(st.replace(kkt_solve_method=method),
                                   200) == method
-    with pytest.raises(NotImplementedError):
-        resolve_kkt_method(st.replace(kkt_solve_method="pallas"), 129)
+    # explicit "pallas" runs the kernels at any N (their wide forms above
+    # 128), as the reference's does; "auto" keeps "lu" above 128
+    for N in (129, 148, 292):
+        assert resolve_kkt_method(st.replace(kkt_solve_method="pallas"),
+                                  N) == "pallas"

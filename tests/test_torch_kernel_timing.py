@@ -117,3 +117,36 @@ def test_ptxas_finds_the_instantiation_each_form_launches():
     assert kt.ptxas("ldl_factor", 1, 76, old)["registers"] == 40
     assert kt.ptxas("kkt_residual", 1, 76, old)["registers"] == 30
     assert kt.ptxas("kkt_residual", 2, 76, old) is None
+
+
+def test_ptxas_and_names_of_the_wide_forms():
+    """Above N = 128 the forms run the wide kernels (csrc/ldl_wide.cu),
+    templates on the scalar type and R: kernel_name gives the profiler's
+    prefix, and ptxas the instantiation of that type and R."""
+    def rec(regs):
+        return {"registers": regs, "spill_stores": 0, "spill_loads": 0}
+
+    report = {
+        "_ZN12_GLOBAL__N_122ldl_factor_wide_kernelIdEEvPKT_S3_PS1_S4_Phi":
+            rec(40),
+        "_ZN12_GLOBAL__N_122ldl_factor_wide_kernelIfEEvPKT_S3_PS1_S4_Phi":
+            rec(38),
+        "_ZN12_GLOBAL__N_121ldl_solve_wide_kernelIdLi1EEEvPKT_S3_S3_PS1_i":
+            rec(90),
+        "_ZN12_GLOBAL__N_121ldl_solve_wide_kernelIdLi2EEEvPKT_S3_S3_PS1_i":
+            rec(120),
+        "_ZN12_GLOBAL__N_121ldl_solve_wide_kernelIfLi1EEEvPKT_S3_S3_PS1_i":
+            rec(60),
+        "_ZN12_GLOBAL__N_117ldl_factor_kernelEPKdS1_PdS2_Phi": rec(95),
+    }
+    assert kt.ptxas("ldl_factor", 1, 148, report)["registers"] == 40
+    assert kt.ptxas("ldl_factor_batched", 1, 292, report)["registers"] == 38
+    assert kt.ptxas("ldl_solve", 2, 148, report)["registers"] == 120
+    assert kt.ptxas("ldl_solve_batched", 1, 148, report)["registers"] == 60
+    assert kt.ptxas("kkt_residual", 1, 148, report) is None
+    assert kt.ptxas("ldl_factor", 1, 128, report)["registers"] == 95
+    assert kt.kernel_name("ldl_solve", 2, 148) == \
+        "ldl_solve_wide_kernel<double, 2"
+    assert kt.kernel_name("ldl_solve", 2, 128) == "ldl_solve_kernel<2"
+    assert kt.kernel_name("ldl_factor_batched", 1, 129) == \
+        "ldl_factor_wide_kernel<float"

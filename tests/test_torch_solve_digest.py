@@ -82,3 +82,27 @@ def test_sparse_paths_run_on_the_cpu():
     for path, make in solve_digest.SPARSE_PATHS:
         d = solve_digest.digest(make(CpuCt(), Pr()))
         assert d["statuses"] == ["SOLVED"], path
+
+
+def test_wide_paths_run_on_the_cpu():
+    """The digest paths above N = 128 build and solve (device="cpu" here,
+    at B = 3): each gives SOLVED solutions to digest, and the Solver's
+    problem is the batch's first."""
+    from cuclarabel_torch import problems
+
+    class Pr:
+        def portfolio_socp(self, nass, batch, seed):
+            return problems.portfolio_socp(nass, min(batch, 3), seed=seed)
+
+    class CpuCt:
+        def __getattr__(self, name):
+            return lambda *a, **k: getattr(ct, name)(*a, device="cpu", **k)
+
+    got = {path: make(CpuCt(), Pr()) for path, make, _ in
+           solve_digest.WIDE_PATHS}
+    for path, sols in got.items():
+        assert solve_digest.digest(sols)["statuses"] == ["SOLVED"], path
+    batch, one = got["batch_wide_n148_B256"], got["solver_wide_n148"]
+    assert len(batch) == 3 and len(one) == 1
+    assert abs(batch[0].obj_val - one[0].obj_val) <= 1e-7 * abs(
+        one[0].obj_val)
