@@ -180,10 +180,16 @@ Phases, in order; any failure exits non-zero:
    solves of phase 5's timing): the "pallas" path above N = 128, where
    the wrappers launch the kernels' wide forms (csrc/ldl_wide.cu).  Each
    wide form against its plain version at (N, B) = (129, 5),
-   (148, 4096), (148, 1), (169, 64) and (292, 256), R = 1 and 2, npass
-   0, 1 and 2 (factor and substitution bit for bit, residual and refined
-   solve within 1e-12 relative), the f32 ones at (129, 5), (148, 4096)
-   and (292, 256); then, each driven with the counters set to 0 just
+   (148, 4096), (148, 1), (169, 64), (226, 16), (227, 16), (233, 16),
+   (234, 16) (the largest N at which the refined solve keeps L in shared
+   memory, at R = 2 and 1, and the next) and (292, 256), R = 1 and 2,
+   npass 0, 1 and 2 (factor and substitution bit for bit, residual and
+   refined solve within 1e-12 relative, the refined solve's r bit for bit
+   the residual's, 2-RHS bit for bit two 1-RHS, and at (148, 4096) three
+   problems alone bit for bit as in the batch), the f32 ones at (129, 5),
+   (148, 4096) and (292, 256); three solves of the nass = 64 portfolio
+   at B = 256 under "pallas" and under "lu", one digest each (ROADMAP
+   F14); then, each driven with the counters set to 0 just
    before it and read just after (wide forms only): BatchSolver on the
    portfolio at nass = 64 (N = 148), B = 4096, kkt_solve_method="pallas",
    staged and plain (every problem SOLVED, staged equal to plain in
@@ -211,7 +217,8 @@ import numpy as np
 import torch
 
 from cuclarabel_torch import kernel_timing as kt
-from cuclarabel_torch.kernel_timing import card_line, cuda_ms, make_kkt
+from cuclarabel_torch.kernel_timing import (card_line, cuda_ms, make_kkt,
+                                           make_qd_kkt)
 
 # the portfolio SOCP of the main path
 NASS = 32
@@ -376,12 +383,24 @@ ALSO_REPLACES.update({
 })
 SOURCE_WIDE = "cuclarabel_torch/csrc/ldl_wide.cu"
 # the wide phase: every wide form against its plain version at (n, m, B):
-# N = 129, the portfolio's N = 148 at B = 4096 and 1, N = 169 and the
+# N = 129, the portfolio's N = 148 at B = 4096 and 1, N = 169, the
+# largest N at which the refined solve keeps L in shared memory and the
+# next (226, 227 at R = 2; 233, 234 at R = 1: ldl.refine_form) and the
 # nass = 128 portfolio's N = 292; K's Hs spread as tests/test_torch_cuda.py
 # draws it (10^(+-3)), where two summation orders of a refinement pass
 # agree to 1e-12 (at 10^(+-4) the narrow forms' 1e-9 bar)
 WIDE_KERNEL_SHAPES = ((5, 124, 5), (65, 83, 4096), (65, 83, 1),
-                      (5, 164, 64), (129, 163, 256))
+                      (5, 164, 64), (113, 113, 16), (113, 114, 16),
+                      (116, 117, 16), (117, 117, 16), (129, 163, 256))
+# the shapes where a problem is also solved alone (B = 1), to hold its
+# bits to those it has inside the batch: N = 148 at B = 4096
+WIDE_ALONE = ((65, 83, 4096),)
+# the F14 check: this many solves of portfolio_socp(WIDE_NASS, WIDE_REPEAT_B)
+# under "pallas" and under "lu" give one digest each
+WIDE_REPEATS, WIDE_REPEAT_B = 3, 256
+# the KKT dimension of each wide path that runs the refined solve
+WIDE_PATH_N = {"wide_B4096": 148, "wide_B4096_plain": 148,
+               "wide_solver": 148, "wide_B256_n292": 292}
 WIDE_SPREAD = 3.0
 TOL_WIDE = 1e-12      # residual and refined solve vs plain, relative
 WIDE_F32_SHAPES = ((129, 5), (148, 4096), (292, 256))  # (N, B)
@@ -2024,23 +2043,6 @@ def phase_sparse(card):
     return paths, recs
 
 
-def make_qd_kkt(rng, B, N):
-    """Well-conditioned symmetric quasidefinite K = [[P, A'], [A, -H]]
-    with P = F F' + 0.1 I and H = diag(U(0.5, 1.5)), as
-    tests/test_pallas_ldl.py:14-23 builds them, batched: n = N // 2
-    positive and m = N - n negative pivots.  Returns (K, n, m)."""
-    n = N // 2
-    m = N - n
-    F = rng.standard_normal((B, n, n))
-    A = rng.standard_normal((B, m, n))
-    K = np.zeros((B, N, N))
-    K[:, :n, :n] = F @ np.transpose(F, (0, 2, 1)) + 0.1 * np.eye(n)
-    K[:, :n, n:] = np.transpose(A, (0, 2, 1))
-    K[:, n:, :n] = A
-    K[:, n:, n:] = -(rng.random((B, m)) + 0.5)[:, :, None] * np.eye(m)
-    return K, n, m
-
-
 def phase_kernels_f32():
     """The f32 kernels against their plain versions on the card, bit for
     bit, with numpy's reconstruction of K and the inertia of D.  Returns
@@ -2383,7 +2385,7 @@ def library_ms(fn):
 # the numbers of a kernel form's row kept in the kernels line's by_shape
 ROW_KEYS = ("ms", "timed_by", "events_ms", "plain_ms", "library_ms",
             "bound_ms", "bound_by", "blocks_per_sm", "warps_per_sm",
-            "registers", "spill_bytes")
+            "registers", "spill_bytes", "form")
 
 
 def phase_kernel_timing(card):
@@ -2492,11 +2494,14 @@ def hold_wide_to_plain():
     """Every wide form against its plain version on the card at
     WIDE_KERNEL_SHAPES (f64) and WIDE_F32_SHAPES (f32): the factor and the
     substitution bit for bit, the residual and the refined solve's x
-    (R = 1, 2; npass = 0, 1, 2) within TOL_WIDE relative, its r
-    bit for bit the wide residual's and within TOL_RETURNED_R of b - K x
-    summed in twice the precision; x against numpy f64 for the first
-    problems; K with junk above its diagonal.  Returns the max abs error
-    per kernel."""
+    (R = 1, 2; npass = 0, 1, 2; the refined solve in the form
+    ldl.refine_form picks) within TOL_WIDE relative, its r bit for bit
+    the wide residual's on its x and within TOL_RETURNED_R of b - K x
+    summed in twice the precision; a 2-RHS residual and refined solve
+    bit for bit two 1-RHS ones; at WIDE_ALONE, three problems' residual
+    and refined solve alone (B = 1) bit for bit what they are in the
+    batch; x against numpy f64 for the first problems; K with junk above
+    its diagonal.  Returns the max abs error per kernel."""
     from cuclarabel_torch.kkt import ldl, ldl_f32
 
     dev = torch.device("cuda")
@@ -2573,10 +2578,43 @@ def hold_wide_to_plain():
                 worst["ldl_solve_refine"] = max(
                     worst.get("ldl_solve_refine", 0.0), e1)
                 note("ldl_solve_refine_wide", xr, xrp)
+                if R == 2:
+                    for t in range(2):
+                        bt = b[:, :, t].contiguous()
+                        x1, r1 = ldl.ldl_solve_refine(K, L, Dinv, bt, npass)
+                        check(torch.equal(x1, xr[:, :, t])
+                              and torch.equal(r1, rr[:, :, t]),
+                              f"wide ldl_solve_refine npass={npass} at "
+                              f"{tag}: right-hand side {t} of r=2 differs "
+                              "from r=1 (bar: bit for bit)")
+                if (n, m, B) in WIDE_ALONE and npass == 1:
+                    for k in (0, B // 2, B - 1):
+                        one = slice(k, k + 1)
+                        x1, r1 = ldl.ldl_solve_refine(
+                            K[one], L[one], Dinv[one], b[one], npass)
+                        check(torch.equal(x1, xr[one])
+                              and torch.equal(r1, rr[one])
+                              and torch.equal(ldl.kkt_residual(
+                                  K[one], x0[one], b[one]), r[one]),
+                              f"wide r={R} at {tag}: problem {k} alone "
+                              "differs from its batch (bar: bit for bit)")
+            if R == 2:
+                for t in range(2):
+                    check(torch.equal(r[:, :, t], ldl.kkt_residual(
+                        K, x0[:, :, t].contiguous(),
+                        b[:, :, t].contiguous())),
+                          f"wide kkt_residual at {tag}: right-hand side "
+                          f"{t} of r=2 differs from r=1 (bar: bit for "
+                          "bit)")
         print(f"wide kernels ok at {tag}: factor and substitution bit for "
               "bit with plain, " + ", ".join(
                   f"{k} within {v:.3e}" for k, v in worst.items())
-              + " of plain (relative)", flush=True)
+              + " of plain (relative); refined solve in the "
+              + "/".join(ldl.refine_form(N, R) for R in (1, 2))
+              + " form (r = 1/2), its r bit for bit the residual's, r = 2 "
+              "bit for bit two r = 1"
+              + (", alone bit for bit in the batch"
+                 if (n, m, B) in WIDE_ALONE else ""), flush=True)
     for N, B in WIDE_F32_SHAPES:
         tag = f"N={N} B={B}"
         Kn, n, m = make_qd_kkt(rng, B, N)
@@ -2602,6 +2640,33 @@ def hold_wide_to_plain():
         print(f"wide f32 kernels ok at {tag}: bit for bit with plain, "
               f"inertia ({n}, {m})", flush=True)
     return errs
+
+
+def wide_repeats(card):
+    """ROADMAP F14: WIDE_REPEATS solves of the portfolio at nass =
+    WIDE_NASS, B = WIDE_REPEAT_B, under "pallas" and under "lu", in this
+    process and with no global deterministic setting, give one digest
+    each.  Returns {method: digest}."""
+    import cuclarabel_torch as ct
+    from cuclarabel_torch import solve_digest
+    from cuclarabel_torch.problems import portfolio_socp
+
+    check(not torch.are_deterministic_algorithms_enabled(),
+          "wide repeats: deterministic algorithms are on")
+    A, qs, bs, cones = portfolio_socp(WIDE_NASS, WIDE_REPEAT_B, seed=7)
+    out = {}
+    for method in ("pallas", "lu"):
+        got = [solve_digest.digest(ct.BatchSolver(
+            None, qs, A, bs, cones, kkt_solve_method=method).solve())
+            for _ in range(WIDE_REPEATS)]
+        digests = {d["sha256"] for d in got}
+        check(len(digests) == 1, f"wide repeats under {method}: "
+              f"{len(digests)} digests in {WIDE_REPEATS} solves (F14)")
+        out[method] = got[0]["sha256"]
+        print(f"[{card}] wide B={WIDE_REPEAT_B} under {method}: "
+              f"{WIDE_REPEATS} solves, one digest {out[method][:16]}, "
+              f"iterations sum {sum(got[0]['iterations'])}", flush=True)
+    return out
 
 
 def wide_kernels_only(launches, path):
@@ -2833,6 +2898,8 @@ def phase_wide(card):
     rec["solver"] = {"iterations": got.iterations,
                      "cpu_iterations": want.iterations, "ms": one_ms}
     step("solver")
+    rec["repeats"] = wide_repeats(card)
+    step("repeats")
 
     nass, B = WIDE_BIG
     Ab, qb, bb, cb = portfolio_socp(nass, B, seed=7)
@@ -3172,6 +3239,20 @@ def phase_precompile(card):
     return rec
 
 
+def refine_forms(paths):
+    """The wide refined solve's launches on the wide paths by form
+    ("shared": L in shared memory, "streaming") and R, from each path's
+    N (WIDE_PATH_N) and ldl.refine_form."""
+    from cuclarabel_torch.kkt import ldl
+
+    out = collections.Counter()
+    for path, N in WIDE_PATH_N.items():
+        for R in (1, 2):
+            out[f"{ldl.refine_form(N, R)}/r{R}"] += paths.get(path, {}).get(
+                f"ldl_solve_refine_wide/r{R}", 0)
+    return dict(out)
+
+
 def kernel_entries(paths, errs, times):
     """The `kernels` JSON rows: one per kernel function, its launches
     summed over the main paths' runs and split by path and by number of
@@ -3197,6 +3278,8 @@ def kernel_entries(paths, errs, times):
                 f"r{R}": sum(launches.get(f"{name}/r{R}", 0)
                              for launches in paths.values())
                 for R in (1, 2)}
+        if name == "ldl_solve_refine_wide":
+            entry["launches_by_form"] = refine_forms(paths)
         entry.update(launches=sum(per_path.values()),
                      launches_per_path=per_path, max_abs_err=errs[name])
         t = times[name]
@@ -3259,7 +3342,8 @@ def main():
                                       for kk, v in p.items()
                                       if kk.split("/")[0] == k),
                  max_abs_err=errs[k], **times[k].get("N148_B4096_r1", {}))
-            for k in REPLACES_WIDE]}))
+            for k in REPLACES_WIDE],
+            "refine_launches_by_form": refine_forms(paths)}))
         return 0
     if sys.argv[1:] == ["--multi"]:
         # the phases that need several cards, and what they compare with

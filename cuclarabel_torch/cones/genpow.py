@@ -32,11 +32,14 @@ def _gather(p, v):
 
 def _scatter_add(p, full, vals1, vals2):
     """Accumulate padded per-cone values into a (B, m) vector; padding
-    contributes zero (padded indices alias the cone's first element)."""
+    contributes nothing.  Only the unpadded entries are added, whose
+    targets are distinct, so each target takes one addition and the
+    result does not depend on the order of the card's atomic adds (the
+    padded indices alias the cone's first element)."""
     B = full.shape[0]
-    v1 = (vals1 * p.gp_m1).expand(B, -1, -1).reshape(B, -1)
-    v2 = (vals2 * p.gp_m2).expand(B, -1, -1).reshape(B, -1)
-    return full.index_add(1, p.gp_flat1, v1).index_add(1, p.gp_flat2, v2)
+    v1 = vals1.expand(B, -1, -1).reshape(B, -1)[:, p.gp_pos1]
+    v2 = vals2.expand(B, -1, -1).reshape(B, -1)[:, p.gp_pos2]
+    return full.index_add(1, p.gp_tgt1, v1).index_add(1, p.gp_tgt2, v2)
 
 
 def _phi_dual(p, u):

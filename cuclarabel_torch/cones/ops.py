@@ -4,7 +4,10 @@ The counterpart of `cuclarabel_tpu/cones/ops.py`, with the reference's
 names.  Every vector carries a leading batch dimension, (B, m); per-cone
 scalars are (B, nsoc) and per-problem scalars (B,).  Zero / nonnegative
 cones are masked elementwise ops; second-order cones run as segment sums
-(`index_add_`) over the gathered (B, msoc) subvector; exponential, power,
+over the gathered (B, msoc) subvector, each summed along a padded axis in
+one fixed order (`_seg_sum`), so that a solve repeats to the bit on the
+card, where `index_add_` adds a repeated target with atomics in an order
+that changes from run to run; exponential, power,
 generalised power and PSD triangle cones are dispatched to `exp.py`,
 `pow.py`, `genpow.py` and `psd.py` from the composite entry points here,
 as in the reference.  `sparse_hs_plan` and `sparse_hs_values` give the
@@ -45,6 +48,14 @@ class _Plan:
             self.soc_is_head = t(layout.soc_is_head)
             self.soc_sign = t(layout.soc_sign, dtype=torch.float64)
             self.soc_head_full = t(layout.soc_head_full.astype(np.int64))
+            # each cone's positions in the gathered vector, padded with
+            # position 0 and masked: (nsoc, longest cone)
+            starts = layout.soc_headpos.astype(np.int64)
+            dims = layout.soc_dims.astype(np.int64)
+            k = np.arange(int(dims.max()))
+            self.soc_pad_mask = t(k[None, :] < dims[:, None])
+            self.soc_pad = t(np.where(k[None, :] < dims[:, None],
+                                      starts[:, None] + k[None, :], 0))
             segfull = layout.soc_segfull
             self.soc_same = t((segfull[:, None] == segfull[None, :])
                               & (segfull >= 0)[:, None])
@@ -66,8 +77,14 @@ class _Plan:
             f64 = torch.float64
             self.gp_idx1 = t(layout.gp_idx1.astype(np.int64))
             self.gp_idx2 = t(layout.gp_idx2.astype(np.int64))
-            self.gp_flat1 = self.gp_idx1.flatten()
-            self.gp_flat2 = self.gp_idx2.flatten()
+            # the unpadded entries of the flattened (k, d) blocks, and
+            # their targets in the m-vector (distinct)
+            for i in (1, 2):
+                mask = getattr(layout, f"gp_mask{i}").ravel()
+                pos = np.flatnonzero(mask)
+                setattr(self, f"gp_pos{i}", t(pos))
+                setattr(self, f"gp_tgt{i}", t(getattr(
+                    layout, f"gp_idx{i}").astype(np.int64).ravel()[pos]))
             self.gp_mask1 = t(layout.gp_mask1)
             self.gp_mask2 = t(layout.gp_mask2)
             self.gp_m1 = t(layout.gp_mask1, dtype=f64)
@@ -126,10 +143,24 @@ def _logsafe(v):
 # ---------------------------------------------------------------------------
 
 
+def padded_sum(rows, mask):
+    """Sums of the padded rows (..., width) over their last axis, the
+    entries where mask is False left out, each row added up entry by
+    entry in ascending order: the order of an `index_add_` over segment
+    ids on the CPU.  On the card that `index_add_` adds with atomics, in
+    an order that changes from run to run; this one is fixed."""
+    g = torch.where(mask, rows, 0.0)
+    out = g[..., 0]
+    for k in range(1, g.shape[-1]):
+        out = out + g[..., k]
+    return out
+
+
 def _seg_sum(layout: ConeLayout, vals):
+    """Per-cone sums of the gathered (B, msoc) vals -> (B, nsoc): each
+    cone's entries gathered into a padded row (padded_sum)."""
     p = plan(layout, vals.device)
-    out = vals.new_zeros(vals.shape[0], layout.nsoc)
-    return out.index_add_(1, p.soc_seg, vals)
+    return padded_sum(vals[:, p.soc_pad], p.soc_pad_mask)
 
 
 def _soc_tail_sumsq(layout, vg):

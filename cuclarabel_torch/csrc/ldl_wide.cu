@@ -9,8 +9,9 @@
 //                                      (_ldl_kernel_looped above N = 96)
 //   ldl_solve_wide_kernel<double, R>   K3w / K3rw: _solve_impl, _solve_impl_r
 //   kkt_residual_wide_kernel<double, R>  K4w: _residual_impl
-//   ldl_solve_refine_wide_kernel<double, R>  K2w / K2rw: _refine_impl,
-//                                      _refine_impl_r
+//   ldl_solve_refine_wide_kernel<double, R, S>  K2w / K2rw: _refine_impl,
+//                                      _refine_impl_r (S > 0: L in shared
+//                                      memory, up to N = 233 / 226)
 //   ldl_factor_wide_kernel<float>      K5w: pallas_ldl.py::_factor_impl
 //   ldl_solve_wide_kernel<float, 1>    K6w: pallas_ldl.py::_solve_impl
 // kkt/ldl.py and kkt/ldl_f32.py launch them above N = 128 and the narrow
@@ -21,11 +22,16 @@
 // lower triangle in shared memory with a thread per row, and the refined
 // solve keeps both triangles there (132 KB at N = 128; 176 KB at N = 148,
 // and above N ~ 168 more than the 227 KB one block may have).  Here one
-// block of 256 threads takes one problem, keeps only vectors and one
-// panel in shared memory, and reads the triangles from device memory,
-// where a problem's rows stay in the L2 while its block works on them.
-// The kernels take any N whose panel buffers fit in shared memory (the
-// factor's 16 N words: N <= ~1,800 in f64), with size_t offsets.
+// block takes one problem.  The factor and the substitution keep only
+// vectors and one panel in shared memory and read the triangles from
+// device memory, where a problem's rows stay in the L2 while its block
+// works on them.  The residual reads K's lower triangle once, in 32 x 32
+// tiles held in registers (block_residual); the refined solve copies L
+// into shared memory once where it fits, sweeps there in one warp, and
+// runs its residuals through the same body.  The kernels take any N
+// whose panel buffers fit in shared memory (the factor's 16 N words:
+// N <= ~1,800 in f64), with size_t offsets; the refined solve's shared
+// form N from 129 to its fit.
 //
 // The contract of the narrow forms holds:
 //  - the factor is bit for bit its plain version (kkt/ldl.py::_factor):
@@ -45,7 +51,8 @@
 //    NaN-propagating max |r| strictly falls.
 //
 // Host interface: plain C functions returning cudaGetLastError() after
-// the launch, with the narrow forms' signatures, called from kkt/ldl.py
+// the launch, with the narrow forms' signatures (the refined solve's
+// with the form as one more int), called from kkt/ldl.py
 // and kkt/ldl_f32.py through ctypes.  No kernel allocates or
 // synchronises; all launch on the caller's stream.
 
@@ -305,37 +312,208 @@ __device__ void block_solve(const T* __restrict__ L,
   }
 }
 
-// r = b - K x for the symmetric K of the problem's lower triangle in
-// device memory, x (n, R) in shared memory, b and r (n, R) anywhere;
-// rows dealt out to the block's warps in turn.  For row i, lane l sums
-// K_ik x_k over its k = l + 32 q in ascending q (K_ik from row i for
-// k <= i, from column i of row k above the diagonal), and the 32 partial
-// sums are added along a butterfly (lane ^ 16, ^ 8, ^ 4, ^ 2, ^ 1): one
-// order, shared by kkt_residual_wide and ldl_solve_refine_wide.
-template <class T, int R>
+// ---------------------------------------------------------------------
+// The residual r = b - K x of kkt_residual_wide (K4w) and
+// ldl_solve_refine_wide (K2w), one arithmetic in both, so that K2w's
+// returned r is K4w's bit for bit.  K symmetric, its lower triangle read
+// once from device memory, in 32 x 32 tiles, each applied twice.
+//
+// The lower triangle's nt (nt + 1) / 2 tiles (nt = ceil(n / 32)) are
+// numbered row by row, t = tri(I) + J for tile (I, J), J <= I.  The first
+// W warps of the block work on them in waves: in wave k, warp w takes
+// tile k * W + w.  Lane c loads column c of its tile, 32 words from 32
+// rows of K, each row's 32 words one coalesced load of the warp (rows
+// and columns past n load as zeros, and a diagonal tile loads only its
+// lower half).  Then, per right-hand side:
+//  - the column: K_IJ^T x_I for column 32 J + c, the products of rows
+//    r = u mod 4 into sum u, the four sums added in pairs,
+//    (0 + 1) + (2 + 3);
+//  - the rows: lane c multiplies its 32 words by x_J's entry c, and the
+//    warp adds the 32 lanes' products row by row in a butterfly that
+//    leaves row r's sum in lane r (reduce_rows: five levels, lane offsets
+//    16, 8, 4, 2, 1, 31 shuffles a tile);
+//  - a diagonal tile gives row r its lower part from the rows and its
+//    upper part, the transposed strict lower part, from column r, added
+//    in that order; its products above the diagonal are left out, not
+//    multiplied by zero.
+// After each wave the block adds the wave's partial sums to every row's
+// running sum in tile order.  Row i of tile row I thus takes, in
+// ascending J, one partial of tile (I, J) (J <= I) or of (J, I)^T
+// (J > I): one order, fixed by n alone, whatever the batch, W or the
+// block's size; r = b - that sum.  No atomics.
+//
+// Shared memory (words): the partial sums of one wave, 2 * W * 32 * R;
+// the running sums, n * R (`acc`, which may be the output); x.  (A tile
+// copied into shared memory and its rows summed in each lane, in the
+// butterfly's order, gave the same bits but ran 20% slower in K4w; copies
+// by cp.async, 8-byte words straight into shared memory, ran at about
+// 8 bytes per cycle per SM on an H100.)
+// ---------------------------------------------------------------------
+// the in-lane sums of a tile's column: four interleaved chains
+constexpr int kLanes = 4;
+
+// (I, J) of tile t: I from a float square root, corrected by one step.
+__device__ inline void tile_of(int t, int& I, int& J) {
+  I = static_cast<int>((sqrtf(8.0f * t + 1.0f) - 1.0f) * 0.5f);
+  I += tri(I + 1) <= t ? 1 : 0;
+  I -= tri(I) > t ? 1 : 0;
+  J = t - tri(I);
+}
+
+// Lane `lane`'s column of tile (I, J): rg[r] = K[32 I + r][32 J + lane].
+template <class T>
+__device__ inline void load_tile(const T* __restrict__ K, int n, int I,
+                                 int J, T (&rg)[kWarp], int lane) {
+  const int c = kWarp * J + lane;
+#pragma unroll
+  for (int r = 0; r < kWarp; ++r) {
+    const int i = kWarp * I + r;
+    rg[r] = i < n && c < n && (I != J || lane <= r) ? K[(size_t)i * n + c]
+                                                    : T(0);
+  }
+}
+
+// One level of reduce_rows: lanes H apart pair up; each keeps the H rows
+// whose index bit H matches its own, adding its partner's values of them
+// into v[0 .. H - 1].  H a template argument, so that every index into v
+// is a constant and v stays in registers.
+template <int H, class T>
+__device__ inline void reduce_level(T (&v)[kWarp], int lane) {
+  const bool up = lane & H;
+#pragma unroll
+  for (int r = 0; r < H; ++r) {
+    const T keep = up ? v[r + H] : v[r];
+    const T send = up ? v[r] : v[r + H];
+    v[r] = keep + __shfl_xor_sync(kFullMask, send, H);
+  }
+}
+
+// v[r] summed over the warp's lanes for every r, lane r receiving row
+// r's sum: a butterfly over lane offsets 16, 8, 4, 2, 1.  Overwrites v.
+template <class T>
+__device__ inline T reduce_rows(T (&v)[kWarp], int lane) {
+  reduce_level<16>(v, lane);
+  reduce_level<8>(v, lane);
+  reduce_level<4>(v, lane);
+  reduce_level<2>(v, lane);
+  reduce_level<1>(v, lane);
+  return v[0];
+}
+
+// rs = bs - K x for x = xs (n, R) in shared memory, bs and rs (n, R)
+// anywhere, acc n * R words of shared memory (may be rs), part
+// 2 * W * 32 * R words.  All the block's threads call it, xs readable by
+// all; ends with each thread writing its own rows, without a barrier.
+// With kAhead (K4w) a warp loads its next tile into a second set of
+// registers while it works on this one, and keeps the tile for a second
+// right-hand side; without (K2w, whose registers are scarcer) a second
+// right-hand side reloads the tile from the L2.  The arithmetic is the
+// same either way.
+template <class T, int R, int W, bool kAhead>
 __device__ void block_residual(const T* __restrict__ K, const T* xs,
-                               const T* bs, T* rs, int n) {
+                               const T* bs, T* rs, T* acc, T* part, int n) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int i = warp; i < n; i += blockDim.x >> 5) {
-    const T* row = K + (size_t)i * n;
-    T s[R];
-#pragma unroll
-    for (int t = 0; t < R; ++t) s[t] = T(0);
-#pragma unroll 4
-    for (int k = lane; k < n; k += kWarp) {
-      const T kik = k <= i ? row[k] : K[(size_t)k * n + i];
-#pragma unroll
-      for (int t = 0; t < R; ++t) s[t] = s[t] + kik * xs[k * R + t];
-    }
-#pragma unroll
-    for (int o = kWarp / 2; o > 0; o >>= 1)
-#pragma unroll
-      for (int t = 0; t < R; ++t) s[t] += __shfl_xor_sync(kFullMask, s[t], o);
-    if (lane == 0) {
-#pragma unroll
-      for (int t = 0; t < R; ++t) rs[i * R + t] = bs[i * R + t] - s[t];
+  const int nt = (n + kWarp - 1) / kWarp, tiles = tri(nt);
+  const int nr = n * R;
+  T vn[kAhead ? kWarp : 1];  // kAhead: the next tile, in flight
+  if constexpr (kAhead) {
+    if (warp < W && warp < tiles) {
+      int I, J;
+      tile_of(warp, I, J);
+      load_tile(K, n, I, J, vn, lane);
     }
   }
+  for (int e = threadIdx.x; e < nr; e += blockDim.x) acc[e] = T(0);
+#pragma unroll 1
+  for (int t0 = 0; t0 < tiles; t0 += W) {
+    const int t = t0 + warp;
+    if (warp < W && t < tiles) {
+      int I, J;
+      tile_of(t, I, J);
+      const bool diag = I == J;
+      const int c = kWarp * J + lane;
+      T* pw = part + 2 * warp * kWarp * R;
+      T v[kWarp];
+      if constexpr (kAhead) {
+#pragma unroll
+        for (int r = 0; r < kWarp; ++r) v[r] = vn[r];
+        if (t + W < tiles) {
+          int In, Jn;
+          tile_of(t + W, In, Jn);
+          load_tile(K, n, In, Jn, vn, lane);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        if (!kAhead) load_tile(K, n, I, J, v, lane);
+        // the lane's column: K_IJ^T x_I (a diagonal tile: rows below it)
+        T s[kLanes];
+#pragma unroll
+        for (int u = 0; u < kLanes; ++u) s[u] = T(0);
+#pragma unroll
+        for (int r = 0; r < kWarp; ++r) {
+          const int i = kWarp * I + r;
+          const T xi = i < n ? xs[i * R + q] : T(0);
+          const T w = s[r % kLanes] + v[r] * xi;
+          s[r % kLanes] = diag && r <= lane ? s[r % kLanes] : w;
+        }
+        const T col = (s[0] + s[1]) + (s[2] + s[3]);
+        // the rows: K_IJ x_J, summed over the lanes (a diagonal tile: its
+        // lower half)
+        const T xc = c < n ? xs[c * R + q] : T(0);
+        T row;
+        if (kAhead && q + 1 < R) {  // the tile is needed again
+          T p[kWarp];
+#pragma unroll
+          for (int r = 0; r < kWarp; ++r)
+            p[r] = diag && lane > r ? T(0) : v[r] * xc;
+          row = reduce_rows(p, lane);
+        } else {
+#pragma unroll
+          for (int r = 0; r < kWarp; ++r)
+            v[r] = diag && lane > r ? T(0) : v[r] * xc;
+          row = reduce_rows(v, lane);
+        }
+        if (diag) {
+          pw[lane * R + q] = row + col;
+        } else {
+          pw[lane * R + q] = row;
+          pw[(kWarp + lane) * R + q] = col;
+        }
+      }
+    }
+    __syncthreads();
+    // the wave's partials, in tile order, into each row's sum
+    int I0, J0;
+    tile_of(t0, I0, J0);
+    for (int e = threadIdx.x; e < nr; e += blockDim.x) {
+      const int i = e / R, q = e - i * R, rb = i >> 5, l = i & 31;
+      T sum = acc[e];
+      int I = I0, J = J0;
+      for (int w = 0; w < W && t0 + w < tiles; ++w) {
+        const T* pw = part + 2 * w * kWarp * R;
+        if (I == rb)
+          sum = sum + pw[l * R + q];
+        else if (J == rb)
+          sum = sum + pw[(kWarp + l) * R + q];
+        J = J < I ? J + 1 : 0;
+        I = J == 0 ? I + 1 : I;
+      }
+      acc[e] = sum;
+    }
+    __syncthreads();
+  }
+  for (int e = threadIdx.x; e < nr; e += blockDim.x) rs[e] = bs[e] - acc[e];
+}
+
+// the residual's warps: four in kkt_residual_wide (a block of its own),
+// all eight in ldl_solve_refine_wide
+constexpr int kResWarps = 4;
+constexpr int kRefineResWarps = kWideWarps;
+
+template <class T>
+size_t residual_smem(int r, int w) {
+  return sizeof(T) * 2 * (size_t)w * kWarp * r;
 }
 
 // m[t] = max_i |v[i, t]| (NaN-propagating) in every thread of the block;
@@ -368,8 +546,8 @@ __device__ void block_absmax(const T* v, int n, T* red, T (&m)[R]) {
 
 // ---------------------------------------------------------------------
 // ldl_solve_wide: x = ((I + L) D (I + L)^T)^-1 b, b in shared memory for
-// the sweeps.  Bound: L's strict triangle, D^-1, b and x: 0.37 GB at
-// (148, 4096), 0.11 ms.
+// the sweeps, L read from device memory.  Bound: L's strict triangle,
+// D^-1, b and x: 0.37 GB at (148, 4096), 0.11 ms.
 // ---------------------------------------------------------------------
 template <class T, int R>
 __global__ void __launch_bounds__(kWideThreads)
@@ -387,22 +565,26 @@ __global__ void __launch_bounds__(kWideThreads)
 }
 
 // ---------------------------------------------------------------------
-// kkt_residual_wide: r = b - K x, K symmetric, its lower triangle read;
-// x in shared memory.  Bound: K's lower triangle, x, b and r: 0.37 GB at
-// (148, 4096), 0.11 ms.
+// kkt_residual_wide: r = b - K x, K symmetric, its lower triangle read
+// once in tiles (block_residual); one block of kResWarps warps per
+// problem.  Bound: K's lower triangle, x, b and r: 0.37 GB at
+// (148, 4096), 0.11 ms.  Shared memory: the partials, x and the running
+// sums (n R words each): 3.3 KB at N = 148, R = 1.
 // ---------------------------------------------------------------------
 template <class T, int R>
-__global__ void __launch_bounds__(kWideThreads)
+__global__ void __launch_bounds__(kResWarps * kWarp)
     kkt_residual_wide_kernel(const T* __restrict__ K, const T* __restrict__ xg,
                              const T* __restrict__ bg, T* __restrict__ rg,
                              int n) {
-  T* xs = reinterpret_cast<T*>(wide_smem);  // (n, R)
+  T* part = reinterpret_cast<T*>(wide_smem);
+  T* xs = part + 2 * kResWarps * kWarp * R;  // (n, R)
+  T* acc = xs + n * R;
   const size_t b = blockIdx.x;
   const T* xb = xg + b * n * R;
   for (int e = threadIdx.x; e < n * R; e += blockDim.x) xs[e] = xb[e];
   __syncthreads();
-  block_residual<T, R>(K + b * n * n, xs, bg + b * n * R, rg + b * n * R,
-                       n);
+  block_residual<T, R, kResWarps, true>(K + b * n * n, xs, bg + b * n * R,
+                                        rg + b * n * R, acc, part, n);
 }
 
 // ---------------------------------------------------------------------
@@ -410,13 +592,31 @@ __global__ void __launch_bounds__(kWideThreads)
 // x' = x + solve(b - K x), each accepted per right-hand side only where
 // max |b - K x'| < max |b - K x| strictly; returns the accepted x and its
 // own r = b - K x.  K symmetric, its lower triangle read.  Every vector
-// (b, x, r and the candidate x', r') in shared memory, 5 N R words; the
-// passes run block_solve and block_residual, the kernels' own bodies.
-// Bound: the triangles of K and L once, D^-1, b, x and r: 0.73 GB at
-// (148, 4096), 0.22 ms.
+// (b, x, r and the candidate x', r') in shared memory, 5 N R words; each
+// pass's residual runs block_residual, kkt_residual_wide's body (with
+// kRefineResWarps warps).
+//
+// Two forms, chosen by the launcher from N and R (kkt/ldl.py's
+// refine_form).  S > 0 (the "shared" form, S = ceil(N / 32) slots, 5-8):
+// L's strict lower triangle is copied into shared memory once, packed by
+// rows as the narrow kernels keep it (row i at tri(i)), by coalesced
+// loads of kCopyBatch words a thread in flight, then stores; every sweep
+// of every pass then runs on it in warp 0 alone, the narrow kernels'
+// warp_solve with x in S register slots a lane (ldl_core.cuh): one
+// shuffle per step and no block barrier, in _solve's order.  88,208
+// bytes of L at N = 148, 98,288 in all, so that two blocks share an SM;
+// it fits the 227 KB one block may have up to N = 233 (R = 1) and 226
+// (R = 2).
+// S = 0 (the "streaming" form, above that): every sweep runs block_solve
+// on L in device memory, as ldl_solve_wide does.  Bound: the triangles
+// of K and L once, D^-1, b, x and r: 0.73 GB at (148, 4096), 0.22 ms.
 // ---------------------------------------------------------------------
-template <class T, int R>
-__global__ void __launch_bounds__(kWideThreads)
+constexpr int kCopyBatch = 16;
+// resident blocks an SM the registers are capped for (128 a thread)
+constexpr int kRefineBlocks = 2;
+
+template <class T, int R, int S>
+__global__ void __launch_bounds__(kWideThreads, kRefineBlocks)
     ldl_solve_refine_wide_kernel(const T* __restrict__ K,
                                  const T* __restrict__ L,
                                  const T* __restrict__ Dinv,
@@ -424,29 +624,63 @@ __global__ void __launch_bounds__(kWideThreads)
                                  T* __restrict__ xg, T* __restrict__ rg,
                                  int n, int npass) {
   const int nr = n * R;
-  T* bs = reinterpret_cast<T*>(wide_smem);
-  T* x = bs + nr;   // the accepted iterate
-  T* r = x + nr;    // its residual
-  T* xn = r + nr;   // the candidate
-  T* en = xn + nr;  // its residual
+  T* part = reinterpret_cast<T*>(wide_smem);
+  T* bs = part + 2 * kRefineResWarps * kWarp * R;
+  T* x = bs + nr;    // the accepted iterate
+  T* r = x + nr;     // its residual
+  T* xn = r + nr;    // the candidate
+  T* en = xn + nr;   // its residual
   T* red = en + nr;  // kWideWarps * R
+  T* Ls = red + kWideWarps * R;  // S > 0: tri(n) words, row i at tri(i)
   const size_t b = blockIdx.x;
   const T* Kb = K + b * n * n;
   const T* Lb = L + b * n * n;
   const T* db = Dinv + b * n;
   const T* bb = bg + b * nr;
+  if constexpr (S > 0) {
+    // element e of the strict triangle, row i + 1 of it being row i of
+    // the full triangle of order n - 1, lies at tri(i + 1) + k = e + i + 1
+    const int total = tri(n - 1);
+    for (int e0 = 0; e0 < total; e0 += kCopyBatch * blockDim.x) {
+      T v[kCopyBatch];
+      int at[kCopyBatch];
+#pragma unroll
+      for (int u = 0; u < kCopyBatch; ++u) {
+        const int e = e0 + u * blockDim.x + threadIdx.x;
+        int i = 0, k = 0;
+        if (e < total) tri_index(e, i, k);
+        at[u] = e < total ? e + i + 1 : -1;
+        v[u] = e < total ? Lb[(size_t)(i + 1) * n + k] : T(0);
+      }
+#pragma unroll
+      for (int u = 0; u < kCopyBatch; ++u)
+        if (at[u] >= 0) Ls[at[u]] = v[u];
+    }
+  }
   for (int e = threadIdx.x; e < nr; e += blockDim.x) bs[e] = xn[e] = bb[e];
   __syncthreads();
   T ne[R];
 #pragma unroll 1
   for (int p = 0; p <= npass; ++p) {
     // xn holds b (pass 0) or the accepted residual
-    block_solve<T, R>(Lb, db, xn, n);
+    if constexpr (S > 0) {
+      if (threadIdx.x < kWarp) {
+        T dinv[S], v[S][R];
+        load_dinv<T>(db, dinv, n);
+        load_rows<T, R>(xn, v, n);
+        warp_solve<T, R>(Ls, dinv, v, n);
+        store_rows<T, R>(v, xn, n);
+      }
+      __syncthreads();
+    } else {
+      block_solve<T, R>(Lb, db, xn, n);
+    }
     if (p > 0) {
       for (int e = threadIdx.x; e < nr; e += blockDim.x) xn[e] = x[e] + xn[e];
       __syncthreads();
     }
-    block_residual<T, R>(Kb, xn, bs, en, n);
+    block_residual<T, R, kRefineResWarps, false>(Kb, xn, bs, en, en, part,
+                                                 n);
     __syncthreads();
     T nen[R];
     block_absmax<T, R>(en, n, red, nen);
@@ -476,13 +710,34 @@ __global__ void __launch_bounds__(kWideThreads)
   }
 }
 
+// f(std::integral_constant<int, S>{}) for S = slots(n) in the shared
+// form's range, 5-8 (N from 129 to 256); an N outside it returns
+// cudaErrorInvalidValue.
+template <class F>
+inline int with_shared_slots(int n, F&& f) {
+  switch (slots(n)) {
+    case 5: return f(std::integral_constant<int, 5>{});
+    case 6: return f(std::integral_constant<int, 6>{});
+    case 7: return f(std::integral_constant<int, 7>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <class T>
 size_t factor_smem(int n) { return sizeof(T) * 2 * kWidePanel * (size_t)n; }
 template <class T>
 size_t vector_smem(int n, int r) { return sizeof(T) * (size_t)n * r; }
 template <class T>
-size_t refine_smem(int n, int r) {
-  return sizeof(T) * (5 * (size_t)n * r + kWideWarps * r);
+size_t kkt_residual_smem(int n, int r) {
+  return residual_smem<T>(r, kResWarps) + sizeof(T) * 2 * (size_t)n * r;
+}
+// kkt/ldl.py's refine_smem computes the same
+template <class T>
+size_t refine_smem(int n, int r, bool shared_l) {
+  return residual_smem<T>(r, kRefineResWarps) +
+         sizeof(T) * (5 * (size_t)n * r + kWideWarps * r +
+                      (shared_l ? (size_t)tri(n) : 0));
 }
 
 // Raise a kernel's dynamic shared memory cap to all that one block of
@@ -521,10 +776,10 @@ cudaError_t ready_residual() {
   static DeviceFlags done = {};
   return allow_all_smem(kkt_residual_wide_kernel<double, R>, done);
 }
-template <int R>
+template <int R, int S>
 cudaError_t ready_refine() {
   static DeviceFlags done = {};
-  return allow_all_smem(ldl_solve_refine_wide_kernel<double, R>, done);
+  return allow_all_smem(ldl_solve_refine_wide_kernel<double, R, S>, done);
 }
 
 template <class T>
@@ -552,30 +807,32 @@ int launch_residual(const double* K, const double* x, const double* b,
                     double* res, int B, int n, cudaStream_t stream) {
   cudaError_t e = ready_residual<R>();
   if (e != cudaSuccess) return (int)e;
-  kkt_residual_wide_kernel<double, R><<<B, kWideThreads,
-                                        vector_smem<double>(n, R), stream>>>(
-      K, x, b, res, n);
+  kkt_residual_wide_kernel<double, R><<<B, kResWarps * kWarp,
+                                        kkt_residual_smem<double>(n, R),
+                                        stream>>>(K, x, b, res, n);
   return (int)cudaGetLastError();
 }
 
-template <int R>
+template <int R, int S>
 int launch_refine(const double* K, const double* L, const double* Dinv,
                   const double* b, double* x, double* res, int B, int n,
                   int npass, cudaStream_t stream) {
-  cudaError_t e = ready_refine<R>();
+  cudaError_t e = ready_refine<R, S>();
   if (e != cudaSuccess) return (int)e;
-  ldl_solve_refine_wide_kernel<double, R><<<B, kWideThreads,
-                                            refine_smem<double>(n, R),
-                                            stream>>>(K, L, Dinv, b, x, res,
-                                                      n, npass);
+  ldl_solve_refine_wide_kernel<double, R, S><<<B, kWideThreads,
+                                               refine_smem<double>(n, R,
+                                                                   S > 0),
+                                               stream>>>(
+      K, L, Dinv, b, x, res, n, npass);
   return (int)cudaGetLastError();
 }
 
 template <class F>
-int occupancy(F* kernel, cudaError_t ready, size_t smem, int* blocks) {
+int occupancy(F* kernel, cudaError_t ready, int threads, size_t smem,
+              int* blocks) {
   if (ready != cudaSuccess) return (int)ready;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, kernel, kWideThreads, smem);
+      blocks, kernel, threads, smem);
 }
 
 bool bad_shape(int B, int n, int r) {
@@ -614,16 +871,27 @@ int cc_kkt_residual_wide(const double* K, const double* x, const double* b,
                                      (cudaStream_t)stream);
 }
 
+// shared_l: 1 for the form that keeps L in shared memory (129 <= n <=
+// 256), 0 for the streaming one (kkt/ldl.py's refine_form chooses); a
+// form whose shared memory exceeds the device's fails to launch, and its
+// error returns.
 int cc_ldl_solve_refine_wide(const double* K, const double* L,
                              const double* Dinv, const double* b, double* x,
                              double* res, int B, int n, int r, int npass,
-                             void* stream) {
+                             int shared_l, void* stream) {
   if (bad_shape(B, n, r) || npass < 0) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  return r == 1 ? launch_refine<1>(K, L, Dinv, b, x, res, B, n, npass,
-                                   (cudaStream_t)stream)
-                : launch_refine<2>(K, L, Dinv, b, x, res, B, n, npass,
-                                   (cudaStream_t)stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (shared_l)
+    return with_shared_slots(n, [&](auto S) {
+      constexpr int kS = decltype(S)::value;
+      return r == 1 ? launch_refine<1, kS>(K, L, Dinv, b, x, res, B, n,
+                                           npass, s)
+                    : launch_refine<2, kS>(K, L, Dinv, b, x, res, B, n,
+                                           npass, s);
+    });
+  return r == 1 ? launch_refine<1, 0>(K, L, Dinv, b, x, res, B, n, npass, s)
+                : launch_refine<2, 0>(K, L, Dinv, b, x, res, B, n, npass, s);
 }
 
 // The f32 forms: the factor's body without regularisation, and the
@@ -645,44 +913,56 @@ int cc_ldl_solve_wide_f32(const float* L, const float* Dinv, const float* b,
 
 // Resident blocks per SM and threads per block of one wide kernel's
 // launch at N = n, R = r on the current device.  kernel: 0 ldl_factor,
-// 1 ldl_solve, 2 kkt_residual, 3 ldl_solve_refine (f64), 4
-// ldl_factor_batched, 5 ldl_solve_batched (f32).
+// 1 ldl_solve, 2 kkt_residual, 3 ldl_solve_refine (streaming), 6
+// ldl_solve_refine (L in shared memory) (f64), 4 ldl_factor_batched, 5
+// ldl_solve_batched (f32).
 int cc_occupancy_wide(int kernel, int n, int r, int* blocks, int* threads) {
   if (bad_shape(1, n, r)) return (int)cudaErrorInvalidValue;
-  *threads = kWideThreads;
+  const int W = kWideThreads, RW = kResWarps * kWarp;
+  *threads = kernel == 2 ? RW : W;
   const bool one = r == 1;
   switch (kernel) {
     case 0:
       return occupancy(ldl_factor_wide_kernel<double>,
-                       ready_factor<double>(), factor_smem<double>(n),
+                       ready_factor<double>(), W, factor_smem<double>(n),
                        blocks);
     case 1:
       return one ? occupancy(ldl_solve_wide_kernel<double, 1>,
-                             ready_solve<double, 1>(),
+                             ready_solve<double, 1>(), W,
                              vector_smem<double>(n, 1), blocks)
                  : occupancy(ldl_solve_wide_kernel<double, 2>,
-                             ready_solve<double, 2>(),
+                             ready_solve<double, 2>(), W,
                              vector_smem<double>(n, 2), blocks);
     case 2:
       return one ? occupancy(kkt_residual_wide_kernel<double, 1>,
-                             ready_residual<1>(), vector_smem<double>(n, 1),
-                             blocks)
+                             ready_residual<1>(), RW,
+                             kkt_residual_smem<double>(n, 1), blocks)
                  : occupancy(kkt_residual_wide_kernel<double, 2>,
-                             ready_residual<2>(), vector_smem<double>(n, 2),
-                             blocks);
+                             ready_residual<2>(), RW,
+                             kkt_residual_smem<double>(n, 2), blocks);
     case 3:
-      return one ? occupancy(ldl_solve_refine_wide_kernel<double, 1>,
-                             ready_refine<1>(), refine_smem<double>(n, 1),
-                             blocks)
-                 : occupancy(ldl_solve_refine_wide_kernel<double, 2>,
-                             ready_refine<2>(), refine_smem<double>(n, 2),
-                             blocks);
+      return one ? occupancy(ldl_solve_refine_wide_kernel<double, 1, 0>,
+                             ready_refine<1, 0>(), W,
+                             refine_smem<double>(n, 1, false), blocks)
+                 : occupancy(ldl_solve_refine_wide_kernel<double, 2, 0>,
+                             ready_refine<2, 0>(), W,
+                             refine_smem<double>(n, 2, false), blocks);
+    case 6:
+      return with_shared_slots(n, [&](auto S) {
+        constexpr int kS = decltype(S)::value;
+        return one ? occupancy(ldl_solve_refine_wide_kernel<double, 1, kS>,
+                               ready_refine<1, kS>(), W,
+                               refine_smem<double>(n, 1, true), blocks)
+                   : occupancy(ldl_solve_refine_wide_kernel<double, 2, kS>,
+                               ready_refine<2, kS>(), W,
+                               refine_smem<double>(n, 2, true), blocks);
+      });
     case 4:
       return occupancy(ldl_factor_wide_kernel<float>, ready_factor<float>(),
-                       factor_smem<float>(n), blocks);
+                       W, factor_smem<float>(n), blocks);
     case 5:
       return occupancy(ldl_solve_wide_kernel<float, 1>,
-                       ready_solve<float, 1>(), vector_smem<float>(n, 1),
+                       ready_solve<float, 1>(), W, vector_smem<float>(n, 1),
                        blocks);
     default:
       return (int)cudaErrorInvalidValue;

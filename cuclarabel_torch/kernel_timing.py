@@ -1,7 +1,7 @@
 """Times of the f64 LDL^T kernels (`csrc/ldl.cu`) on one card, at the
 main path's shapes.
 
-    python3 -m cuclarabel_torch.kernel_timing
+    python3 -m cuclarabel_torch.kernel_timing [--wide-library]
 
 At N = 76 (the KKT dimension of the portfolio SOCP with nass = 32) and
 each width B of WIDTHS, at N = 104 (`problems.exp_logistic(4, 10,
@@ -28,7 +28,11 @@ beside its bound (`work`, `bound_ms`), ptxas' registers and spill bytes
 per thread from the build's log and, where the kernel library reports
 it, the resident blocks and warps per SM.  Run as a script, it also
 times each form with the L2 flushed before every launch (cold_ms), to
-show how much the warm L2 gives.  The module times the kernels of the
+show how much the warm L2 gives.  With --wide-library it times instead
+the PyTorch calls that compute the wide forms' functions at
+WIDE_LIBRARY_SHAPES (library_wide: cuSOLVER's LDL^T through torch.linalg,
+a host loop over the batch of seconds at B = 4096, and baddbmm), one
+JSON line each.  The module times the kernels of the
 `cuclarabel_torch` it is imported from, and needs nothing of that
 package but `kkt/ldl.py`, `kkt/ldl_f32.py` and `kkt/_build.py`: a copy
 placed in another checkout's package times that checkout's kernels, so
@@ -145,6 +149,23 @@ def make_kkt(rng, B, n, m, spread=4.0):
     K[:, m:, m:] = G @ G.T
     dsigns = np.concatenate([-np.ones(m), np.ones(n)])
     return K, np.broadcast_to(dsigns * 1e-8, (B, N)).copy()
+
+
+def make_qd_kkt(rng, B, N):
+    """Well-conditioned symmetric quasidefinite K = [[P, A'], [A, -H]]
+    with P = F F' + 0.1 I and H = diag(U(0.5, 1.5)), as
+    tests/test_pallas_ldl.py:14-23 builds them, batched: n = N // 2
+    positive and m = N - n negative pivots.  Returns (K, n, m)."""
+    n = N // 2
+    m = N - n
+    F = rng.standard_normal((B, n, n))
+    A = rng.standard_normal((B, m, n))
+    K = np.zeros((B, N, N))
+    K[:, :n, :n] = F @ np.transpose(F, (0, 2, 1)) + 0.1 * np.eye(n)
+    K[:, :n, n:] = np.transpose(A, (0, 2, 1))
+    K[:, n:, :n] = A
+    K[:, n:, n:] = -(rng.random((B, m)) + 0.5)[:, :, None] * np.eye(m)
+    return K, n, m
 
 
 def work(name, B, N, R=1, npass=1):
@@ -311,7 +332,10 @@ def occupancy(name, R, N):
     out = (ctypes.addressof(blocks), ctypes.addressof(threads))
     if ldl.wide(N):
         fn = getattr(lib, "cc_occupancy_wide", None)
-        args = (WIDE_OCCUPANCY_ID[name], N, R) + out
+        kid = WIDE_OCCUPANCY_ID[name]
+        if name == "ldl_solve_refine" and _refine_shared(N, R):
+            kid = 6
+        args = (kid, N, R) + out
     elif name in OCCUPANCY_ID:
         fn = getattr(lib, "cc_occupancy", None)
         args = (OCCUPANCY_ID[name], N, R) + out
@@ -326,6 +350,13 @@ def occupancy(name, R, N):
     return blocks.value, blocks.value * threads.value // 32
 
 
+def _refine_shared(N, R):
+    """Whether the wide refined solve keeps L in shared memory at N, R
+    (False for a version with one wide form)."""
+    form = getattr(ldl, "refine_form", None)
+    return form is not None and form(N, R) == "shared"
+
+
 def ptxas(name, R, N, report):
     """ptxas' {"registers", "spill_stores", "spill_loads", ...} of the
     instantiation that kernel form (name, R) launches at N, from a
@@ -337,8 +368,11 @@ def ptxas(name, R, N, report):
     func = re.match(r"\w+", kernel_name(name, R, N)).group(0)
     slots = (N + 31) // 32
     one = "factor" in name or name.endswith("_batched")
-    if wide:  # <T> or <T, R>: the type's letter, then R
+    if wide:  # <T>, <T, R> or <T, R, S>: the type's letter, then ints
         want = [1] if name == "ldl_solve_batched" else [] if one else [R]
+        if name == "ldl_solve_refine" and getattr(ldl, "refine_form", None):
+            # S: the shared form's slots, 0 for the streaming form
+            want.append(slots if _refine_shared(N, R) else 0)
         kind = "f" if name.endswith("_batched") else "d"
     else:
         want = [slots] if one else [R, slots]
@@ -435,6 +469,9 @@ def time_width(B, forms=FORMS, reps=20, plain_reps=3, cold=False,
         reg = ptxas(name, R, N, report) or {}
         row = {"name": name, "R": R, "N": N, "B": B,
                "ms": warm[(form, kname)], "timed_by": how[(form, kname)]}
+        if name == "ldl_solve_refine" and ldl.wide(N) and getattr(
+                ldl, "refine_form", None):
+            row["form"] = ldl.refine_form(N, R)
         if B == EVENTS_WIDTH:
             row["events_ms"] = cuda_ms(kern, reps)
         if cold:
@@ -452,6 +489,82 @@ def time_width(B, forms=FORMS, reps=20, plain_reps=3, cold=False,
     return rows, op
 
 
+# the library calls' shapes (python3 -m cuclarabel_torch.kernel_timing
+# --wide-library): the portfolio at nass = 64 at B = 4096 and 1
+WIDE_LIBRARY_SHAPES = (((65, 83), 4096), ((65, 83), 1))
+LIBRARY_TOL = {torch.float64: 1e-9, torch.float32: 1e-4}
+
+
+def _first_call_ms(fn, reps=20, slow_ms=100.0):
+    """(ms, result) of fn: its first call timed by CUDA events, and timed
+    again over `reps` calls where it took less than `slow_ms` (cuSOLVER's
+    batched LDL^T through torch.linalg loops over the batch on the host,
+    so its first call is its time)."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1)
+    return (ms if ms >= slow_ms else cuda_ms(fn, reps)), out
+
+
+def library_wide(B, nm):
+    """{(name, R): ms} of one PyTorch call computing the function of each
+    wide form that has one, at (N = sum(nm), B): cuSOLVER's LDL^T through
+    torch.linalg for the factor (Bunch-Kaufman pivoted, of K + diag(reg))
+    and the substitution (the port's factor with identity pivots), f64
+    and, on a well-conditioned K of the same shape, f32; torch.baddbmm for
+    the residual.  Each call's x is held against the kernel's (raises
+    beyond LIBRARY_TOL)."""
+    op = operands(B, nm=nm)
+    N = op["b"].shape[1]
+    K, reg, L, Dinv = op["K"], op["reg"], op["L"], op["Dinv"]
+    b1 = op["b"][:, :, None]
+
+    def compact(L, Dinv):
+        LD = torch.tril(L, -1) + torch.diag_embed(1.0 / Dinv)
+        piv = torch.arange(1, N + 1, dtype=torch.int32, device=L.device)
+        return LD, piv.expand(Dinv.shape[0], N).contiguous()
+
+    def held(name, got, want):
+        e = float((got - want).abs().max()) / max(
+            float(want.abs().max()), 1.0)
+        if not e < LIBRARY_TOL[want.dtype]:
+            raise RuntimeError(f"library call for {name} at N={N} B={B}: "
+                               f"x {e:.2e} from the kernel's")
+
+    out = {}
+    Kreg = K + torch.diag_embed(reg)
+    out[("ldl_factor", 1)], fac = _first_call_ms(
+        lambda: torch.linalg.ldl_factor(Kreg))
+    held("ldl_factor", torch.linalg.ldl_solve(*fac, b1)[..., 0], op["x"])
+    LD, piv = compact(L, Dinv)
+    for R, (rhs, x) in {1: (b1, op["x"][:, :, None]),
+                        2: (op["b2"], op["x2"])}.items():
+        out[("ldl_solve", R)], y = _first_call_ms(
+            lambda rhs=rhs: torch.linalg.ldl_solve(LD, piv, rhs))
+        held(f"ldl_solve r={R}", y, x)
+        xr = x.contiguous()
+        out[("kkt_residual", R)], r = _first_call_ms(
+            lambda rhs=rhs, xr=xr: torch.baddbmm(rhs, K, xr, alpha=-1))
+        held(f"kkt_residual r={R}", r, ldl.kkt_residual_plain(K, xr, rhs))
+    Kq, _, _ = make_qd_kkt(np.random.default_rng(15), B, N)
+    Kf = torch.tensor(Kq, dtype=torch.float32, device=K.device)
+    bf = op["bf"][:, :, None]
+    Lf, Df = ldl_f32.ldl_factor_batched(Kf)
+    xf = ldl_f32.ldl_solve_batched(Lf, Df, op["bf"])
+    out[("ldl_factor_batched", 1)], fac = _first_call_ms(
+        lambda: torch.linalg.ldl_factor(Kf))
+    held("ldl_factor_batched", torch.linalg.ldl_solve(*fac, bf)[..., 0], xf)
+    LDf, pivf = compact(Lf, Df)
+    out[("ldl_solve_batched", 1)], y = _first_call_ms(
+        lambda: torch.linalg.ldl_solve(LDf, pivf, bf))
+    held("ldl_solve_batched", y[..., 0], xf)
+    return out
+
+
 def row_line(card, row):
     occ = ("occupancy not reported" if row["blocks_per_sm"] is None else
            f"{row['blocks_per_sm']} blocks / {row['warps_per_sm']} warps "
@@ -462,7 +575,8 @@ def row_line(card, row):
     if row.get("registers") is not None:
         occ += (f", ptxas {row['registers']} registers, "
                 f"{row['spill_bytes']} B spilled")
-    wide = " (wide)" if ldl.wide(row["N"]) else ""
+    wide = (f" (wide, {row['form']})" if "form" in row else
+            " (wide)" if ldl.wide(row["N"]) else "")
     return (f"[{card}] {row['name']}{wide} r={row['R']} at N={row['N']} "
             f"B={row['B']}: device {row['ms']:.4f} ms (L2 warm"
             f"{', CUDA events' if row.get('timed_by') == 'events' else ''})"
@@ -472,13 +586,20 @@ def row_line(card, row):
             f"{row['plain_ms']:.3f} ms, {occ}")
 
 
-def main():
+def main(argv=()):
     if not torch.cuda.is_available():
         print("cuclarabel_torch.kernel_timing: no CUDA device",
               file=sys.stderr)
         return 1
     card = card_line()
     print(card)
+    if list(argv) == ["--wide-library"]:
+        for nm, B in WIDE_LIBRARY_SHAPES:
+            for (name, R), ms in library_wide(B, nm).items():
+                print(json.dumps({"library": name, "R": R, "N": sum(nm),
+                                  "B": B, "ms": ms, "card": card}),
+                      flush=True)
+        return 0
     for B in WIDTHS:
         for row in time_width(B, cold=True)[0]:
             print(row_line(card, row), flush=True)
@@ -495,4 +616,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -45,7 +45,8 @@ _I = ctypes.c_int
 # C signatures of csrc/ldl.cu, csrc/ldl_f32.cu, csrc/ldl_wide.cu and
 # csrc/probes.cu (pointers, then ints, then the stream; the cc_occupancy*
 # functions: ints, then two int pointers).  Each wide form (N > 128) has
-# its narrow form's signature.
+# its narrow form's signature, the refined solve's with one more int (its
+# form: L in shared memory or not).
 SIGNATURES = {
     "cc_ldl_factor": (_P, _P, _P, _P, _P, _I, _I, _P),
     "cc_ldl_solve": (_P, _P, _P, _P, _I, _I, _I, _P),
@@ -56,7 +57,8 @@ SIGNATURES = {
     "cc_ldl_factor_wide": (_P, _P, _P, _P, _P, _I, _I, _P),
     "cc_ldl_solve_wide": (_P, _P, _P, _P, _I, _I, _I, _P),
     "cc_kkt_residual_wide": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "cc_ldl_solve_refine_wide": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "cc_ldl_solve_refine_wide": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _P),
     "cc_ldl_factor_wide_f32": (_P, _P, _P, _I, _I, _P),
     "cc_ldl_solve_wide_f32": (_P, _P, _P, _P, _I, _I, _P),
     "cc_occupancy": (_I, _I, _I, _P, _P),

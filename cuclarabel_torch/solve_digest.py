@@ -34,8 +34,18 @@ modeling layer's Model of the portfolio's problem 0
 path above N = 128 (the kernels' wide forms): BatchSolver on the
 portfolio at nass = 64 (N = 148) at B = 256 and the Solver on its first
 instance, both with kkt_solve_method="pallas" (`batch_wide_n148_B256`,
-reported, `"compare": false`, since that batch is not bitwise
-reproducible from run to run, and `solver_wide_n148`).
+compared since the fixed-order segment sums of ROADMAP F14, and
+`solver_wide_n148`).
+
+    python3 -m cuclarabel_torch.solve_digest --repeat 3 [--method lu]
+        [--trace] [--path batch_wide_n148_B256]
+
+solves one path (a name of REPEAT_PATHS) that many times in this process
+and prints one digest line per solve, and a line saying whether they
+agree; with --trace, every aten operation of each solve is recorded with
+an order-free hash of its floating outputs on the device (OpTrace), and
+the first operations whose outputs differ between solves are printed:
+where all inputs agreed, those are the ones that do not repeat.
 The module needs nothing of `cuclarabel_torch` that an earlier version
 lacks: a copy placed in another checkout's package digests that
 checkout's solves, so that two versions can be compared in one run; a
@@ -43,6 +53,7 @@ version without the nonsymmetric or the PSD cones or the sparse paths
 reports those paths as skipped.  Needs a CUDA device.
 """
 
+import contextlib
 import hashlib
 import json
 import sys
@@ -110,11 +121,125 @@ def _wide_solver(ct, pr):
 
 
 # (path, (cuclarabel_torch, its problems module) -> solutions, compared
-# across versions): at nass = 64 the batch is not bitwise reproducible
-# from run to run on the card, under "lu" as under "pallas" (ROADMAP F14),
-# so its digest is reported and the Solver's compared
-WIDE_PATHS = (("batch_wide_n148_B256", _wide_batch, False),
+# across versions); the batch repeats to the bit since its segment sums
+# run in a fixed order (ROADMAP F14)
+WIDE_PATHS = (("batch_wide_n148_B256", _wide_batch, True),
               ("solver_wide_n148", _wide_solver, True))
+
+# the paths --repeat takes: (cuclarabel_torch, problems, kkt_solve_method)
+# -> solutions
+REPEAT_PATHS = {
+    "batch_wide_n148_B256": lambda ct, pr, method: ct.BatchSolver(
+        None, *_permute(pr.portfolio_socp(WIDE_NASS, 256, seed=7)),
+        kkt_solve_method=method).solve(),
+    "batch_B256": lambda ct, pr, method: ct.BatchSolver(
+        None, *_permute(pr.portfolio_socp(NASS, 256, seed=7)),
+        kkt_solve_method=method).solve(),
+}
+
+
+def _permute(data):
+    """portfolio_socp's (A, qs, bs, cones) as BatchSolver's (qs, A, bs,
+    cones)."""
+    A, qs, bs, cones = data
+    return qs, A, bs, cones
+
+
+class OpTrace:
+    """Records every aten operation run under it: its name and, for each
+    floating output, the int64 sum of the output's bits, computed where
+    the output lies (integer sums do not depend on their order).
+    Outputs of the empty-allocating operations, whose bits are whatever
+    the memory held, are skipped."""
+
+    SKIP = ("aten.empty", "aten.new_empty", "aten.empty_like",
+            "aten.empty_strided")
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        trace = self
+        self.names, self.hashes = [], []
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                name = str(func)
+                if not name.startswith(trace.SKIP):
+                    outs = out if isinstance(out, (tuple, list)) else (out,)
+                    for t in outs:
+                        if (isinstance(t, torch.Tensor)
+                                and t.is_floating_point() and t.numel()):
+                            bits = {8: torch.int64, 4: torch.int32,
+                                    2: torch.int16}[t.element_size()]
+                            trace.names.append(name)
+                            trace.hashes.append(
+                                t.detach().contiguous().view(bits).sum(
+                                    dtype=torch.int64))
+                return out
+
+        self.mode = Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+    def values(self):
+        return [int(h) for h in self.hashes]  # on whichever device
+
+
+def first_differences(traces, keep=5):
+    """The first `keep` positions where the recorded operations or their
+    hashes differ between several traces of one computation:
+    [(position, op name, hashes)], the name of each trace's operation
+    where they differ."""
+    vals = [t.values() for t in traces]
+    n = min(len(v) for v in vals)
+    out = []
+    for i in range(n):
+        names = {t.names[i] for t in traces}
+        if len({v[i] for v in vals}) > 1 or len(names) > 1:
+            name = (traces[0].names[i] if len(names) == 1
+                    else [t.names[i] for t in traces])
+            out.append((i, name, [v[i] for v in vals]))
+            if len(out) == keep:
+                break
+    return out, [len(v) for v in vals]
+
+
+def repeat(path, runs, method, trace):
+    """Solve `path` `runs` times in this process; print each digest, then
+    whether they agree (and, traced, where they first part)."""
+    import cuclarabel_torch as ct
+    from cuclarabel_torch import problems
+
+    digests, traces = [], []
+    if trace:  # the first solve fills the caches (plans, kernel library)
+        REPEAT_PATHS[path](ct, problems, method)
+    for k in range(runs):
+        tr = OpTrace() if trace else None
+        with tr or contextlib.nullcontext():
+            sols = REPEAT_PATHS[path](ct, problems, method)
+        if tr is not None:
+            traces.append(tr)
+        torch.cuda.synchronize()
+        d = digest(sols)
+        iters = d.pop("iterations")
+        d.update(iterations_sum=sum(iters), iterations_max=max(iters))
+        digests.append(d["sha256"])
+        print(json.dumps({"path": path, "method": method, "run": k, **d}),
+              flush=True)
+    line = {"path": path, "method": method, "runs": runs,
+            "equal": len(set(digests)) == 1}
+    if traces:
+        diffs, counts = first_differences(traces)
+        line.update(ops_recorded=counts, first_differences=[
+            {"position": i, "op": name, "hashes": h} for i, name, h in diffs])
+    print(json.dumps(line), flush=True)
+    return line["equal"]
 
 
 def digest(sols):
@@ -128,11 +253,27 @@ def digest(sols):
             "statuses": sorted({s.status.name for s in sols})}
 
 
-def main():
+def main(argv=()):
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="python3 -m "
+                                 "cuclarabel_torch.solve_digest")
+    ap.add_argument("--repeat", type=int, default=0,
+                    help="solve --path this many times in one process")
+    ap.add_argument("--path", default="batch_wide_n148_B256",
+                    choices=sorted(REPEAT_PATHS))
+    ap.add_argument("--method", default="pallas", choices=("pallas", "lu"))
+    ap.add_argument("--trace", action="store_true",
+                    help="with --repeat: find the first operations whose "
+                    "outputs differ between the solves")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("cuclarabel_torch.solve_digest: no CUDA device",
               file=sys.stderr)
         return 1
+    if args.repeat:
+        return 0 if repeat(args.path, args.repeat, args.method,
+                           args.trace) else 3
     import cuclarabel_torch as ct
     from cuclarabel_torch.problems import portfolio_socp
 
@@ -195,4 +336,4 @@ def report(path, sols, compare=True):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -13,7 +13,11 @@ relative (other summation orders), at the main shapes, at the edges of
 the substitution's 32-row panels and around the factor's 8-pivot panels
 and 4 x 4 tiles, and a pivot that cancels to exactly zero; the residual
 bit for bit with the refined solve's.  The same for the wide forms that
-run above N = 128 (csrc/ldl_wide.cu), at N from 129 to 292.  The issue-rate probes' kernels
+run above N = 128 (csrc/ldl_wide.cu), at N from 129 to 292, with both
+forms of the wide refined solve, a 2-RHS residual and refined solve
+bit for bit two 1-RHS ones, a problem alone bit for bit what it is in
+a batch of 4096, and three solves of the nass = 64 batch giving one
+digest under "pallas" and under "lu" (ROADMAP F14).  The issue-rate probes' kernels
 (csrc/probes.cu) are held to their plain versions bit for bit.  The
 sparse paths, which run no kernel of csrc/, are held to the CPU: the
 multifrontal factor and solve within 1e-12 relative and bitwise equal
@@ -255,9 +259,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
 
 # the wide forms (csrc/ldl_wide.cu, N > 128): around the first N they
 # take, the portfolio's N = 148, the 32-row panels of the substitution
-# (160, 169), where one triangle stops fitting in 227 KB of shared
+# (160, 169), the largest N at which the refined solve keeps L in shared
+# memory and the next (226, 227 at R = 2; 233, 234 at R = 1: its
+# refine_form), where one triangle stops fitting in 227 KB of shared
 # memory (237, 238), and the nass = 128 portfolio's N = 292
-WIDE_N = (129, 148, 160, 169, 237, 238, 292)
+WIDE_N = (129, 148, 160, 169, 226, 227, 233, 234, 237, 238, 292)
 
 
 @pytest.mark.parametrize("N", WIDE_N)
@@ -266,9 +272,11 @@ WIDE_N = (129, 148, 160, 169, 237, 238, 292)
 def test_wide_kernels_match_plain(dev, N, B, R):
     """Each wide form against its plain version: the factor and the
     substitution bit for bit, the residual and the refined solve (npass
-    0, 1, 2) within 1e-12, the refined solve's r bit for bit the wide
-    residual's; K carries junk above its diagonal, which no kernel may
-    read; the launches counted under the wide keys."""
+    0, 1, 2, in the form refine_form picks at N, R) within 1e-12, the
+    refined solve's r bit for bit the wide residual's on its x, and a
+    2-RHS residual and refined solve bit for bit two 1-RHS ones; K
+    carries junk above its diagonal, which no kernel may read; the
+    launches counted under the wide keys."""
     from cuclarabel_torch.kkt import ldl
 
     rng = np.random.default_rng(7 * N + B + R)
@@ -295,10 +303,95 @@ def test_wide_kernels_match_plain(dev, N, B, R):
         torch.testing.assert_close(xr, xp, rtol=1e-12, atol=1e-12)
         torch.testing.assert_close(rr, rp, rtol=1e-12, atol=1e-12)
         assert torch.equal(rr, ldl.kkt_residual(Kj, xr, b))
+        if R == 2:  # each right-hand side as one alone
+            for t in range(2):
+                bt = b[:, :, t].contiguous()
+                assert torch.equal(r[:, :, t], ldl.kkt_residual(
+                    Kj, x[:, :, t].contiguous(), bt))
+                x1, r1 = ldl.ldl_solve_refine(Kj, L, Dinv, bt, npass)
+                # a pass is accepted per right-hand side, as alone
+                assert torch.equal(x1, xr[:, :, t])
+                assert torch.equal(r1, rr[:, :, t])
     torch.cuda.synchronize()
     assert ldl.LAUNCHES["ldl_factor_wide/r1"] == 1
     assert ldl.LAUNCHES[f"ldl_solve_refine_wide/r{R}"] == 3
     assert not any("/" in k and "_wide/" not in k for k in ldl.LAUNCHES)
+
+
+@pytest.mark.parametrize("N,R", [(148, 1), (148, 2), (226, 2), (233, 1)])
+def test_wide_refine_forms_agree(dev, N, R):
+    """Both forms of the wide refined solve, L in shared memory and L
+    streamed from device memory, give the same bits where both run; at
+    the largest N of the shared form, the shared form one row larger
+    asks for more shared memory than the card has, fails to launch and
+    raises."""
+    from cuclarabel_torch.kkt import ldl
+
+    rng = np.random.default_rng(N + R)
+    B, m = 64, (N + 1) // 2
+    K, reg = _kkt(rng, B, N - m, m, dev)
+    L, Dinv, _ = ldl.ldl_factor(K, reg)
+    b = torch.tensor(rng.standard_normal((B, N, R)), device=dev)
+    for npass in (0, 1, 2):
+        xs, rs = ldl.ldl_solve_refine(K, L, Dinv, b, npass, form="shared")
+        xt, rt = ldl.ldl_solve_refine(K, L, Dinv, b, npass,
+                                      form="streaming")
+        assert torch.equal(xs, xt) and torch.equal(rs, rt)
+    if ldl.refine_form(N + 1, R) == "shared":
+        return
+    K1, reg1 = _kkt(rng, 2, N + 1 - m, m, dev)
+    L1, D1, _ = ldl.ldl_factor(K1, reg1)
+    with pytest.raises(RuntimeError):
+        ldl.ldl_solve_refine(K1, L1, D1, torch.zeros(2, N + 1, R,
+                                                     dtype=torch.float64,
+                                                     device=dev), 1,
+                             form="shared")
+
+
+@pytest.mark.parametrize("N", [148, 234, 292])
+def test_wide_problem_alone_equals_in_batch(dev, N):
+    """A problem's residual and refined solve (R = 1 and 2, npass = 1)
+    are the same bits alone (B = 1) and inside a batch of 4096 (1024 at
+    N = 292): the wide residual's order of additions depends on N
+    alone."""
+    from cuclarabel_torch.kkt import ldl
+
+    rng = np.random.default_rng(N)
+    B = 4096 if N < 292 else 1024
+    m = (N + 1) // 2
+    K, reg = _kkt(rng, B, N - m, m, dev)
+    L, Dinv, _ = ldl.ldl_factor(K, reg)
+    for R in (1, 2):
+        shape = (B, N) if R == 1 else (B, N, R)
+        b = torch.tensor(rng.standard_normal(shape), device=dev)
+        x = torch.tensor(rng.standard_normal(shape), device=dev)
+        r = ldl.kkt_residual(K, x, b)
+        xr, rr = ldl.ldl_solve_refine(K, L, Dinv, b, 1)
+        for k in (0, B // 2, B - 1):
+            one = slice(k, k + 1)
+            assert torch.equal(ldl.kkt_residual(K[one], x[one], b[one]),
+                               r[one])
+            x1, r1 = ldl.ldl_solve_refine(K[one], L[one], Dinv[one],
+                                          b[one], 1)
+            assert torch.equal(x1, xr[one]) and torch.equal(r1, rr[one])
+
+
+def test_wide_batch_repeats_to_the_bit(dev):
+    """Three solves of the portfolio at nass = 64 (N = 148), B = 256, in
+    one process give one digest under "pallas" and one under "lu", with
+    no global deterministic setting (ROADMAP F14: the SOC segment sums
+    run in a fixed order)."""
+    import cuclarabel_torch as ct
+    from cuclarabel_torch import solve_digest
+    from cuclarabel_torch.problems import portfolio_socp
+
+    assert not torch.are_deterministic_algorithms_enabled()
+    A, qs, bs, cones = portfolio_socp(64, 256, seed=7)
+    for method in ("pallas", "lu"):
+        got = {solve_digest.digest(ct.BatchSolver(
+            None, qs, A, bs, cones, kkt_solve_method=method).solve())[
+                "sha256"] for _ in range(3)}
+        assert len(got) == 1, (method, got)
 
 
 def test_wide_batch_on_card_matches_cpu(dev):
