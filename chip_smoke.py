@@ -26,7 +26,11 @@ Phases, in order; any failure exits non-zero:
    inertia of D; then the probe kernels (csrc/probes.cu) against theirs,
    bit for bit: each P1 variant at (N, B) = (83, 4096) and (13, 256), each
    P2 (R, streams) of its sweep, on seeded random inputs and on the
-   reference's constants;
+   reference's constants; then the segment-sum kernel (csrc/segsum.cu)
+   against its plain version (index_add_ on the CPU) bit for bit on the
+   batch path's second-order cone and rectification segments at B = 256
+   and 4096, a problem alone as in its batch, with its device time,
+   bound, plain and index_add_ times at B = 4096;
 4. main paths, each driven with the launch counters set to 0 just
    before it and read just after, showing its kernels ran and no plain
    version did:
@@ -382,6 +386,11 @@ ALSO_REPLACES.update({
     "ldl_solve_refine_wide": "cuclarabel_tpu/kkt/pallas_dd.py:1455",
 })
 SOURCE_WIDE = "cuclarabel_torch/csrc/ldl_wide.cu"
+# the segment sums in one fixed order (csrc/segsum.cu), which replace the
+# reference's per-cone reductions of the second-order cones (an XLA
+# segment_sum) and the equilibration's rectification means
+REPLACES_SEGSUM = {"segment_sum": "cuclarabel_tpu/cones/ops.py:59"}
+SOURCE_SEGSUM = "cuclarabel_torch/csrc/segsum.cu"
 # the wide phase: every wide form against its plain version at (n, m, B):
 # N = 129, the portfolio's N = 148 at B = 4096 and 1, N = 169, the
 # largest N at which the refined solve keeps L in shared memory and the
@@ -851,14 +860,17 @@ def phase_warm(card, runs):
 def counted(name, fn):
     """Drive one main path: the launch counters set to 0 just before fn
     runs and read just after; no plain version may run.  Returns (fn's
-    result, the launches by "<kernel>/r<R>")."""
+    result, the launches by "<kernel>/r<R>", and the segment sums'
+    under "segment_sum")."""
+    from cuclarabel_torch.cones import segsum
     from cuclarabel_torch.kkt import ldl
 
     ldl.reset_counts()
+    segsum.reset_counts()
     out = fn()
     torch.cuda.synchronize()
-    launches = dict(ldl.LAUNCHES)
-    plain = dict(ldl.PLAIN_CALLS)
+    launches = dict(ldl.LAUNCHES) | dict(segsum.LAUNCHES)
+    plain = dict(ldl.PLAIN_CALLS) | dict(segsum.PLAIN_CALLS)
     print(f"{name} launches: {json.dumps(launches, sort_keys=True)}")
     check(not plain, f"{name}: plain versions ran on the main path: {plain}")
     return out, launches
@@ -2038,9 +2050,69 @@ def phase_sparse(card):
         "iterations": csol.iterations, "dense_iterations": dense.iterations,
         "objective": csol.obj_val, "rel_err": err}
     for path, launches in paths.items():
-        check(not launches, f"{path}: the LDL^T kernels ran on a sparse "
-              f"path: {launches}")
+        dense = {k: v for k, v in launches.items() if k != "segment_sum"}
+        check(not dense, f"{path}: the LDL^T kernels ran on a sparse "
+              f"path: {dense}")
     return paths, recs
+
+
+def phase_segment_sum(card):
+    """The segment-sum kernel against its plain version (index_add_ on
+    the CPU, which adds in the kernel's order) bit for bit, on the main
+    path's segments: the second-order cones of the nass = NASS portfolio
+    over the gathered (B, msoc) vector and its rectification segments
+    over the m-vector, at B = 256 and 4096, and one problem alone against
+    its batch.  Then at B = 4096 its device time beside its bound, its
+    plain version's time on the card and index_add_'s (the library call,
+    one call where the segments' columns are the vector's own).  Returns
+    ({kernel: max abs error}, {kernel: times})."""
+    from cuclarabel_torch.cones import segsum
+    from cuclarabel_torch.cones.layout import build_layout
+    from cuclarabel_torch.parallel.batch import _rect_plan
+    from cuclarabel_torch.problems import portfolio_socp
+
+    layout = build_layout(tuple(portfolio_socp(NASS, 1, seed=7)[3]))
+    rng = np.random.default_rng(5)
+    err, by_shape = 0.0, {}
+    for tag, seg in (("soc", layout.soc_seg), ("rect", _rect_plan(layout)[0])):
+        segs, segs_cpu = (segsum.Segments(seg, d) for d in ("cuda", "cpu"))
+        for B in (256, 4096):
+            vals = torch.tensor(rng.standard_normal((B, len(seg))))
+            vd = vals.cuda()
+            got = segsum.segment_sum(vd, segs)
+            want = segsum.segment_sum_plain(vals, segs_cpu)
+            e = float((got.cpu() - want).abs().max())
+            check(torch.equal(got.cpu(), want), f"segment_sum {tag} at "
+                  f"B={B}: {e:.2e} from plain (bar: bit for bit)")
+            check(torch.equal(segsum.segment_sum(vd[7:8], segs), got[7:8]),
+                  f"segment_sum {tag} at B={B}: problem 7 alone differs")
+            err = max(err, e)
+        nbytes = 8 * B * (segs.size + segs.nseg) + 4 * segs.idx.numel()
+        bms, by = kt.bound_ms(nbytes, B * segs.size)
+        key = ("segment_sum", "segment_sum_kernel")
+        ms = kt.device_ms({key: lambda: segsum.segment_sum(vd, segs)},
+                          50)[key]
+        plain_ms = cuda_ms(lambda: segsum.segment_sum_plain(vd, segs), 20)
+        lib_ms = None
+        if segs.size == len(seg):  # every column in a segment, in order
+            lib_ms = cuda_ms(lambda: vd.new_zeros(B, segs.nseg).index_add_(
+                1, segs.seg, vd), 20)
+        by_shape[f"{tag}_B{B}"] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bms, "bound_by": by, "nseg": segs.nseg,
+            "width": segs.width, "entries": segs.size}
+        print(f"[{card}] segment_sum {tag} at B={B} ({segs.nseg} segments "
+              f"of up to {segs.width} of {len(seg)} columns): device "
+              f"{ms:.4f} ms, bound {bms:.6f} ms ({by}), plain "
+              f"{plain_ms:.4f} ms, library "
+              + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none"),
+              flush=True)
+    print(f"segment_sum bit for bit with plain at B = 256 and 4096, alone "
+          f"as in its batch (NASS = {NASS})")
+    front = by_shape["soc_B4096"]
+    return {"segment_sum": err}, {"segment_sum": dict(
+        {k: front[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                               "bound_by")}, by_shape=by_shape)}
 
 
 def phase_kernels_f32():
@@ -2671,7 +2743,8 @@ def wide_repeats(card):
 
 def wide_kernels_only(launches, path):
     """A path above N = 128 launched the wide forms and no narrow one."""
-    narrow = {k: v for k, v in launches.items() if "_wide/" not in k}
+    narrow = {k: v for k, v in launches.items()
+              if k != "segment_sum" and "_wide/" not in k}
     check(not narrow, f"{path}: narrow forms launched above N = 128: "
           f"{narrow}")
 
@@ -3264,7 +3337,8 @@ def kernel_entries(paths, errs, times):
             [(k, v, SOURCE) for k, v in REPLACES.items()]
             + [(k, v, SOURCE_F32) for k, v in REPLACES_F32.items()]
             + [(k, v, SOURCE_PROBES) for k, v in REPLACES_PROBES.items()]
-            + [(k, v, SOURCE_WIDE) for k, v in REPLACES_WIDE.items()]):
+            + [(k, v, SOURCE_WIDE) for k, v in REPLACES_WIDE.items()]
+            + [(k, v, SOURCE_SEGSUM) for k, v in REPLACES_SEGSUM.items()]):
         per_path = {path: sum(v for kk, v in launches.items()
                               if kk.split("/")[0] == name)
                     for path, launches in paths.items()}
@@ -3357,6 +3431,8 @@ def main():
     errs = timed("kernels", phase_kernels)
     errs.update(timed("kernels_f32", phase_kernels_f32))
     errs.update(timed("probes", phase_probes))
+    seg_errs, seg_times = timed("segment_sum", phase_segment_sum, card)
+    errs.update(seg_errs)
     runs, paths, staged = timed("main", phase_main, card)
     paths["batch_B256_warm"], warm = timed("warm", phase_warm, card, runs)
     paths["solver"], solver_times = timed("solver", phase_solver, card)
@@ -3387,6 +3463,7 @@ def main():
     paths.update(last_paths)
     sparse["phase_seconds"] = seconds
     times.update(probe_times)
+    times.update(seg_times)
     print(json.dumps({"solver_n76": solver_times}))
     print(json.dumps({"batch_B4096": {"staged_vs_plain": staged,
                                       "timing": batch_times},

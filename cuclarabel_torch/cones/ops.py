@@ -4,10 +4,10 @@ The counterpart of `cuclarabel_tpu/cones/ops.py`, with the reference's
 names.  Every vector carries a leading batch dimension, (B, m); per-cone
 scalars are (B, nsoc) and per-problem scalars (B,).  Zero / nonnegative
 cones are masked elementwise ops; second-order cones run as segment sums
-over the gathered (B, msoc) subvector, each summed along a padded axis in
-one fixed order (`_seg_sum`), so that a solve repeats to the bit on the
-card, where `index_add_` adds a repeated target with atomics in an order
-that changes from run to run; exponential, power,
+over the gathered (B, msoc) subvector, each added up in one fixed order
+(`_seg_sum`, the kernel of `segsum.py`), so that a solve repeats to the
+bit on the card, where `index_add_` adds a repeated target with atomics
+in an order that changes from run to run; exponential, power,
 generalised power and PSD triangle cones are dispatched to `exp.py`,
 `pow.py`, `genpow.py` and `psd.py` from the composite entry points here,
 as in the reference.  `sparse_hs_plan` and `sparse_hs_values` give the
@@ -26,6 +26,7 @@ from . import genpow as gpcone
 from . import pow as powcone
 from . import psd as psdcone
 from .layout import ConeLayout
+from .segsum import Segments, segment_sum
 
 FMAX = float(np.finfo(np.float64).max)
 EPS = float(np.finfo(np.float64).eps)
@@ -48,14 +49,7 @@ class _Plan:
             self.soc_is_head = t(layout.soc_is_head)
             self.soc_sign = t(layout.soc_sign, dtype=torch.float64)
             self.soc_head_full = t(layout.soc_head_full.astype(np.int64))
-            # each cone's positions in the gathered vector, padded with
-            # position 0 and masked: (nsoc, longest cone)
-            starts = layout.soc_headpos.astype(np.int64)
-            dims = layout.soc_dims.astype(np.int64)
-            k = np.arange(int(dims.max()))
-            self.soc_pad_mask = t(k[None, :] < dims[:, None])
-            self.soc_pad = t(np.where(k[None, :] < dims[:, None],
-                                      starts[:, None] + k[None, :], 0))
+            self.soc_segs = Segments(layout.soc_seg, device)
             segfull = layout.soc_segfull
             self.soc_same = t((segfull[:, None] == segfull[None, :])
                               & (segfull >= 0)[:, None])
@@ -143,24 +137,10 @@ def _logsafe(v):
 # ---------------------------------------------------------------------------
 
 
-def padded_sum(rows, mask):
-    """Sums of the padded rows (..., width) over their last axis, the
-    entries where mask is False left out, each row added up entry by
-    entry in ascending order: the order of an `index_add_` over segment
-    ids on the CPU.  On the card that `index_add_` adds with atomics, in
-    an order that changes from run to run; this one is fixed."""
-    g = torch.where(mask, rows, 0.0)
-    out = g[..., 0]
-    for k in range(1, g.shape[-1]):
-        out = out + g[..., k]
-    return out
-
-
 def _seg_sum(layout: ConeLayout, vals):
-    """Per-cone sums of the gathered (B, msoc) vals -> (B, nsoc): each
-    cone's entries gathered into a padded row (padded_sum)."""
-    p = plan(layout, vals.device)
-    return padded_sum(vals[:, p.soc_pad], p.soc_pad_mask)
+    """Per-cone sums of the gathered (B, msoc) vals -> (B, nsoc), each
+    cone's entries added in ascending order (segsum.segment_sum)."""
+    return segment_sum(vals, plan(layout, vals.device).soc_segs)
 
 
 def _soc_tail_sumsq(layout, vg):

@@ -51,8 +51,7 @@
 //    NaN-propagating max |r| strictly falls.
 //
 // Host interface: plain C functions returning cudaGetLastError() after
-// the launch, with the narrow forms' signatures (the refined solve's
-// with the form as one more int), called from kkt/ldl.py
+// the launch, with the narrow forms' signatures, called from kkt/ldl.py
 // and kkt/ldl_f32.py through ctypes.  No kernel allocates or
 // synchronises; all launch on the caller's stream.
 
@@ -596,9 +595,9 @@ __global__ void __launch_bounds__(kResWarps * kWarp)
 // pass's residual runs block_residual, kkt_residual_wide's body (with
 // kRefineResWarps warps).
 //
-// Two forms, chosen by the launcher from N and R (kkt/ldl.py's
-// refine_form).  S > 0 (the "shared" form, S = ceil(N / 32) slots, 5-8):
-// L's strict lower triangle is copied into shared memory once, packed by
+// Two forms, chosen by the launcher from N, R and the shared memory one
+// block may opt into (refine_form).  S > 0 (the "shared" form,
+// S = ceil(N / 32) slots, 5-8): L's strict lower triangle is copied into shared memory once, packed by
 // rows as the narrow kernels keep it (row i at tri(i)), by coalesced
 // loads of kCopyBatch words a thread in flight, then stores; every sweep
 // of every pass then runs on it in warp 0 alone, the narrow kernels'
@@ -612,7 +611,9 @@ __global__ void __launch_bounds__(kResWarps * kWarp)
 // of K and L once, D^-1, b, x and r: 0.73 GB at (148, 4096), 0.22 ms.
 // ---------------------------------------------------------------------
 constexpr int kCopyBatch = 16;
-// resident blocks an SM the registers are capped for (128 a thread)
+// resident blocks an SM the registers are capped for (128 a thread); at
+// R = 2 the sweeps spill 1-1.4 KB a thread under this cap, and still run
+// faster at B = 4096 than one block an SM without spills
 constexpr int kRefineBlocks = 2;
 
 template <class T, int R, int S>
@@ -710,9 +711,10 @@ __global__ void __launch_bounds__(kWideThreads, kRefineBlocks)
   }
 }
 
-// f(std::integral_constant<int, S>{}) for S = slots(n) in the shared
-// form's range, 5-8 (N from 129 to 256); an N outside it returns
-// cudaErrorInvalidValue.
+// f(std::integral_constant<int, S>{}) for S = slots(n), 5-8 (N from 129
+// to 256): the instantiations of the shared form, launched only where
+// refine_form picks it (N <= 233 at R = 1, 226 at R = 2 on an H100); an
+// N outside them returns cudaErrorInvalidValue.
 template <class F>
 inline int with_shared_slots(int n, F&& f) {
   switch (slots(n)) {
@@ -732,12 +734,26 @@ template <class T>
 size_t kkt_residual_smem(int n, int r) {
   return residual_smem<T>(r, kResWarps) + sizeof(T) * 2 * (size_t)n * r;
 }
-// kkt/ldl.py's refine_smem computes the same
 template <class T>
 size_t refine_smem(int n, int r, bool shared_l) {
   return residual_smem<T>(r, kRefineResWarps) +
          sizeof(T) * (5 * (size_t)n * r + kWideWarps * r +
                       (shared_l ? (size_t)tri(n) : 0));
+}
+
+// The form of the wide refined solve at (n, r) on the current device: 1
+// (L in shared memory) where S = slots(n) has an instantiation and
+// refine_smem fits what one block may opt into, 0 (streaming) above; a
+// negative CUDA error where the device cannot be asked.
+int refine_form(int n, int r) {
+  int dev = 0, bytes = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&bytes,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return -(int)e;
+  const int s = slots(n);
+  return s >= 5 && s <= 8 && refine_smem<double>(n, r, true) <= (size_t)bytes;
 }
 
 // Raise a kernel's dynamic shared memory cap to all that one block of
@@ -871,18 +887,24 @@ int cc_kkt_residual_wide(const double* K, const double* x, const double* b,
                                      (cudaStream_t)stream);
 }
 
-// shared_l: 1 for the form that keeps L in shared memory (129 <= n <=
-// 256), 0 for the streaming one (kkt/ldl.py's refine_form chooses); a
-// form whose shared memory exceeds the device's fails to launch, and its
-// error returns.
+// 1 where the wide refined solve keeps L in shared memory at (n, r) on
+// the current device, 0 where it streams L; a negative CUDA error.
+int cc_refine_form_wide(int n, int r) {
+  if (bad_shape(1, n, r)) return -(int)cudaErrorInvalidValue;
+  return refine_form(n, r);
+}
+
+// In the form refine_form picks at (n, r).
 int cc_ldl_solve_refine_wide(const double* K, const double* L,
                              const double* Dinv, const double* b, double* x,
                              double* res, int B, int n, int r, int npass,
-                             int shared_l, void* stream) {
+                             void* stream) {
   if (bad_shape(B, n, r) || npass < 0) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
+  const int form = refine_form(n, r);
+  if (form < 0) return -form;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (shared_l)
+  if (form)
     return with_shared_slots(n, [&](auto S) {
       constexpr int kS = decltype(S)::value;
       return r == 1 ? launch_refine<1, kS>(K, L, Dinv, b, x, res, B, n,

@@ -323,9 +323,10 @@ def kernel_name(name, R, N):
     return names[name].format(R=R)
 
 
-def occupancy(name, R, N):
+def occupancy(name, R, N, form=None):
     """(resident blocks, resident warps) per SM of the kernel's launch at
-    N, from cudaOccupancyMaxActiveBlocksPerMultiprocessor; None where the
+    N (the wide refined solve's in `form`, refine_form's choice),
+    from cudaOccupancyMaxActiveBlocksPerMultiprocessor; None where the
     kernel library does not report it."""
     lib = _build.load()
     blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
@@ -333,7 +334,7 @@ def occupancy(name, R, N):
     if ldl.wide(N):
         fn = getattr(lib, "cc_occupancy_wide", None)
         kid = WIDE_OCCUPANCY_ID[name]
-        if name == "ldl_solve_refine" and _refine_shared(N, R):
+        if name == "ldl_solve_refine" and form == "shared":
             kid = 6
         args = (kid, N, R) + out
     elif name in OCCUPANCY_ID:
@@ -350,29 +351,22 @@ def occupancy(name, R, N):
     return blocks.value, blocks.value * threads.value // 32
 
 
-def _refine_shared(N, R):
-    """Whether the wide refined solve keeps L in shared memory at N, R
-    (False for a version with one wide form)."""
-    form = getattr(ldl, "refine_form", None)
-    return form is not None and form(N, R) == "shared"
-
-
-def ptxas(name, R, N, report):
+def ptxas(name, R, N, report, form=None):
     """ptxas' {"registers", "spill_stores", "spill_loads", ...} of the
-    instantiation that kernel form (name, R) launches at N, from a
-    build's `_build.ptxas_report`: the device function whose template
-    arguments agree with (R, slots) -- (slots) for the factors and the
-    f32 kernels -- as far as it has any; None where the report has
-    none."""
+    instantiation that kernel form (name, R) launches at N (the wide
+    refined solve's in `form`, refine_form's choice), from a build's
+    `_build.ptxas_report`: the device function whose template arguments
+    agree with (R, slots) -- (slots) for the factors and the f32
+    kernels -- as far as it has any; None where the report has none."""
     wide = ldl.wide(N)
     func = re.match(r"\w+", kernel_name(name, R, N)).group(0)
     slots = (N + 31) // 32
     one = "factor" in name or name.endswith("_batched")
     if wide:  # <T>, <T, R> or <T, R, S>: the type's letter, then ints
         want = [1] if name == "ldl_solve_batched" else [] if one else [R]
-        if name == "ldl_solve_refine" and getattr(ldl, "refine_form", None):
+        if name == "ldl_solve_refine":
             # S: the shared form's slots, 0 for the streaming form
-            want.append(slots if _refine_shared(N, R) else 0)
+            want.append(slots if form == "shared" else 0)
         kind = "f" if name.endswith("_batched") else "d"
     else:
         want = [slots] if one else [R, slots]
@@ -465,13 +459,14 @@ def time_width(B, forms=FORMS, reps=20, plain_reps=3, cold=False,
         nbytes, ops = work(name, B, N, R=R)
         bms, by = bound_ms(nbytes, ops, PEAK_F32_PER_S
                            if name.endswith("_batched") else PEAK_F64_PER_S)
-        occ = occupancy(name, R, N)
-        reg = ptxas(name, R, N, report) or {}
+        rform = (ldl.refine_form(N, R) if name == "ldl_solve_refine"
+                 and ldl.wide(N) else None)
+        occ = occupancy(name, R, N, rform)
+        reg = ptxas(name, R, N, report, rform) or {}
         row = {"name": name, "R": R, "N": N, "B": B,
                "ms": warm[(form, kname)], "timed_by": how[(form, kname)]}
-        if name == "ldl_solve_refine" and ldl.wide(N) and getattr(
-                ldl, "refine_form", None):
-            row["form"] = ldl.refine_form(N, R)
+        if rform is not None:
+            row["form"] = rform
         if B == EVENTS_WIDTH:
             row["events_ms"] = cuda_ms(kern, reps)
         if cold:

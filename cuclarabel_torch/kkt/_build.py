@@ -25,7 +25,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
 SOURCES = (CSRC / "ldl.cu", CSRC / "ldl_f32.cu", CSRC / "ldl_wide.cu",
-           CSRC / "probes.cu")
+           CSRC / "probes.cu", CSRC / "segsum.cu")
 HEADERS = (CSRC / "ldl_core.cuh",)
 BUILD_DIR = PACKAGE_DIR.parent / "build"
 # -fmad=false: no contraction of a multiply and an add into one FMA, so
@@ -42,11 +42,11 @@ NVCC_FLAGS = ARCH + (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures of csrc/ldl.cu, csrc/ldl_f32.cu, csrc/ldl_wide.cu and
-# csrc/probes.cu (pointers, then ints, then the stream; the cc_occupancy*
-# functions: ints, then two int pointers).  Each wide form (N > 128) has
-# its narrow form's signature, the refined solve's with one more int (its
-# form: L in shared memory or not).
+# C signatures of csrc/ldl.cu, csrc/ldl_f32.cu, csrc/ldl_wide.cu,
+# csrc/probes.cu and csrc/segsum.cu (pointers, then ints, then the
+# stream; the cc_occupancy* functions: ints, then two int pointers).
+# Each wide form (N > 128) has its narrow form's signature;
+# cc_refine_form_wide returns the wide refined solve's form at (n, r).
 SIGNATURES = {
     "cc_ldl_factor": (_P, _P, _P, _P, _P, _I, _I, _P),
     "cc_ldl_solve": (_P, _P, _P, _P, _I, _I, _I, _P),
@@ -57,8 +57,8 @@ SIGNATURES = {
     "cc_ldl_factor_wide": (_P, _P, _P, _P, _P, _I, _I, _P),
     "cc_ldl_solve_wide": (_P, _P, _P, _P, _I, _I, _I, _P),
     "cc_kkt_residual_wide": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "cc_ldl_solve_refine_wide": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                 _P),
+    "cc_ldl_solve_refine_wide": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "cc_refine_form_wide": (_I, _I),
     "cc_ldl_factor_wide_f32": (_P, _P, _P, _I, _I, _P),
     "cc_ldl_solve_wide_f32": (_P, _P, _P, _P, _I, _I, _P),
     "cc_occupancy": (_I, _I, _I, _P, _P),
@@ -67,6 +67,7 @@ SIGNATURES = {
     "cc_occupancy_wide": (_I, _I, _I, _P, _P),
     "cc_probe_chain": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "cc_probe_issue": (_P, _P, _P, _I, _I, _I, _P),
+    "cc_segment_sum": (_P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

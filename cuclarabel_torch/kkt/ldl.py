@@ -20,10 +20,11 @@ the CPU and launches its CUDA kernel when they lie on a CUDA device;
 there is no fallback from one to the other.  On the card each wrapper
 launches its narrow form at N <= NARROW_MAX_N = 128 and its wide form
 above (one block per problem: `csrc/ldl_wide.cu`); above 128 the refined
-solve has two forms, which `refine_form` chooses from N and R: L in
-shared memory where it fits ("shared", N <= 233 at R = 1, N <= 226 at
-R = 2), L read from device memory above ("streaming"); both run their
-residuals through kkt_residual's tiled body.  `LAUNCHES` counts kernel launches,
+solve has two forms, which its launcher chooses from N, R and the card's
+shared memory (`refine_form` asks it): L in shared memory where it fits
+("shared", N <= 233 at R = 1, N <= 226 at R = 2 on an H100), L read from
+device memory above ("streaming"); both run their residuals through
+kkt_residual's tiled body.  `LAUNCHES` counts kernel launches,
 keyed by "<name>/r<R>" for a narrow form and "<name>_wide/r<R>" for a
 wide one, and `PLAIN_CALLS` calls of the plain versions, keyed by
 "<name>/r<R>" at every N, so a run can show which path it took; both
@@ -218,38 +219,16 @@ def wide(N) -> bool:
     return N > NARROW_MAX_N
 
 
-# what csrc/ldl_wide.cu's refined solve keeps in shared memory, in f64
-# words: one wave's partial sums of the residual (block_residual, a row
-# and a column of 32 a warp, REFINE_WARPS warps), the five vectors (b, x,
-# r and the candidate's x and r), the absolute-max reduction, and in the
-# "shared" form L packed by rows, row i at tri(i)
-REFINE_WARPS = 8
-# the shared memory one block may have on an H100 (227 KB)
-SMEM_PER_BLOCK = 232448
-# the "shared" form's sweeps keep x in at most 8 register slots a lane
-# (N <= 256)
-SHARED_MAX_SLOTS = 8
-
-
-def refine_smem(N, R, form):
-    """Bytes of shared memory of the wide refined solve's launch at N, R
-    in `form` ("shared" or "streaming"); refine_smem in
-    csrc/ldl_wide.cu computes the same."""
-    words = 2 * REFINE_WARPS * 32 * R + 5 * N * R + REFINE_WARPS * R
-    if form == "shared":
-        words += N * (N + 1) // 2  # packed by rows, row i at tri(i)
-    return 8 * words
-
-
 def refine_form(N, R):
-    """The form of the wide refined solve that the wrapper launches at N
-    (above NARROW_MAX_N), R: "shared", L copied once into shared memory
-    and read there by every sweep, where it fits one block's
-    SMEM_PER_BLOCK (N <= 233 at R = 1, N <= 226 at R = 2); "streaming",
-    L read from device memory by each sweep, above."""
-    return ("shared" if N <= SHARED_MAX_SLOTS * 32
-            and refine_smem(N, R, "shared") <= SMEM_PER_BLOCK
-            else "streaming")
+    """The form of the wide refined solve that its launcher picks at N
+    (above NARROW_MAX_N), R on the current CUDA device: "shared", L
+    copied once into shared memory and read there by every sweep, where
+    it fits what one block may have; "streaming", L read from device
+    memory by each sweep, above."""
+    rc = _build.load().cc_refine_form_wide(N, R)
+    if rc < 0:
+        raise RuntimeError(f"refine_form({N}, {R}): CUDA error {-rc}")
+    return "shared" if rc else "streaming"
 
 
 def launch_key(name, N, R):
@@ -343,15 +322,11 @@ def kkt_residual(K, x, b):
     return r
 
 
-def ldl_solve_refine(K, L, Dinv, b, npass, form=None):
+def ldl_solve_refine(K, L, Dinv, b, npass):
     """Fused refined solve: x = solve(b), then `npass` passes of
     x' = x + solve(b - K x), each accepted per right-hand side only where
     max|b - K x'| < max|b - K x| strictly.  K must be symmetric (its
-    lower triangle is read).  Returns the accepted x and r = b - K x.
-    Above NARROW_MAX_N the kernel runs in the form refine_form(N, R)
-    picks, or in `form` ("shared" or "streaming") where given; both
-    forms give the same bits, and a form whose shared memory the card
-    does not have fails to launch and raises."""
+    lower triangle is read).  Returns the accepted x and r = b - K x."""
     if _on_cpu(K, L, Dinv, b):
         return ldl_solve_refine_plain(K, L, Dinv, b, npass)
     B, N = _dims(K, "K")
@@ -366,17 +341,10 @@ def ldl_solve_refine(K, L, Dinv, b, npass, form=None):
     x = torch.empty_like(b)
     r = torch.empty_like(b)
     lib = _build.load()
-    args = (K.data_ptr(), L.data_ptr(), Dinv.data_ptr(), b.data_ptr(),
-            x.data_ptr(), r.data_ptr(), B, N, R, int(npass))
-    if form not in (None, "shared", "streaming"):
-        raise ValueError(f"form must be 'shared' or 'streaming', got {form!r}")
-    if wide(N):
-        fn = lib.cc_ldl_solve_refine_wide
-        args += (int((form or refine_form(N, R)) == "shared"),)
-    else:
-        fn = lib.cc_ldl_solve_refine
+    fn = lib.cc_ldl_solve_refine_wide if wide(N) else lib.cc_ldl_solve_refine
     with torch.cuda.device(K.device):
-        rc = fn(*args, _stream(K))
+        rc = fn(K.data_ptr(), L.data_ptr(), Dinv.data_ptr(), b.data_ptr(),
+                x.data_ptr(), r.data_ptr(), B, N, R, int(npass), _stream(K))
     _raise_on(rc, "ldl_solve_refine")
     LAUNCHES.add(launch_key("ldl_solve_refine", N, R), K.device)
     return x, r

@@ -44,7 +44,7 @@ import torch
 
 from ..cones import api
 from ..cones.layout import build_layout
-from ..cones.ops import padded_sum
+from ..cones.segsum import Segments, segment_sum
 from ..infinity import get_infinity
 from ..interop import batchify, problem_from_numpy, symmetrize_triu
 from ..ipm.loop import make_solve_fn, run_passes
@@ -59,20 +59,12 @@ from .slabs import run_slabs, slab_bounds
 def _rect_plan(layout):
     """Static segment plan for cone rectification: seg id per row of
     the m-vector for cones that need scalar equilibration, -1 elsewhere
-    (rectify_equilibration!, coneops_defaults.jl:32-44); and each
-    segment's rows padded to the longest with row 0, with the mask of
-    the real ones, (nrect, longest) each."""
+    (rectify_equilibration!, coneops_defaults.jl:32-44)."""
     seg = np.full(layout.m, -1, dtype=np.int64)
     ranges = layout.rectification_ranges()
     for i, (lo, hi) in enumerate(ranges):
         seg[lo:hi] = i
-    width = max((hi - lo for lo, hi in ranges), default=0)
-    k = np.arange(width)
-    rows = np.array([lo + k for lo, _ in ranges], dtype=np.int64).reshape(
-        len(ranges), width)
-    mask = np.array([k < hi - lo for lo, hi in ranges], dtype=bool).reshape(
-        len(ranges), width)
-    return seg, len(ranges), np.where(mask, rows, 0), mask
+    return seg, len(ranges)
 
 
 def device_equilibrate(P, A, q, b, layout, settings, has_P=True):
@@ -135,7 +127,7 @@ def device_equilibrate(P, A, q, b, layout, settings, has_P=True):
         q = q * (c[:, None] * d)
         b = b * e
 
-        seg, nrect, rows, mask = _rect_plan(layout)
+        seg, nrect = _rect_plan(layout)
         if nrect:
             valid = np.flatnonzero(seg >= 0)
             vidx = torch.as_tensor(valid, device=q.device)
@@ -143,9 +135,7 @@ def device_equilibrate(P, A, q, b, layout, settings, has_P=True):
             counts = torch.as_tensor(np.bincount(seg[valid], minlength=nrect),
                                      dtype=q.dtype, device=q.device)
             ev = e[:, vidx]
-            mean_e = padded_sum(
-                e[:, torch.as_tensor(rows, device=q.device)],
-                torch.as_tensor(mask, device=q.device)) / counts
+            mean_e = segment_sum(e, Segments(seg, q.device)) / counts
             delta = torch.ones_like(e).index_copy(1, vidx,
                                                   mean_e[:, vseg] / ev)
             A = A * delta[:, :, None]

@@ -261,8 +261,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
 # take, the portfolio's N = 148, the 32-row panels of the substitution
 # (160, 169), the largest N at which the refined solve keeps L in shared
 # memory and the next (226, 227 at R = 2; 233, 234 at R = 1: its
-# refine_form), where one triangle stops fitting in 227 KB of shared
-# memory (237, 238), and the nass = 128 portfolio's N = 292
+# launcher's refine_form), where one triangle stops fitting in 227 KB of
+# shared memory (237, 238), and the nass = 128 portfolio's N = 292
 WIDE_N = (129, 148, 160, 169, 226, 227, 233, 234, 237, 238, 292)
 
 
@@ -318,34 +318,54 @@ def test_wide_kernels_match_plain(dev, N, B, R):
     assert not any("/" in k and "_wide/" not in k for k in ldl.LAUNCHES)
 
 
-@pytest.mark.parametrize("N,R", [(148, 1), (148, 2), (226, 2), (233, 1)])
-def test_wide_refine_forms_agree(dev, N, R):
-    """Both forms of the wide refined solve, L in shared memory and L
-    streamed from device memory, give the same bits where both run; at
-    the largest N of the shared form, the shared form one row larger
-    asks for more shared memory than the card has, fails to launch and
-    raises."""
+# the largest N at which the wide refined solve keeps L in shared memory
+# on an H100 (227 KB a block), by R
+LARGEST_SHARED = {1: 233, 2: 226}
+
+
+@pytest.mark.parametrize("R", [1, 2])
+def test_wide_refine_form_by_n(dev, R):
+    """The launcher keeps L in shared memory from N = 129 up to the
+    largest N whose triangle and vectors fit one block's shared memory,
+    and streams L above, at N = 292 too (test_wide_kernels_match_plain
+    holds both forms against plain on each side of the edge)."""
     from cuclarabel_torch.kkt import ldl
 
-    rng = np.random.default_rng(N + R)
-    B, m = 64, (N + 1) // 2
-    K, reg = _kkt(rng, B, N - m, m, dev)
-    L, Dinv, _ = ldl.ldl_factor(K, reg)
-    b = torch.tensor(rng.standard_normal((B, N, R)), device=dev)
-    for npass in (0, 1, 2):
-        xs, rs = ldl.ldl_solve_refine(K, L, Dinv, b, npass, form="shared")
-        xt, rt = ldl.ldl_solve_refine(K, L, Dinv, b, npass,
-                                      form="streaming")
-        assert torch.equal(xs, xt) and torch.equal(rs, rt)
-    if ldl.refine_form(N + 1, R) == "shared":
-        return
-    K1, reg1 = _kkt(rng, 2, N + 1 - m, m, dev)
-    L1, D1, _ = ldl.ldl_factor(K1, reg1)
-    with pytest.raises(RuntimeError):
-        ldl.ldl_solve_refine(K1, L1, D1, torch.zeros(2, N + 1, R,
-                                                     dtype=torch.float64,
-                                                     device=dev), 1,
-                             form="shared")
+    top = LARGEST_SHARED[R]
+    for N in (129, 148, top):
+        assert ldl.refine_form(N, R) == "shared"
+    for N in (top + 1, 237, 256, 292, 600):
+        assert ldl.refine_form(N, R) == "streaming"
+
+
+@pytest.mark.parametrize("B", [1, 5, 4096])
+def test_segment_sum_matches_plain(dev, B):
+    """The segment-sum kernel against its plain version on the CPU (the
+    order index_add_ adds in there) bit for bit, on the second-order
+    cones of the nass = 32 and 64 portfolios and on segments with gaps;
+    a problem's sums the same bits alone and inside the batch; the
+    launches counted."""
+    from cuclarabel_torch.cones import segsum
+    from cuclarabel_torch.cones.layout import build_layout
+    from cuclarabel_torch.problems import portfolio_socp
+
+    rng = np.random.default_rng(B)
+    cases = [build_layout(tuple(portfolio_socp(nass, 1, seed=7)[3])).soc_seg
+             for nass in (32, 64)]
+    cases.append(rng.integers(-1, 9, size=300))
+    segsum.reset_counts()
+    for seg in cases:
+        segs, segs_cpu = (segsum.Segments(seg, d) for d in (dev, "cpu"))
+        vals = torch.tensor(rng.standard_normal((B, len(seg))))
+        got = segsum.segment_sum(vals.to(dev), segs)
+        assert torch.equal(got.cpu(), segsum.segment_sum_plain(vals,
+                                                               segs_cpu))
+        one = segsum.segment_sum(vals[B // 2:B // 2 + 1].to(dev), segs)
+        assert torch.equal(one, got[B // 2:B // 2 + 1])
+    with pytest.raises(TypeError):
+        segsum.segment_sum(vals.float().to(dev), segs)
+    torch.cuda.synchronize()
+    assert segsum.LAUNCHES["segment_sum"] == 2 * len(cases)
 
 
 @pytest.mark.parametrize("N", [148, 234, 292])

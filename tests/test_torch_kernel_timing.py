@@ -155,8 +155,9 @@ def test_ptxas_and_names_of_the_wide_forms():
 def test_ptxas_of_the_wide_refined_solve_forms():
     """The wide refined solve is a template on the type, R and S, the
     shared form's register slots (ceil(N / 32)) or 0 for the streaming
-    form: ptxas gives the instantiation refine_form picks (shared at
-    N = 148, streaming at N = 292 and at R = 2 above N = 226)."""
+    form: ptxas gives the instantiation of the form it is given, the
+    one refine_form picks on the card (shared at N = 148 and 233,
+    streaming at N = 292 and at R = 2 above N = 226)."""
     def rec(regs):
         return {"registers": regs, "spill_stores": 0, "spill_loads": 0}
 
@@ -164,10 +165,13 @@ def test_ptxas_of_the_wide_refined_solve_forms():
             "EvPKT_S3_S3_S3_PS1_S4_ii")
     report = {name.format(R=R, S=S): rec(100 + 10 * R + S)
               for R in (1, 2) for S in (0, 5, 6, 7, 8)}
-    assert kt.ptxas("ldl_solve_refine", 1, 148, report)["registers"] == 115
-    assert kt.ptxas("ldl_solve_refine", 2, 148, report)["registers"] == 125
-    assert kt.ptxas("ldl_solve_refine", 1, 233, report)["registers"] == 118
-    assert kt.ptxas("ldl_solve_refine", 1, 292, report)["registers"] == 110
-    assert kt.ptxas("ldl_solve_refine", 2, 227, report)["registers"] == 120
+    def regs(R, N, form):
+        return kt.ptxas("ldl_solve_refine", R, N, report, form)["registers"]
+
+    assert regs(1, 148, "shared") == 115
+    assert regs(2, 148, "shared") == 125
+    assert regs(1, 233, "shared") == 118
+    assert regs(1, 292, "streaming") == 110
+    assert regs(2, 227, "streaming") == 120
     assert kt.kernel_name("ldl_solve_refine", 1, 148) == \
         "ldl_solve_refine_wide_kernel<double, 1"

@@ -1,13 +1,15 @@
 """The fixed-order sums that make a solve repeat to the bit on the card
-(ROADMAP F14), on the CPU: the second-order cones' segment sums
-(cones/ops.py::_seg_sum), the generalised power cones' scatter
+(ROADMAP F14), on the CPU: the segment sums of cones/segsum.py, whose
+plain version adds each segment's entries one by one in ascending order
+(the order the kernel of csrc/segsum.cu keeps), against a sum in that
+order and against the `index_add_` forms they replace, within 1e-15
+relative; the second-order cones' segment sums (cones/ops.py::_seg_sum)
+against the reference's on one problem at a time (1e-12, as
+tests/test_torch_cones.py); the generalised power cones' scatter
 (cones/genpow.py::_scatter_add) and the equilibration's rectification
-means (parallel/batch.py::device_equilibrate, through ops.padded_sum)
-against the `index_add_` forms they replace, within 1e-15 relative,
-and the segment sums against the reference's on one
-problem at a time (1e-12, as tests/test_torch_cones.py).  Then
-solve_digest's OpTrace, which found the operation that did not repeat.
-B = 3 or 5, never 4 (ROADMAP F2); N <= 22 (F3)."""
+means (parallel/batch.py::device_equilibrate).  Then solve_digest's
+OpTrace, which found the operation that did not repeat.  B = 3 or 5,
+never 4 (ROADMAP F2); N <= 22 (F3)."""
 
 import numpy as np
 import pytest
@@ -21,7 +23,7 @@ from cuclarabel_tpu.cones.layout import build_layout as ref_build_layout
 import cuclarabel_torch as ct
 import cuclarabel_torch.cones.api as api
 from cuclarabel_torch import solve_digest
-from cuclarabel_torch.cones import genpow, ops
+from cuclarabel_torch.cones import genpow, ops, segsum
 from cuclarabel_torch.cones.layout import build_layout
 from cuclarabel_torch.parallel import batch
 
@@ -42,6 +44,17 @@ def _rel(a, b):
     return float((a - b).abs().max() / max(float(b.abs().max()), 1e-300))
 
 
+def _ascending(vals, segs):
+    """Each segment's entries added one by one in ascending order, from
+    0, in numpy."""
+    v = vals.numpy()
+    out = np.zeros((v.shape[0], segs.nseg))
+    for s, row in enumerate(segs.idx.numpy()):
+        for j in row[row >= 0]:
+            out[:, s] = out[:, s] + v[:, j]
+    return torch.tensor(out)
+
+
 @pytest.mark.parametrize("B", [3, 5])
 def test_soc_segment_sums_match_index_add(B):
     layout = _soc_layouts(api)
@@ -52,10 +65,28 @@ def test_soc_segment_sums_match_index_add(B):
     got = ops._seg_sum(layout, vals)
     assert got.shape == (B, layout.nsoc)
     assert _rel(got, old) <= TOL
-    # a cone's padding adds nothing, whatever its neighbours hold
+    # the order the kernel keeps, to the bit
+    assert torch.equal(got, _ascending(vals, ops.plan(layout, "cpu")
+                                       .soc_segs))
+    # a cone's entries stay in their cone
     vals[:, 0] = float("inf")
     got = ops._seg_sum(layout, vals)
     assert torch.isinf(got[:, 0]).all() and torch.isfinite(got[:, 1:]).all()
+
+
+def test_segments_list_columns_in_order():
+    """Segment ids in any order give each segment's columns ascending,
+    padded with -1; a column of no segment is left out."""
+    segs = segsum.Segments([2, -1, 0, 2, 1, 0, -1, 2], "cpu")
+    assert (segs.nseg, segs.width, segs.size) == (3, 3, 6)
+    assert segs.idx.dtype == torch.int32
+    assert segs.idx.tolist() == [[2, 5, -1], [4, -1, -1], [0, 3, 7]]
+    vals = torch.tensor(np.random.default_rng(3).standard_normal((5, 8)))
+    segsum.reset_counts()
+    got = segsum.segment_sum(vals, segs)
+    assert torch.equal(got, _ascending(vals, segs))
+    assert dict(segsum.PLAIN_CALLS) == {"segment_sum": 1}
+    assert not segsum.LAUNCHES
 
 
 def test_soc_segment_sums_match_reference():
@@ -109,16 +140,18 @@ def test_genpow_scatter_matches_index_add():
 
 def test_rectification_means_match_index_add():
     layout = _soc_layouts(api)
-    seg, nrect, rows, mask = batch._rect_plan(layout)
-    assert nrect == len(SOC_DIMS) and rows.shape == mask.shape
+    seg, nrect = batch._rect_plan(layout)
+    assert nrect == len(SOC_DIMS)
     B = 5
     e = torch.tensor(np.random.default_rng(2).uniform(0.5, 2.0,
                                                       (B, layout.m)))
     valid = np.flatnonzero(seg >= 0)
     old = e.new_zeros(B, nrect).index_add_(
         1, torch.as_tensor(seg[valid]), e[:, torch.as_tensor(valid)])
-    got = ops.padded_sum(e[:, torch.as_tensor(rows)], torch.as_tensor(mask))
+    segs = segsum.Segments(seg, "cpu")
+    got = segsum.segment_sum(e, segs)
     assert _rel(got, old) <= TOL
+    assert torch.equal(got, _ascending(e, segs))
 
 
 def _tiny_batch():

@@ -1,9 +1,10 @@
-"""Which form of the wide refined solve (csrc/ldl_wide.cu) the launcher
-in kkt/ldl.py picks at each N and R, on the CPU: L in shared memory
-("shared") while refine_smem fits one block's 227 KB, up to N = 233 at
-R = 1 and N = 226 at R = 2; L read from device memory ("streaming")
-above, at N = 292 too.  The wrapper's call into the kernel library is
-taken with a stand-in library, so that the form it passes is seen
+"""The wide refined solve's wrapper in kkt/ldl.py, on the CPU: it calls
+the narrow kernel at N <= 128 and the wide one above with the same
+arguments, and leaves the form (L in shared memory or streamed) to the
+launcher in csrc/ldl_wide.cu, which picks it from N, R and the card's
+shared memory (tests/test_torch_cuda.py::test_wide_refine_form_by_n
+holds that choice on the card).  The wrapper's call into the kernel
+library is taken with a stand-in library, so that its arguments are seen
 without a card."""
 
 import contextlib
@@ -12,23 +13,6 @@ import pytest
 import torch
 
 from cuclarabel_torch.kkt import ldl
-
-LARGEST_SHARED = {1: 233, 2: 226}
-
-
-@pytest.mark.parametrize("R", [1, 2])
-def test_refine_form_by_n(R):
-    top = LARGEST_SHARED[R]
-    for N in (129, 148, top):
-        assert ldl.refine_form(N, R) == "shared"
-        assert ldl.refine_smem(N, R, "shared") <= ldl.SMEM_PER_BLOCK
-    for N in (top + 1, 237, 292, 600):
-        assert ldl.refine_form(N, R) == "streaming"
-        assert ldl.refine_smem(N, R, "shared") > ldl.SMEM_PER_BLOCK
-        assert ldl.refine_smem(N, R, "streaming") <= ldl.SMEM_PER_BLOCK
-    # L packed by rows at N = 148, row i at tri(i): 88,208 bytes
-    assert (ldl.refine_smem(148, R, "shared")
-            - ldl.refine_smem(148, R, "streaming")) == 8 * 148 * 149 // 2
 
 
 class _Library:
@@ -44,15 +28,15 @@ class _Library:
         return call
 
 
-@pytest.mark.parametrize("N,R,fn,shared", [
-    (76, 1, "cc_ldl_solve_refine", None),
-    (148, 1, "cc_ldl_solve_refine_wide", 1),
-    (233, 1, "cc_ldl_solve_refine_wide", 1),
-    (234, 1, "cc_ldl_solve_refine_wide", 0),
-    (226, 2, "cc_ldl_solve_refine_wide", 1),
-    (227, 2, "cc_ldl_solve_refine_wide", 0),
-    (292, 2, "cc_ldl_solve_refine_wide", 0)])
-def test_launcher_passes_the_form(monkeypatch, N, R, fn, shared):
+@pytest.mark.parametrize("N,R,fn", [
+    (76, 1, "cc_ldl_solve_refine"),
+    (148, 1, "cc_ldl_solve_refine_wide"),
+    (233, 1, "cc_ldl_solve_refine_wide"),
+    (234, 1, "cc_ldl_solve_refine_wide"),
+    (226, 2, "cc_ldl_solve_refine_wide"),
+    (227, 2, "cc_ldl_solve_refine_wide"),
+    (292, 2, "cc_ldl_solve_refine_wide")])
+def test_launcher_passes_the_form(monkeypatch, N, R, fn):
     lib = _Library()
     monkeypatch.setattr(ldl, "_on_cpu", lambda *ts: False)
     monkeypatch.setattr(ldl._build, "load", lambda: lib)
@@ -67,10 +51,8 @@ def test_launcher_passes_the_form(monkeypatch, N, R, fn, shared):
     ldl.ldl_solve_refine(K, K, D, b, 1)
     (name, args), = lib.calls
     assert name == fn
-    # (K, L, Dinv, b, x, r, B, N, R, npass[, shared], stream)
-    assert args[6:10] == (B, N, R, 1)
-    if shared is None:
-        assert len(args) == 11
-    else:
-        assert len(args) == 12 and args[10] == shared
+    # (K, L, Dinv, b, x, r, B, N, R, npass, stream): no form of its own
+    assert len(args) == 11 and args[6:10] == (B, N, R, 1)
     assert dict(ldl.LAUNCHES) == {ldl.launch_key("ldl_solve_refine", N, R): 1}
+    with pytest.raises(TypeError):
+        ldl.ldl_solve_refine(K, K, D, b, 1, form="shared")
