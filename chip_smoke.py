@@ -184,14 +184,19 @@ Phases, in order; any failure exits non-zero:
    solves of phase 5's timing): the "pallas" path above N = 128, where
    the wrappers launch the kernels' wide forms (csrc/ldl_wide.cu).  Each
    wide form against its plain version at (N, B) = (129, 5),
-   (148, 4096), (148, 1), (169, 64), (226, 16), (227, 16), (233, 16),
-   (234, 16) (the largest N at which the refined solve keeps L in shared
-   memory, at R = 2 and 1, and the next) and (292, 256), R = 1 and 2,
+   (148, 4096), (148, 1), (169, 64), (220, 16), (221, 16), (226, 16),
+   (227, 16), (233, 16), (234, 16), (240, 16), (241, 16) (the largest N
+   at which each kernel keeps its triangle in shared memory, and the
+   next: the factor 220, the refined solve 226 at R = 2 and 233 at
+   R = 1, the substitution 240) and (292, 256), in the form each
+   launcher picks there, R = 1 and 2,
    npass 0, 1 and 2 (factor and substitution bit for bit, residual and
    refined solve within 1e-12 relative, the refined solve's r bit for bit
    the residual's, 2-RHS bit for bit two 1-RHS, and at (148, 4096) three
    problems alone bit for bit as in the batch), the f32 ones at (129, 5),
-   (148, 4096) and (292, 256); three solves of the nass = 64 portfolio
+   (148, 4096), (256, 5), (257, 5), (292, 256), (320, 5) and (321, 5)
+   (the f32 substitution's edge at 256, the factor's at 320); three
+   solves of the nass = 64 portfolio
    at B = 256 under "pallas" and under "lu", one digest each (ROADMAP
    F14); then, each driven with the counters set to 0 just
    before it and read just after (wide forms only): BatchSolver on the
@@ -202,8 +207,9 @@ Phases, in order; any failure exits non-zero:
    entry points at (148, 4096); the same batch under "lu", the
    per-problem difference in iterations printed, and warm problems/s of
    both, staged, in turns; the wide forms' device ms at (148, 4096),
-   (148, 1) and (292, 256) beside bound, plain and library (cuSOLVER's
-   LDL^T at B = 256, baddbmm for the residual).  `python3 chip_smoke.py
+   (148, 1) and (292, 256), each with the form it ran in, beside bound,
+   plain, library (cuSOLVER's LDL^T at B = 256, baddbmm for the
+   residual) and occupancy.  `python3 chip_smoke.py
    --wide` runs the build and this phase alone.
 
 The line before the last is the `kernels` JSON, whose `launches` sums
@@ -393,26 +399,37 @@ REPLACES_SEGSUM = {"segment_sum": "cuclarabel_tpu/cones/ops.py:59"}
 SOURCE_SEGSUM = "cuclarabel_torch/csrc/segsum.cu"
 # the wide phase: every wide form against its plain version at (n, m, B):
 # N = 129, the portfolio's N = 148 at B = 4096 and 1, N = 169, the
-# largest N at which the refined solve keeps L in shared memory and the
-# next (226, 227 at R = 2; 233, 234 at R = 1: ldl.refine_form) and the
-# nass = 128 portfolio's N = 292; K's Hs spread as tests/test_torch_cuda.py
-# draws it (10^(+-3)), where two summation orders of a refinement pass
-# agree to 1e-12 (at 10^(+-4) the narrow forms' 1e-9 bar)
+# largest N at which each kernel keeps its triangle in shared memory and
+# the next (the factor 220, 221: ldl.factor_form; the refined solve 226,
+# 227 at R = 2 and 233, 234 at R = 1: ldl.refine_form; the substitution
+# 240, 241: ldl.solve_form) and the nass = 128 portfolio's N = 292; K's
+# Hs spread as tests/test_torch_cuda.py draws it (10^(+-3)), where two
+# summation orders of a refinement pass agree to 1e-12 (at 10^(+-4) the
+# narrow forms' 1e-9 bar)
 WIDE_KERNEL_SHAPES = ((5, 124, 5), (65, 83, 4096), (65, 83, 1),
-                      (5, 164, 64), (113, 113, 16), (113, 114, 16),
-                      (116, 117, 16), (117, 117, 16), (129, 163, 256))
+                      (5, 164, 64), (110, 110, 16), (110, 111, 16),
+                      (113, 113, 16), (113, 114, 16), (116, 117, 16),
+                      (117, 117, 16), (120, 120, 16), (120, 121, 16),
+                      (129, 163, 256))
 # the shapes where a problem is also solved alone (B = 1), to hold its
 # bits to those it has inside the batch: N = 148 at B = 4096
 WIDE_ALONE = ((65, 83, 4096),)
 # the F14 check: this many solves of portfolio_socp(WIDE_NASS, WIDE_REPEAT_B)
 # under "pallas" and under "lu" give one digest each
 WIDE_REPEATS, WIDE_REPEAT_B = 3, 256
-# the KKT dimension of each wide path that runs the refined solve
+# the KKT dimension of each wide path
 WIDE_PATH_N = {"wide_B4096": 148, "wide_B4096_plain": 148,
                "wide_solver": 148, "wide_B256_n292": 292}
+# the wide f64 kernels whose launcher picks a form (shared or streaming)
+WIDE_FORM_KERNELS = ("ldl_factor_wide", "ldl_solve_wide",
+                     "ldl_solve_refine_wide")
 WIDE_SPREAD = 3.0
 TOL_WIDE = 1e-12      # residual and refined solve vs plain, relative
-WIDE_F32_SHAPES = ((129, 5), (148, 4096), (292, 256))  # (N, B)
+# (N, B): the f32 forms at N = 129, 148 and 292, and on both sides of
+# the substitution's shared-memory edge (256, 257) and the factor's (320,
+# 321)
+WIDE_F32_SHAPES = ((129, 5), (148, 4096), (256, 5), (257, 5), (292, 256),
+                   (320, 5), (321, 5))
 # the "pallas" path above 128: the portfolio at nass = 64 (N = 148),
 # B = 4096 staged and plain, its Solver, and nass = 128 (N = 292) at
 # B = 256; problems/s of "pallas" and "lu" over WIDE_REPS warm solves
@@ -2678,8 +2695,10 @@ def hold_wide_to_plain():
                           f"wide kkt_residual at {tag}: right-hand side "
                           f"{t} of r=2 differs from r=1 (bar: bit for "
                           "bit)")
-        print(f"wide kernels ok at {tag}: factor and substitution bit for "
-              "bit with plain, " + ", ".join(
+        print(f"wide kernels ok at {tag}: factor ({ldl.factor_form(N)}) "
+              "and substitution ("
+              + "/".join(ldl.solve_form(N, R) for R in (1, 2))
+              + ", r = 1/2) bit for bit with plain, " + ", ".join(
                   f"{k} within {v:.3e}" for k, v in worst.items())
               + " of plain (relative); refined solve in the "
               + "/".join(ldl.refine_form(N, R) for R in (1, 2))
@@ -2709,8 +2728,10 @@ def hold_wide_to_plain():
               f"inertia ({n}, {m}))")
         note("ldl_factor_batched_wide", L, Lp)
         note("ldl_solve_batched_wide", x, xp)
-        print(f"wide f32 kernels ok at {tag}: bit for bit with plain, "
-              f"inertia ({n}, {m})", flush=True)
+        print(f"wide f32 kernels ok at {tag}: factor "
+              f"({ldl.factor_form(N, torch.float32)}) and substitution "
+              f"({ldl.solve_form(N, 1, torch.float32)}) bit for bit with "
+              f"plain, inertia ({n}, {m})", flush=True)
     return errs
 
 
@@ -3312,17 +3333,21 @@ def phase_precompile(card):
     return rec
 
 
-def refine_forms(paths):
-    """The wide refined solve's launches on the wide paths by form
-    ("shared": L in shared memory, "streaming") and R, from each path's
-    N (WIDE_PATH_N) and ldl.refine_form."""
+def wide_forms(paths, name="ldl_solve_refine_wide"):
+    """A wide f64 kernel's launches on the wide paths by form ("shared":
+    the problem's triangle in shared memory, "streaming") and R, from
+    each path's N (WIDE_PATH_N) and the form its launcher picks there
+    (ldl.factor_form, solve_form, refine_form)."""
     from cuclarabel_torch.kkt import ldl
 
+    form = {"ldl_factor_wide": lambda N, R: ldl.factor_form(N),
+            "ldl_solve_wide": ldl.solve_form,
+            "ldl_solve_refine_wide": ldl.refine_form}[name]
     out = collections.Counter()
     for path, N in WIDE_PATH_N.items():
         for R in (1, 2):
-            out[f"{ldl.refine_form(N, R)}/r{R}"] += paths.get(path, {}).get(
-                f"ldl_solve_refine_wide/r{R}", 0)
+            out[f"{form(N, R)}/r{R}"] += paths.get(path, {}).get(
+                f"{name}/r{R}", 0)
     return dict(out)
 
 
@@ -3352,8 +3377,8 @@ def kernel_entries(paths, errs, times):
                 f"r{R}": sum(launches.get(f"{name}/r{R}", 0)
                              for launches in paths.values())
                 for R in (1, 2)}
-        if name == "ldl_solve_refine_wide":
-            entry["launches_by_form"] = refine_forms(paths)
+        if name in WIDE_FORM_KERNELS:
+            entry["launches_by_form"] = wide_forms(paths, name)
         entry.update(launches=sum(per_path.values()),
                      launches_per_path=per_path, max_abs_err=errs[name])
         t = times[name]
@@ -3417,7 +3442,8 @@ def main():
                                       if kk.split("/")[0] == k),
                  max_abs_err=errs[k], **times[k].get("N148_B4096_r1", {}))
             for k in REPLACES_WIDE],
-            "refine_launches_by_form": refine_forms(paths)}))
+            "launches_by_form": {k: wide_forms(paths, k)
+                                 for k in WIDE_FORM_KERNELS}}))
         return 0
     if sys.argv[1:] == ["--multi"]:
         # the phases that need several cards, and what they compare with

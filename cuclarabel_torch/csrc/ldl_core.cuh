@@ -173,17 +173,27 @@ __device__ inline void rotate_up(T (&a)[S][R]) {
 // lane loads (from an index clamped into the triangle) and computes, and
 // a select keeps or drops the result: the warp never diverges inside a
 // chunk.
+//
+// `wait(p)` runs before the forward sweep reads panel p's columns
+// (entries (i, j), 32 p <= j < 32 p + 32, of every row i > j): a caller
+// whose triangle is still arriving waits there for that panel's copy
+// (ldl_wide.cu's shared substitution); NoWait, the default, does nothing.
 constexpr int kChunk = 4;
 
-template <class T, int R, int S>
+struct NoWait {
+  __device__ void operator()(int) const {}
+};
+
+template <class T, int R, int S, class Wait = NoWait>
 __device__ void warp_solve(const T* ls, const T (&dinv)[S],
-                           T (&x)[S][R], int n) {
+                           T (&x)[S][R], int n, Wait wait = Wait()) {
   const int lane = threadIdx.x & 31;
 
   // forward: x_i -= L_ij x_j for i > j; x_j is final when step j starts.
   // Panel p in slot 0; slot q holds panel (p + q) mod 4.
 #pragma unroll 1
   for (int p = 0; p < S; ++p) {
+    wait(p);
     int row[S], off[S];
 #pragma unroll
     for (int q = 0; q < S; ++q) {
@@ -350,31 +360,38 @@ __device__ void store_rows(const T (&v)[S][R], T* __restrict__ g,
 // (i % 4) * 4 + k % 4 at the block's number, each of the 16 arrays ntp
 // elements long.  Threads on consecutive tiles of a block row read
 // consecutive words of each array, free of bank conflicts; ntp * sizeof(T)
-// is 32 mod 128 bytes, so that the 16 lanes (f64) or 32 lanes (f32) of a
-// row-wise access -- the copy of K, the store of L -- fall on distinct
-// banks too.  The panel buffers hold row i of pivot p at
-// (p * 4 + i % 4) * nbp + i / 4: a tile's four column entries are
-// consecutive words across threads, its four row entries one broadcast.
+// is 32 mod M bytes (M = 128 here, 64 in the wide factor: either puts
+// the four arrays that a row-wise access touches on distinct banks), so
+// that the 16 lanes (f64) or 32 lanes (f32) of a row-wise access -- the
+// copy of K, the store of L -- fall on distinct banks too.  The panel
+// buffers hold row i of pivot p at (p * 4 + i % 4) * nbp + i / 4, nbp
+// padded as ntp: a tile's four column entries are consecutive words
+// across threads, its four row entries one broadcast.
 // Slots outside the triangle (above the diagonal of a diagonal block,
 // rows >= n) hold junk that flows only into such slots.
+//
+// factor_blocked takes the block's threads (kThreads, at least one per
+// row and one warp per 32-row slot of the first strip) and the largest
+// N (kRows) as template arguments: 128 and 128 here, larger in the wide
+// factor of ldl_wide.cu.
 // ---------------------------------------------------------------------
 constexpr int kPanel = 8;
 constexpr int kFactorThreads = 128;
 
-// The least count >= c of T whose bytes are 32 mod 128.
-template <class T>
+// The least count >= c of T whose bytes are 32 mod M.
+template <class T, int M = 128>
 __host__ __device__ inline int bank_pad(int c) {
-  constexpr int m = 128 / sizeof(T), r = 32 / sizeof(T);
+  constexpr int m = M / sizeof(T), r = 32 / sizeof(T);
   return c + ((r - c % m) % m + m) % m;
 }
 
-template <class T>
+template <class T, int M = 128>
 struct FactorLayout {
   int n, nb, ntp, nbp;
   int ba, bl, dinv, sink;  // offsets of the panel buffers, D^-1, the sink
   __host__ __device__ explicit FactorLayout(int n_)
-      : n(n_), nb((n_ + 3) / 4), ntp(bank_pad<T>(tri((n_ + 3) / 4))),
-        nbp(bank_pad<T>((n_ + 3) / 4)), ba(16 * ntp),
+      : n(n_), nb((n_ + 3) / 4), ntp(bank_pad<T, M>(tri((n_ + 3) / 4))),
+        nbp(bank_pad<T, M>((n_ + 3) / 4)), ba(16 * ntp),
         bl(ba + kPanel * 4 * nbp), dinv(bl + kPanel * 4 * nbp),
         sink(dinv + n_) {}
   // element (i, k) of the triangle
@@ -394,9 +411,9 @@ struct FactorLayout {
 // blocked triangle a with cp.async, one warp per row, lanes on
 // consecutive columns (coalesced, and free of bank conflicts).  Commits
 // nothing and waits for nothing.
-template <class T>
+template <class T, int M>
 __device__ void load_factor_input(const T* __restrict__ g, T* a,
-                                  const FactorLayout<T>& f) {
+                                  const FactorLayout<T, M>& f) {
   const unsigned s0 = static_cast<unsigned>(__cvta_generic_to_shared(a));
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
@@ -414,10 +431,11 @@ __device__ inline void strip_warps_sync(int warps) {
 }
 
 // The first of the warps that factor the strips: rotated over the
-// block's warps from block to block, so that the strips of the blocks
-// resident on an SM are spread over its four schedulers.
+// block's kWarps warps from block to block, so that the strips of the
+// blocks resident on an SM are spread over its four schedulers.
+template <int kWarps = kFactorThreads / kWarp>
 __device__ inline int strip_warp() {
-  return blockIdx.x % (kFactorThreads / kWarp);
+  return blockIdx.x % kWarps;
 }
 
 // (a): strip warp w (w = 0, 1, ... from strip_warp()) factors rows
@@ -445,8 +463,8 @@ __device__ inline int strip_warp() {
 // D^-1 = inf, which fails the solve.  Only an exact zero is replaced.
 // Returns `finite` and whether every D^-1 of the panel is finite, in
 // every lane.
-template <class T, int S>
-__device__ bool factor_strip(T* sm, const FactorLayout<T>& f,
+template <class T, int S, int M>
+__device__ bool factor_strip(T* sm, const FactorLayout<T, M>& f,
                              const T* __restrict__ reg, int j0, int w,
                              int warps, bool finite) {
   const int lane = threadIdx.x & 31;
@@ -504,8 +522,8 @@ __device__ bool factor_strip(T* sm, const FactorLayout<T>& f,
 // (c): the trailing triangle, block rows and columns >= t0 / 4, one 4 x 4
 // tile per thread and round.  The next pivot's panel entries are loaded
 // while the current pivot's updates run.
-template <class T>
-__device__ void factor_trailing(T* a, const FactorLayout<T>& f, int t0) {
+template <class T, int M>
+__device__ void factor_trailing(T* a, const FactorLayout<T, M>& f, int t0) {
   const T* ba = a + f.ba;
   const T* bl = a + f.bl;
   const int b0 = t0 >> 2;
@@ -569,10 +587,10 @@ __device__ inline typename Pair<T>::type pack(const T (&v)[2]) {
   return p;
 }
 
-template <class T, int W>
+template <class T, int W, int kRows, int M>
 __device__ void store_factor_rows(const T* a, T* __restrict__ g,
-                                  const FactorLayout<T>& f) {
-  constexpr int kIts = kMaxN / (kWarp * W);  // column steps to cover a row
+                                  const FactorLayout<T, M>& f) {
+  constexpr int kIts = kRows / (kWarp * W);  // column steps to cover a row
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   const int n = f.n;
@@ -603,30 +621,34 @@ __device__ void store_factor_rows(const T* a, T* __restrict__ g,
   }
 }
 
-template <class T>
+template <class T, int kRows, int M>
 __device__ void store_factor(const T* a, T* __restrict__ g,
-                             const FactorLayout<T>& f) {
+                             const FactorLayout<T, M>& f) {
   if (f.n % 2 == 0)
-    store_factor_rows<T, 2>(a, g, f);
+    store_factor_rows<T, 2, kRows>(a, g, f);
   else
-    store_factor_rows<T, 1>(a, g, f);
+    store_factor_rows<T, 1, kRows>(a, g, f);
 }
 
-// The whole factor of one problem by the calling block (kFactorThreads
-// threads, at least one per row): K (N, N) row-major, of which the lower
-// triangle is read; reg (N) or nullptr; L (N, N) and dinv (N) written.
-// smem holds FactorLayout(n).smem() elements.  Returns, in the lanes of
-// strip_warp(), whether every D^-1 is finite.
-template <class T>
+// The whole factor of one problem by the calling block (kThreads
+// threads, at least one per row, N <= kRows): K (N, N) row-major, of
+// which the lower triangle is read; reg (N) or nullptr; L (N, N) and
+// dinv (N) written.  smem holds FactorLayout<T, M>(n).smem() elements.
+// Returns, in the lanes of strip_warp<kThreads / 32>(), whether every
+// D^-1 is finite.
+template <class T, int kThreads = kFactorThreads, int kRows = kMaxN,
+          int M = 128>
 __device__ bool factor_blocked(const T* __restrict__ K,
                                const T* __restrict__ reg, T* __restrict__ L,
                                T* __restrict__ dinv, T* smem, int n) {
-  static_assert(kFactorThreads >= kMaxN, "a thread per row for reg");
-  const FactorLayout<T> f(n);
+  static_assert(kThreads >= kRows, "a thread per row for reg");
+  static_assert(kRows % (2 * kWarp) == 0, "whole column steps of a row");
+  const FactorLayout<T, M> f(n);
   T* a = smem;
-  constexpr int kWarps = kFactorThreads / kWarp;
+  constexpr int kWarps = kThreads / kWarp;
   // this warp's rank among the strip warps
-  const int w = ((threadIdx.x >> 5) - strip_warp() + kWarps) % kWarps;
+  const int w =
+      ((threadIdx.x >> 5) - strip_warp<kWarps>() + kWarps) % kWarps;
   const int i = threadIdx.x;
   load_factor_input(K, a, f);
   cp_async_commit();
@@ -649,7 +671,7 @@ __device__ bool factor_blocked(const T* __restrict__ K,
       __syncthreads();
     }
   }
-  store_factor(a, L, f);
+  store_factor<T, kRows>(a, L, f);
   for (int k = threadIdx.x; k < n; k += blockDim.x) dinv[k] = a[f.dinv + k];
   return finite;
 }

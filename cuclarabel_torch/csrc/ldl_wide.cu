@@ -5,33 +5,44 @@
 // Six kernels, each computing the function of its narrow form and of its
 // TPU counterpart, batch-first and row-major as there: K and L (B, N, N),
 // D^-1 (B, N), right-hand sides (B, N, R), R in {1, 2}:
-//   ldl_factor_wide_kernel<double>     K1w: pallas_dd.py::_factor_impl
+//   ldl_factor_wide_kernel<double, F>  K1w: pallas_dd.py::_factor_impl
 //                                      (_ldl_kernel_looped above N = 96)
-//   ldl_solve_wide_kernel<double, R>   K3w / K3rw: _solve_impl, _solve_impl_r
+//   ldl_solve_wide_kernel<double, R, S>  K3w / K3rw: _solve_impl,
+//                                      _solve_impl_r
 //   kkt_residual_wide_kernel<double, R>  K4w: _residual_impl
 //   ldl_solve_refine_wide_kernel<double, R, S>  K2w / K2rw: _refine_impl,
-//                                      _refine_impl_r (S > 0: L in shared
-//                                      memory, up to N = 233 / 226)
-//   ldl_factor_wide_kernel<float>      K5w: pallas_ldl.py::_factor_impl
-//   ldl_solve_wide_kernel<float, 1>    K6w: pallas_ldl.py::_solve_impl
+//                                      _refine_impl_r
+//   ldl_factor_wide_kernel<float, F>   K5w: pallas_ldl.py::_factor_impl
+//   ldl_solve_wide_kernel<float, 1, S> K6w: pallas_ldl.py::_solve_impl
 // kkt/ldl.py and kkt/ldl_f32.py launch them above N = 128 and the narrow
 // forms at and below it.
 //
 // Why the narrow forms stop at 128: the one-warp sweeps keep x in
 // ceil(N / 32) <= 4 register slots per lane, the factor keeps the whole
-// lower triangle in shared memory with a thread per row, and the refined
-// solve keeps both triangles there (132 KB at N = 128; 176 KB at N = 148,
-// and above N ~ 168 more than the 227 KB one block may have).  Here one
-// block takes one problem.  The factor and the substitution keep only
-// vectors and one panel in shared memory and read the triangles from
-// device memory, where a problem's rows stay in the L2 while its block
-// works on them.  The residual reads K's lower triangle once, in 32 x 32
-// tiles held in registers (block_residual); the refined solve copies L
-// into shared memory once where it fits, sweeps there in one warp, and
-// runs its residuals through the same body.  The kernels take any N
-// whose panel buffers fit in shared memory (the factor's 16 N words:
-// N <= ~1,800 in f64), with size_t offsets; the refined solve's shared
-// form N from 129 to its fit.
+// lower triangle in shared memory with a thread per row in a block of
+// 128, and the refined solve keeps both triangles there (132 KB at
+// N = 128; 176 KB at N = 148, and above N ~ 168 more than the 227 KB one
+// block may have).  Here one block takes one problem, and the factor,
+// the substitution and the refined solve each have two forms, which the
+// launcher picks from N and what one block of the device may opt into
+// (factor_form, solve_form, refine_form; on an H100):
+//  - "shared" (F = 1, S = ceil(N / 32) > 0): the problem's triangle lives
+//    in shared memory.  The factor runs the narrow factor's blocked body
+//    (ldl_core.cuh::factor_blocked) in a bigger block and a leaner
+//    layout, up to N = 220 (f64) and 320 (f32); the substitution and the
+//    refined solve sweep L in one warp (ldl_core.cuh::warp_solve), the
+//    substitution up to N = 240 (f64) and 256 (f32), the refined solve
+//    up to 233 (R = 1) and 226 (R = 2);
+//  - "streaming" (F = 0, S = 0), above: the factor and the substitution
+//    keep only vectors and one panel in shared memory and read the
+//    triangles from device memory, where a problem's rows stay in the L2
+//    while its block works on them; the refined solve sweeps as the
+//    substitution does.
+// The residual reads K's lower triangle once, in 32 x 32 tiles held in
+// registers (block_residual), and the refined solve runs its residuals
+// through the same body.  The streaming forms take any N whose panel
+// buffers fit in shared memory (the factor's 16 N words: N <= ~1,800 in
+// f64), with size_t offsets.
 //
 // The contract of the narrow forms holds:
 //  - the factor is bit for bit its plain version (kkt/ldl.py::_factor):
@@ -77,7 +88,25 @@ __device__ inline T nanmax(T a, T b) {
 // ---------------------------------------------------------------------
 // The factor: K + diag(reg) = (I + L) D (I + L)^T, no pivoting.
 //
-// Right-looking, in panels of kWidePanel = 8 pivots.  The working lower
+// The shared form (F = 1) is the narrow factor's body, factor_blocked
+// (ldl_core.cuh), in a block of kSharedFactorThreads (a warp per 32-row
+// slot of the first strip, up to 8 in f64 and 10 in f32, and a thread per
+// row): K's lower triangle is requested once with cp.async into the 4 x 4
+// blocked triangle in shared memory and regularised on the diagonal
+// there; each 8-pivot panel's strip is factored in registers by its strip
+// warps, and the trailing triangle takes the panel's updates in 4 x 4
+// register tiles dealt out afresh each panel, two block barriers per
+// panel; L is written once at the end, whole.  The trailing triangle
+// never leaves the SM, so device traffic is the bound's own: K's
+// triangle in, L, D^-1 and ok out.  The layout pads its arrays to 32 mod
+// 64 bytes (the narrow factor's 32 mod 128 costs 4 KB more at N = 148):
+// 114,592 bytes at N = 148, so that two blocks share an SM's 228 KB; it
+// fits the 227 KB one block may have up to N = 220 (f64) and N = 320
+// (f32, where the block's threads end it).  Every element takes the
+// plain version's updates in its order, as in the narrow factor.
+//
+// The streaming form (F = 0), above the fit: right-looking, in panels of
+// kWidePanel = 8 pivots.  The working lower
 // triangle lives in L's own output rows in device memory (the first
 // panel reads it from K, adding reg on the diagonal, and writes its
 // updates to L, so K is read once and never written).  Per panel j0:
@@ -105,86 +134,106 @@ __device__ inline T nanmax(T a, T b) {
 // about N^3 / 48 words read and as many written per problem (1.08 MB at
 // N = 148, 4.4 GB at B = 4096): what does not stay in the L2 goes to
 // device memory.  A
-// design that keeps the triangle in shared memory (N <~ 237) or in a
-// cluster's distributed shared memory is later work.
-// The f32 form passes reg and ok as nullptr: no regularisation, no flags.
+// design that keeps the triangle in a cluster's distributed shared
+// memory above the shared form's fit is later work.
+// The f32 forms pass reg and ok as nullptr: no regularisation, no flags.
 // ---------------------------------------------------------------------
+// the shared factor's block: 8 warps in f64 (two blocks an SM at
+// N = 148, 128 registers a thread), 10 in f32 (its fit reaches N = 320)
 template <class T>
-__global__ void __launch_bounds__(kWideThreads)
+constexpr int kSharedFactorThreads = sizeof(T) == 8 ? 256 : 320;
+template <class T, int F>
+constexpr int kFactorBlock = F ? kSharedFactorThreads<T> : kWideThreads;
+template <class T, int F>
+constexpr int kFactorMinBlocks = F && sizeof(T) == 8 ? 2 : 1;
+// the shared factor's layout pads its arrays to 32 mod kLeanPad bytes
+constexpr int kLeanPad = 64;
+
+template <class T, int F>
+__global__ void __launch_bounds__(kFactorBlock<T, F>, kFactorMinBlocks<T, F>)
     ldl_factor_wide_kernel(const T* __restrict__ K, const T* __restrict__ reg,
                            T* __restrict__ L, T* __restrict__ Dinv,
                            unsigned char* __restrict__ ok, int n) {
-  T* sa = reinterpret_cast<T*>(wide_smem);  // [kWidePanel][n]: a_ij
-  T* sl = sa + kWidePanel * n;              // [kWidePanel][n]: l_ij
   const size_t b = blockIdx.x;
   const size_t nn = (size_t)n * n;
-  const T* Kb = K + b * nn;
-  T* Lb = L + b * nn;
   const T* rb = reg != nullptr ? reg + b * n : nullptr;
-  T* db = Dinv + b * n;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  bool finite = true;
+  if constexpr (F != 0) {
+    constexpr int kT = kSharedFactorThreads<T>;
+    const bool finite = factor_blocked<T, kT, kT, kLeanPad>(
+        K + b * nn, rb, L + b * nn, Dinv + b * n,
+        reinterpret_cast<T*>(wide_smem), n);
+    if (ok != nullptr && threadIdx.x == kWarp * strip_warp<kT / kWarp>())
+      ok[b] = finite ? 1 : 0;
+  } else {
+    T* sa = reinterpret_cast<T*>(wide_smem);  // [kWidePanel][n]: a_ij
+    T* sl = sa + kWidePanel * n;              // [kWidePanel][n]: l_ij
+    const T* Kb = K + b * nn;
+    T* Lb = L + b * nn;
+    T* db = Dinv + b * n;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    bool finite = true;
 #pragma unroll 1
-  for (int j0 = 0; j0 < n; j0 += kWidePanel) {
-    const int P = min(kWidePanel, n - j0);
-    const bool first = j0 == 0;
-    const T* src = first ? Kb : Lb;  // the working lower triangle
-    // (a) the strip, lower entries only (junk above the diagonal unread)
-    for (int e = threadIdx.x; e < (n - j0) * P; e += blockDim.x) {
-      const int i = j0 + e / P, c = e % P, k = j0 + c;
-      T v = T(0);
-      if (k <= i) {
-        v = src[(size_t)i * n + k];
-        if (first && k == i && rb != nullptr) v += rb[i];  // K + diag(reg)
+    for (int j0 = 0; j0 < n; j0 += kWidePanel) {
+      const int P = min(kWidePanel, n - j0);
+      const bool first = j0 == 0;
+      const T* src = first ? Kb : Lb;  // the working lower triangle
+      // (a) the strip, lower entries only (junk above the diagonal unread)
+      for (int e = threadIdx.x; e < (n - j0) * P; e += blockDim.x) {
+        const int i = j0 + e / P, c = e % P, k = j0 + c;
+        T v = T(0);
+        if (k <= i) {
+          v = src[(size_t)i * n + k];
+          if (first && k == i && rb != nullptr) v += rb[i];  // K + diag(reg)
+        }
+        sa[c * n + i] = v;
       }
-      sa[c * n + i] = v;
-    }
-    __syncthreads();
-    // (b) the panel's pivots
+      __syncthreads();
+      // (b) the panel's pivots
 #pragma unroll 1
-    for (int p = 0; p < P; ++p) {
-      const int j = j0 + p;
-      T d = sa[p * n + j];
-      if (rb != nullptr && d == T(0)) d = rb[j];
-      const T dj = T(1) / d;
-      if (threadIdx.x == 0) {
-        db[j] = dj;
-        finite = finite && isfinite(dj);
+      for (int p = 0; p < P; ++p) {
+        const int j = j0 + p;
+        T d = sa[p * n + j];
+        if (rb != nullptr && d == T(0)) d = rb[j];
+        const T dj = T(1) / d;
+        if (threadIdx.x == 0) {
+          db[j] = dj;
+          finite = finite && isfinite(dj);
+        }
+        for (int i = j + 1 + threadIdx.x; i < n; i += blockDim.x) {
+          const T a = sa[p * n + i];
+          sl[p * n + i] = a * dj;
+          for (int c = p + 1; c < P && j0 + c <= i; ++c) {
+            const T lc = sa[p * n + j0 + c] * dj;
+            sa[c * n + i] = sa[c * n + i] - a * lc;
+          }
+        }
+        __syncthreads();
       }
-      for (int i = j + 1 + threadIdx.x; i < n; i += blockDim.x) {
-        const T a = sa[p * n + i];
-        sl[p * n + i] = a * dj;
-        for (int c = p + 1; c < P && j0 + c <= i; ++c) {
-          const T lc = sa[p * n + j0 + c] * dj;
-          sa[c * n + i] = sa[c * n + i] - a * lc;
+      // (c) L's columns of the panel
+      for (int e = threadIdx.x; e < n * P; e += blockDim.x) {
+        const int i = e / P, c = e % P;
+        Lb[(size_t)i * n + j0 + c] = i > j0 + c ? sl[c * n + i] : T(0);
+      }
+      // (d) the trailing triangle (P = kWidePanel whenever it is not empty)
+      const int t0 = j0 + P;
+      for (int i = t0 + warp; i < n; i += kWideWarps) {
+        T a[kWidePanel];
+#pragma unroll
+        for (int p = 0; p < kWidePanel; ++p) a[p] = sa[p * n + i];
+        const T* srow = src + (size_t)i * n;
+        T* lrow = Lb + (size_t)i * n;
+        for (int k = t0 + lane; k <= i; k += kWarp) {
+          T v = srow[k];
+          if (first && k == i && rb != nullptr) v += rb[i];
+#pragma unroll
+          for (int p = 0; p < kWidePanel; ++p) v = v - a[p] * sl[p * n + k];
+          lrow[k] = v;
         }
       }
       __syncthreads();
     }
-    // (c) L's columns of the panel
-    for (int e = threadIdx.x; e < n * P; e += blockDim.x) {
-      const int i = e / P, c = e % P;
-      Lb[(size_t)i * n + j0 + c] = i > j0 + c ? sl[c * n + i] : T(0);
-    }
-    // (d) the trailing triangle (P = kWidePanel whenever it is not empty)
-    const int t0 = j0 + P;
-    for (int i = t0 + warp; i < n; i += kWideWarps) {
-      T a[kWidePanel];
-#pragma unroll
-      for (int p = 0; p < kWidePanel; ++p) a[p] = sa[p * n + i];
-      const T* srow = src + (size_t)i * n;
-      T* lrow = Lb + (size_t)i * n;
-      for (int k = t0 + lane; k <= i; k += kWarp) {
-        T v = srow[k];
-        if (first && k == i && rb != nullptr) v += rb[i];
-#pragma unroll
-        for (int p = 0; p < kWidePanel; ++p) v = v - a[p] * sl[p * n + k];
-        lrow[k] = v;
-      }
-    }
-    __syncthreads();
+    if (threadIdx.x == 0 && ok != nullptr) ok[b] = finite ? 1 : 0;
   }
-  if (threadIdx.x == 0 && ok != nullptr) ok[b] = finite ? 1 : 0;
 }
 
 // ---------------------------------------------------------------------
@@ -544,24 +593,106 @@ __device__ void block_absmax(const T* v, int n, T* red, T (&m)[R]) {
 }
 
 // ---------------------------------------------------------------------
-// ldl_solve_wide: x = ((I + L) D (I + L)^T)^-1 b, b in shared memory for
-// the sweeps, L read from device memory.  Bound: L's strict triangle,
-// D^-1, b and x: 0.37 GB at (148, 4096), 0.11 ms.
+// ldl_solve_wide: x = ((I + L) D (I + L)^T)^-1 b.  Bound: L's strict
+// triangle, D^-1, b and x: 0.37 GB at (148, 4096), 0.11 ms.
+//
+// Two forms, chosen by the launcher from N and the shared memory one
+// block may opt into (solve_form).  S > 0 (the "shared" form,
+// S = ceil(N / 32) slots, 5-8): L's strict triangle is copied into shared
+// memory, packed by rows (row i at tri(i)) as the refined solve's shared
+// form keeps it, and warp 0 sweeps it with the narrow kernels' warp_solve
+// (ldl_core.cuh), x in S register slots a lane, one shuffle a step, no
+// block barrier, in _solve's order.  The copy overlaps the forward sweep:
+// the block's other warps request the triangle as one cp.async group per
+// 32-column panel (copy_panels), in the order the sweep needs them, and
+// release each panel on its own named barrier once it has arrived; warp 0
+// waits there before the panel's first step, so the sweep starts when
+// the first panel is in, not the whole triangle, and the backward sweep
+// runs on shared memory alone.  A block of kLoadThreads: three warps
+// keep the copies in flight, as in the narrow substitution.  Shared
+// memory tri(N) words: 88,208 bytes at N = 148 (two blocks an SM); it
+// fits the 227 KB one block may have up to N = 240 in f64 (the slots end
+// the f32 form at N = 256).
+// S = 0 (the "streaming" form, above): b in shared memory, L read from
+// device memory by block_solve.
 // ---------------------------------------------------------------------
-template <class T, int R>
-__global__ void __launch_bounds__(kWideThreads)
+// Request, by the threads of warps 1 and up, L's strict lower triangle
+// (row-major (n, n) in device memory) into the packed triangle Ls, row i
+// at tri(i), as S cp.async groups: group p holds panel p, the entries
+// (i, k) with 32 p <= k < min(32 p + 32, i), of rows i > 32 p.  Lanes on
+// consecutive columns of one row: a row's part of a panel is one
+// coalesced request (256 bytes in f64).
+template <class T, int S>
+__device__ void copy_panels(const T* __restrict__ Lb, T* Ls, int n) {
+  const unsigned s0 = static_cast<unsigned>(__cvta_generic_to_shared(Ls));
+  const int t = threadIdx.x - kWarp, nt = blockDim.x - kWarp;
+#pragma unroll
+  for (int p = 0; p < S; ++p) {
+    const int p0 = kWarp * p;
+    // rows p0 + 1 .. n - 1, 32 columns each (the first 32 rows only in
+    // part: k < i)
+    const int slots = max(n - 1 - p0, 0) * kWarp;
+    for (int e = t; e < slots; e += nt) {
+      const int i = p0 + 1 + (e >> 5), k = p0 + (e & 31);
+      if (k < i)
+        cp_async(s0 + sizeof(T) * (tri(i) + k), Lb + (size_t)i * n + k);
+    }
+    cp_async_commit();
+  }
+}
+
+// Wait for this thread's panels P, P + 1, ... S - 1 in order, and
+// release each to warp 0 (bar.arrive on named barrier 1 + p: the copying
+// warps arrive, warp 0 syncs, so its reads follow every copy of the
+// panel).
+template <int P, int S>
+__device__ void release_panels() {
+  if constexpr (P < S) {
+    cp_async_wait<S - 1 - P>();
+    asm volatile("bar.arrive %0, %1;\n" ::"r"(1 + P), "r"(blockDim.x)
+                 : "memory");
+    release_panels<P + 1, S>();
+  }
+}
+
+// warp_solve's wait: panel p of the triangle has arrived (named barrier
+// 1 + p, which the copying warps release)
+struct PanelArrived {
+  __device__ void operator()(int p) const {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + p), "r"(blockDim.x)
+                 : "memory");
+  }
+};
+
+template <class T, int R, int S>
+__global__ void __launch_bounds__(S > 0 ? kLoadThreads : kWideThreads)
     ldl_solve_wide_kernel(const T* __restrict__ L, const T* __restrict__ Dinv,
                           const T* __restrict__ bg, T* __restrict__ xg,
                           int n) {
-  T* xs = reinterpret_cast<T*>(wide_smem);  // (n, R)
   const size_t b = blockIdx.x;
-  const T* bb = bg + b * n * R;
-  for (int e = threadIdx.x; e < n * R; e += blockDim.x) xs[e] = bb[e];
-  __syncthreads();
-  block_solve<T, R>(L + b * n * n, Dinv + b * n, xs, n);
-  T* xb = xg + b * n * R;
-  for (int e = threadIdx.x; e < n * R; e += blockDim.x) xb[e] = xs[e];
+  if constexpr (S > 0) {
+    T* Ls = reinterpret_cast<T*>(wide_smem);  // tri(n), row i at tri(i)
+    if (threadIdx.x >= kWarp) {
+      copy_panels<T, S>(L + b * n * n, Ls, n);
+      release_panels<0, S>();
+    } else {
+      T dinv[S], v[S][R];
+      load_dinv<T>(Dinv + b * n, dinv, n);
+      load_rows<T, R>(bg + b * n * R, v, n);
+      warp_solve<T, R>(Ls, dinv, v, n, PanelArrived());
+      store_rows<T, R>(v, xg + b * n * R, n);
+    }
+  } else {
+    T* xs = reinterpret_cast<T*>(wide_smem);  // (n, R)
+    const T* bb = bg + b * n * R;
+    for (int e = threadIdx.x; e < n * R; e += blockDim.x) xs[e] = bb[e];
+    __syncthreads();
+    block_solve<T, R>(L + b * n * n, Dinv + b * n, xs, n);
+    T* xb = xg + b * n * R;
+    for (int e = threadIdx.x; e < n * R; e += blockDim.x) xb[e] = xs[e];
+  }
 }
+
 
 // ---------------------------------------------------------------------
 // kkt_residual_wide: r = b - K x, K symmetric, its lower triangle read
@@ -712,9 +843,9 @@ __global__ void __launch_bounds__(kWideThreads, kRefineBlocks)
 }
 
 // f(std::integral_constant<int, S>{}) for S = slots(n), 5-8 (N from 129
-// to 256): the instantiations of the shared form, launched only where
-// refine_form picks it (N <= 233 at R = 1, 226 at R = 2 on an H100); an
-// N outside them returns cudaErrorInvalidValue.
+// to 256): the instantiations of the shared forms of the substitution
+// and the refined solve, launched only where solve_form and refine_form
+// pick them; an N outside them returns cudaErrorInvalidValue.
 template <class F>
 inline int with_shared_slots(int n, F&& f) {
   switch (slots(n)) {
@@ -729,7 +860,13 @@ inline int with_shared_slots(int n, F&& f) {
 template <class T>
 size_t factor_smem(int n) { return sizeof(T) * 2 * kWidePanel * (size_t)n; }
 template <class T>
+size_t shared_factor_smem(int n) {
+  return sizeof(T) * (size_t)FactorLayout<T, kLeanPad>(n).smem();
+}
+template <class T>
 size_t vector_smem(int n, int r) { return sizeof(T) * (size_t)n * r; }
+template <class T>
+size_t shared_solve_smem(int n) { return sizeof(T) * (size_t)tri(n); }
 template <class T>
 size_t kkt_residual_smem(int n, int r) {
   return residual_smem<T>(r, kResWarps) + sizeof(T) * 2 * (size_t)n * r;
@@ -741,17 +878,40 @@ size_t refine_smem(int n, int r, bool shared_l) {
                       (shared_l ? (size_t)tri(n) : 0));
 }
 
-// The form of the wide refined solve at (n, r) on the current device: 1
-// (L in shared memory) where S = slots(n) has an instantiation and
-// refine_smem fits what one block may opt into, 0 (streaming) above; a
-// negative CUDA error where the device cannot be asked.
-int refine_form(int n, int r) {
+// The shared memory one block of the current device may opt into, in
+// bytes; a negative CUDA error where the device cannot be asked.
+int smem_optin() {
   int dev = 0, bytes = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&bytes,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return -(int)e;
+  return e == cudaSuccess ? bytes : -(int)e;
+}
+
+// The forms of the wide kernels at N = n (and R = r) on the current
+// device: 1 ("shared": the problem's triangle in shared memory) where the
+// form's layout fits what one block may opt into and its block has the
+// warps (the factor) or its instantiation the slots (the sweeps), 0
+// ("streaming") elsewhere; a negative CUDA error where the device cannot
+// be asked.  The launchers launch the form these pick, and nothing else.
+template <class T>
+int factor_form(int n) {
+  const int bytes = smem_optin();
+  if (bytes < 0) return bytes;
+  return n <= kSharedFactorThreads<T> &&
+         shared_factor_smem<T>(n) <= (size_t)bytes;
+}
+template <class T>
+int solve_form(int n) {
+  const int bytes = smem_optin();
+  if (bytes < 0) return bytes;
+  const int s = slots(n);
+  return s >= 5 && s <= 8 && shared_solve_smem<T>(n) <= (size_t)bytes;
+}
+int refine_form(int n, int r) {
+  const int bytes = smem_optin();
+  if (bytes < 0) return bytes;
   const int s = slots(n);
   return s >= 5 && s <= 8 && refine_smem<double>(n, r, true) <= (size_t)bytes;
 }
@@ -777,15 +937,15 @@ cudaError_t allow_all_smem(F* kernel, DeviceFlags& done) {
   return e;
 }
 
-template <class T>
+template <class T, int F>
 cudaError_t ready_factor() {
   static DeviceFlags done = {};
-  return allow_all_smem(ldl_factor_wide_kernel<T>, done);
+  return allow_all_smem(ldl_factor_wide_kernel<T, F>, done);
 }
-template <class T, int R>
+template <class T, int R, int S>
 cudaError_t ready_solve() {
   static DeviceFlags done = {};
-  return allow_all_smem(ldl_solve_wide_kernel<T, R>, done);
+  return allow_all_smem(ldl_solve_wide_kernel<T, R, S>, done);
 }
 template <int R>
 cudaError_t ready_residual() {
@@ -798,24 +958,53 @@ cudaError_t ready_refine() {
   return allow_all_smem(ldl_solve_refine_wide_kernel<double, R, S>, done);
 }
 
-template <class T>
-int launch_factor(const T* K, const T* reg, T* L, T* Dinv,
-                  unsigned char* ok, int B, int n, cudaStream_t stream) {
-  cudaError_t e = ready_factor<T>();
+// Each form's launch: its block, its shared memory.
+template <class T, int F>
+int launch_factor_form(const T* K, const T* reg, T* L, T* Dinv,
+                       unsigned char* ok, int B, int n, cudaStream_t stream) {
+  cudaError_t e = ready_factor<T, F>();
   if (e != cudaSuccess) return (int)e;
-  ldl_factor_wide_kernel<T><<<B, kWideThreads, factor_smem<T>(n), stream>>>(
-      K, reg, L, Dinv, ok, n);
+  constexpr int kThreads = kFactorBlock<T, F>;
+  const size_t smem = F ? shared_factor_smem<T>(n) : factor_smem<T>(n);
+  ldl_factor_wide_kernel<T, F><<<B, kThreads, smem, stream>>>(K, reg, L,
+                                                              Dinv, ok, n);
   return (int)cudaGetLastError();
 }
 
+// In the form factor_form picks at n.
+template <class T>
+int launch_factor(const T* K, const T* reg, T* L, T* Dinv,
+                  unsigned char* ok, int B, int n, cudaStream_t stream) {
+  const int form = factor_form<T>(n);
+  if (form < 0) return -form;
+  return form ? launch_factor_form<T, 1>(K, reg, L, Dinv, ok, B, n, stream)
+              : launch_factor_form<T, 0>(K, reg, L, Dinv, ok, B, n, stream);
+}
+
+template <class T, int R, int S>
+int launch_solve_form(const T* L, const T* Dinv, const T* b, T* x, int B,
+                      int n, cudaStream_t stream) {
+  cudaError_t e = ready_solve<T, R, S>();
+  if (e != cudaSuccess) return (int)e;
+  constexpr int kThreads = S > 0 ? kLoadThreads : kWideThreads;
+  const size_t smem = S > 0 ? shared_solve_smem<T>(n) : vector_smem<T>(n, R);
+  ldl_solve_wide_kernel<T, R, S><<<B, kThreads, smem, stream>>>(L, Dinv, b,
+                                                                x, n);
+  return (int)cudaGetLastError();
+}
+
+// In the form solve_form picks at n.
 template <class T, int R>
 int launch_solve(const T* L, const T* Dinv, const T* b, T* x, int B, int n,
                  cudaStream_t stream) {
-  cudaError_t e = ready_solve<T, R>();
-  if (e != cudaSuccess) return (int)e;
-  ldl_solve_wide_kernel<T, R><<<B, kWideThreads, vector_smem<T>(n, R),
-                                stream>>>(L, Dinv, b, x, n);
-  return (int)cudaGetLastError();
+  const int form = solve_form<T>(n);
+  if (form < 0) return -form;
+  if (form)
+    return with_shared_slots(n, [&](auto S) {
+      return launch_solve_form<T, R, decltype(S)::value>(L, Dinv, b, x, B, n,
+                                                         stream);
+    });
+  return launch_solve_form<T, R, 0>(L, Dinv, b, x, B, n, stream);
 }
 
 template <int R>
@@ -849,6 +1038,30 @@ int occupancy(F* kernel, cudaError_t ready, int threads, size_t smem,
   if (ready != cudaSuccess) return (int)ready;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, kernel, threads, smem);
+}
+
+template <class T, int F>
+int factor_occupancy(int n, int* blocks, int* threads) {
+  *threads = kFactorBlock<T, F>;
+  return occupancy(ldl_factor_wide_kernel<T, F>, ready_factor<T, F>(),
+                   *threads,
+                   F ? shared_factor_smem<T>(n) : factor_smem<T>(n), blocks);
+}
+
+template <class T, int R, int S>
+int solve_occupancy(int n, int* blocks, int* threads) {
+  *threads = S > 0 ? kLoadThreads : kWideThreads;
+  return occupancy(ldl_solve_wide_kernel<T, R, S>, ready_solve<T, R, S>(),
+                   *threads,
+                   S > 0 ? shared_solve_smem<T>(n) : vector_smem<T>(n, R),
+                   blocks);
+}
+
+template <class T, int R>
+int shared_solve_occupancy(int n, int* blocks, int* threads) {
+  return with_shared_slots(n, [&](auto S) {
+    return solve_occupancy<T, R, decltype(S)::value>(n, blocks, threads);
+  });
 }
 
 bool bad_shape(int B, int n, int r) {
@@ -887,8 +1100,21 @@ int cc_kkt_residual_wide(const double* K, const double* x, const double* b,
                                      (cudaStream_t)stream);
 }
 
-// 1 where the wide refined solve keeps L in shared memory at (n, r) on
-// the current device, 0 where it streams L; a negative CUDA error.
+// The forms the launchers pick on the current device: 1 "shared", 0
+// "streaming", a negative CUDA error.  word: the element's bytes, 8 (the
+// f64 kernels) or 4 (f32).
+int cc_factor_form_wide(int n, int word) {
+  if (bad_shape(1, n, 1) || (word != 4 && word != 8))
+    return -(int)cudaErrorInvalidValue;
+  return word == 8 ? factor_form<double>(n) : factor_form<float>(n);
+}
+
+int cc_solve_form_wide(int n, int r, int word) {
+  if (bad_shape(1, n, r) || (word != 4 && word != 8) || (word == 4 && r != 1))
+    return -(int)cudaErrorInvalidValue;
+  return word == 8 ? solve_form<double>(n) : solve_form<float>(n);
+}
+
 int cc_refine_form_wide(int n, int r) {
   if (bad_shape(1, n, r)) return -(int)cudaErrorInvalidValue;
   return refine_form(n, r);
@@ -933,11 +1159,13 @@ int cc_ldl_solve_wide_f32(const float* L, const float* Dinv, const float* b,
   return launch_solve<float, 1>(L, Dinv, b, x, B, n, (cudaStream_t)stream);
 }
 
-// Resident blocks per SM and threads per block of one wide kernel's
+// Resident blocks per SM and threads per block of one wide kernel form's
 // launch at N = n, R = r on the current device.  kernel: 0 ldl_factor,
-// 1 ldl_solve, 2 kkt_residual, 3 ldl_solve_refine (streaming), 6
-// ldl_solve_refine (L in shared memory) (f64), 4 ldl_factor_batched, 5
-// ldl_solve_batched (f32).
+// 1 ldl_solve, 2 kkt_residual, 3 ldl_solve_refine (f64), 4
+// ldl_factor_batched, 5 ldl_solve_batched (f32), in the streaming forms;
+// 6 ldl_solve_refine, 7 ldl_factor, 8 ldl_solve (f64), 9
+// ldl_factor_batched, 10 ldl_solve_batched (f32), in the shared forms
+// (whose N must have an instantiation: 129-256 for the sweeps).
 int cc_occupancy_wide(int kernel, int n, int r, int* blocks, int* threads) {
   if (bad_shape(1, n, r)) return (int)cudaErrorInvalidValue;
   const int W = kWideThreads, RW = kResWarps * kWarp;
@@ -945,16 +1173,10 @@ int cc_occupancy_wide(int kernel, int n, int r, int* blocks, int* threads) {
   const bool one = r == 1;
   switch (kernel) {
     case 0:
-      return occupancy(ldl_factor_wide_kernel<double>,
-                       ready_factor<double>(), W, factor_smem<double>(n),
-                       blocks);
+      return factor_occupancy<double, 0>(n, blocks, threads);
     case 1:
-      return one ? occupancy(ldl_solve_wide_kernel<double, 1>,
-                             ready_solve<double, 1>(), W,
-                             vector_smem<double>(n, 1), blocks)
-                 : occupancy(ldl_solve_wide_kernel<double, 2>,
-                             ready_solve<double, 2>(), W,
-                             vector_smem<double>(n, 2), blocks);
+      return one ? solve_occupancy<double, 1, 0>(n, blocks, threads)
+                 : solve_occupancy<double, 2, 0>(n, blocks, threads);
     case 2:
       return one ? occupancy(kkt_residual_wide_kernel<double, 1>,
                              ready_residual<1>(), RW,
@@ -969,6 +1191,10 @@ int cc_occupancy_wide(int kernel, int n, int r, int* blocks, int* threads) {
                  : occupancy(ldl_solve_refine_wide_kernel<double, 2, 0>,
                              ready_refine<2, 0>(), W,
                              refine_smem<double>(n, 2, false), blocks);
+    case 4:
+      return factor_occupancy<float, 0>(n, blocks, threads);
+    case 5:
+      return solve_occupancy<float, 1, 0>(n, blocks, threads);
     case 6:
       return with_shared_slots(n, [&](auto S) {
         constexpr int kS = decltype(S)::value;
@@ -979,13 +1205,15 @@ int cc_occupancy_wide(int kernel, int n, int r, int* blocks, int* threads) {
                                ready_refine<2, kS>(), W,
                                refine_smem<double>(n, 2, true), blocks);
       });
-    case 4:
-      return occupancy(ldl_factor_wide_kernel<float>, ready_factor<float>(),
-                       W, factor_smem<float>(n), blocks);
-    case 5:
-      return occupancy(ldl_solve_wide_kernel<float, 1>,
-                       ready_solve<float, 1>(), W, vector_smem<float>(n, 1),
-                       blocks);
+    case 7:
+      return factor_occupancy<double, 1>(n, blocks, threads);
+    case 8:
+      return one ? shared_solve_occupancy<double, 1>(n, blocks, threads)
+                 : shared_solve_occupancy<double, 2>(n, blocks, threads);
+    case 9:
+      return factor_occupancy<float, 1>(n, blocks, threads);
+    case 10:
+      return shared_solve_occupancy<float, 1>(n, blocks, threads);
     default:
       return (int)cudaErrorInvalidValue;
   }

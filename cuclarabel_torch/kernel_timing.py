@@ -1,7 +1,7 @@
 """Times of the f64 LDL^T kernels (`csrc/ldl.cu`) on one card, at the
 main path's shapes.
 
-    python3 -m cuclarabel_torch.kernel_timing [--wide-library]
+    python3 -m cuclarabel_torch.kernel_timing [--wide | --wide-library]
 
 At N = 76 (the KKT dimension of the portfolio SOCP with nass = 32) and
 each width B of WIDTHS, at N = 104 (`problems.exp_logistic(4, 10,
@@ -28,7 +28,9 @@ beside its bound (`work`, `bound_ms`), ptxas' registers and spill bytes
 per thread from the build's log and, where the kernel library reports
 it, the resident blocks and warps per SM.  Run as a script, it also
 times each form with the L2 flushed before every launch (cold_ms), to
-show how much the warm L2 gives.  With --wide-library it times instead
+show how much the warm L2 gives; a wide kernel's line names the form its
+launcher ran it in ("shared" or "streaming").  With --wide it times the
+shapes of WIDE_SHAPES alone.  With --wide-library it times instead
 the PyTorch calls that compute the wide forms' functions at
 WIDE_LIBRARY_SHAPES (library_wide: cuSOLVER's LDL^T through torch.linalg,
 a host loop over the batch of seconds at B = 4096, and baddbmm), one
@@ -111,6 +113,14 @@ OCCUPANCY_ID = {"ldl_factor": 0, "ldl_solve": 1, "kkt_residual": 2,
                 "ldl_solve_refine": 3}
 WIDE_OCCUPANCY_ID = dict(OCCUPANCY_ID, ldl_factor_batched=4,
                          ldl_solve_batched=5)
+# cc_occupancy_wide's ids of the wide kernels' shared forms
+SHARED_OCCUPANCY_ID = {"ldl_solve_refine": 6, "ldl_factor": 7,
+                       "ldl_solve": 8, "ldl_factor_batched": 9,
+                       "ldl_solve_batched": 10}
+# the function of kkt/ldl.py that names each wide kernel's form
+FORM_OF = {"ldl_factor": "factor_form", "ldl_factor_batched": "factor_form",
+           "ldl_solve": "solve_form", "ldl_solve_batched": "solve_form",
+           "ldl_solve_refine": "refine_form"}
 # the wide forms' shapes: the portfolio SOCP at nass = 64 (n = 65,
 # m = 83, N = 148) at B = 4096 and 1, and at nass = 128 (n = 129,
 # m = 163, N = 292) at B = 256; the forms its batch launches
@@ -323,19 +333,35 @@ def kernel_name(name, R, N):
     return names[name].format(R=R)
 
 
+def wide_form(name, N, R):
+    """The form ("shared" or "streaming") that the launcher of kernel
+    form (name, R) picks at N on the card (kkt/ldl.py's factor_form,
+    solve_form, refine_form); None for a narrow form and the residual.
+    A checkout from before a kernel's shared form has only its
+    streaming form."""
+    if not ldl.wide(N) or name not in FORM_OF:
+        return None
+    ask = getattr(ldl, FORM_OF[name], None)
+    if ask is None:
+        return "streaming"
+    if name == "ldl_solve_refine":
+        return ask(N, R)
+    dtype = torch.float32 if name.endswith("_batched") else torch.float64
+    return (ask(N, dtype) if "factor" in name else ask(N, R, dtype))
+
+
 def occupancy(name, R, N, form=None):
     """(resident blocks, resident warps) per SM of the kernel's launch at
-    N (the wide refined solve's in `form`, refine_form's choice),
-    from cudaOccupancyMaxActiveBlocksPerMultiprocessor; None where the
-    kernel library does not report it."""
+    N (a wide kernel's in `form`, wide_form's choice), from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor; None where the kernel
+    library does not report it."""
     lib = _build.load()
     blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
     out = (ctypes.addressof(blocks), ctypes.addressof(threads))
     if ldl.wide(N):
         fn = getattr(lib, "cc_occupancy_wide", None)
-        kid = WIDE_OCCUPANCY_ID[name]
-        if name == "ldl_solve_refine" and form == "shared":
-            kid = 6
+        kid = (SHARED_OCCUPANCY_ID if form == "shared"
+               else WIDE_OCCUPANCY_ID)[name]
         args = (kid, N, R) + out
     elif name in OCCUPANCY_ID:
         fn = getattr(lib, "cc_occupancy", None)
@@ -353,20 +379,25 @@ def occupancy(name, R, N, form=None):
 
 def ptxas(name, R, N, report, form=None):
     """ptxas' {"registers", "spill_stores", "spill_loads", ...} of the
-    instantiation that kernel form (name, R) launches at N (the wide
-    refined solve's in `form`, refine_form's choice), from a build's
+    instantiation that kernel form (name, R) launches at N (a wide
+    kernel's in `form`, wide_form's choice), from a build's
     `_build.ptxas_report`: the device function whose template arguments
     agree with (R, slots) -- (slots) for the factors and the f32
-    kernels -- as far as it has any; None where the report has none."""
+    kernels; above N = 128 the type, then (F) for the factors, (R, S)
+    for the substitutions and the refined solve -- as far as it has any
+    (an older build's kernel may have fewer); None where the report has
+    none."""
     wide = ldl.wide(N)
     func = re.match(r"\w+", kernel_name(name, R, N)).group(0)
     slots = (N + 31) // 32
     one = "factor" in name or name.endswith("_batched")
-    if wide:  # <T>, <T, R> or <T, R, S>: the type's letter, then ints
-        want = [1] if name == "ldl_solve_batched" else [] if one else [R]
-        if name == "ldl_solve_refine":
-            # S: the shared form's slots, 0 for the streaming form
-            want.append(slots if form == "shared" else 0)
+    if wide:  # <T, F> or <T, R, S>: the type's letter, then ints
+        shared = form == "shared"
+        if "factor" in name:  # F: 1 for the shared form
+            want = [int(shared)]
+        else:  # S: the shared form's slots, 0 for the streaming form
+            want = [1 if name == "ldl_solve_batched" else R,
+                    slots if shared else 0]
         kind = "f" if name.endswith("_batched") else "d"
     else:
         want = [slots] if one else [R, slots]
@@ -378,8 +409,9 @@ def ptxas(name, R, N, report, form=None):
         rest = mangled[at + len(tag):]
         if wide:
             m = re.match(r"I([df])((?:Li-?\d+E)*)E", rest)
-            if m and m.group(1) == kind and [int(v) for v in re.findall(
-                    r"Li(-?\d+)E", m.group(2))] == want:
+            got = [int(v) for v in re.findall(r"Li(-?\d+)E",
+                                              m.group(2))] if m else None
+            if m and m.group(1) == kind and got == want[:len(got)]:
                 return rec
             continue
         m = re.match(r"I((?:Li-?\d+E)+)E", rest)
@@ -459,8 +491,7 @@ def time_width(B, forms=FORMS, reps=20, plain_reps=3, cold=False,
         nbytes, ops = work(name, B, N, R=R)
         bms, by = bound_ms(nbytes, ops, PEAK_F32_PER_S
                            if name.endswith("_batched") else PEAK_F64_PER_S)
-        rform = (ldl.refine_form(N, R) if name == "ldl_solve_refine"
-                 and ldl.wide(N) else None)
+        rform = wide_form(name, N, R)
         occ = occupancy(name, R, N, rform)
         reg = ptxas(name, R, N, report, rform) or {}
         row = {"name": name, "R": R, "N": N, "B": B,
@@ -595,13 +626,14 @@ def main(argv=()):
                                   "B": B, "ms": ms, "card": card}),
                       flush=True)
         return 0
-    for B in WIDTHS:
+    wide_only = list(argv) == ["--wide"]
+    for B in () if wide_only else WIDTHS:
         for row in time_width(B, cold=True)[0]:
             print(row_line(card, row), flush=True)
-    for B in NONSYM_WIDTHS:
+    for B in () if wide_only else NONSYM_WIDTHS:
         for row in time_width(B, NONSYM_FORMS, cold=True, nm=NONSYM_NM)[0]:
             print(row_line(card, row), flush=True)
-    for nm, B in PSD_SHAPES:
+    for nm, B in () if wide_only else PSD_SHAPES:
         for row in time_width(B, PSD_FORMS, cold=True, nm=nm)[0]:
             print(row_line(card, row), flush=True)
     for nm, B in WIDE_SHAPES:

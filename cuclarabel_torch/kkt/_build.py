@@ -46,7 +46,9 @@ _I = ctypes.c_int
 # csrc/probes.cu and csrc/segsum.cu (pointers, then ints, then the
 # stream; the cc_occupancy* functions: ints, then two int pointers).
 # Each wide form (N > 128) has its narrow form's signature;
-# cc_refine_form_wide returns the wide refined solve's form at (n, r).
+# cc_factor_form_wide(n, word), cc_solve_form_wide(n, r, word) and
+# cc_refine_form_wide(n, r) return the form the wide launchers pick
+# (word: the element's bytes).
 SIGNATURES = {
     "cc_ldl_factor": (_P, _P, _P, _P, _P, _I, _I, _P),
     "cc_ldl_solve": (_P, _P, _P, _P, _I, _I, _I, _P),
@@ -58,6 +60,8 @@ SIGNATURES = {
     "cc_ldl_solve_wide": (_P, _P, _P, _P, _I, _I, _I, _P),
     "cc_kkt_residual_wide": (_P, _P, _P, _P, _I, _I, _I, _P),
     "cc_ldl_solve_refine_wide": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "cc_factor_form_wide": (_I, _I),
+    "cc_solve_form_wide": (_I, _I, _I),
     "cc_refine_form_wide": (_I, _I),
     "cc_ldl_factor_wide_f32": (_P, _P, _P, _I, _I, _P),
     "cc_ldl_solve_wide_f32": (_P, _P, _P, _P, _I, _I, _P),

@@ -19,12 +19,16 @@ versions alike.  Each wrapper takes its plain version when its tensors lie on
 the CPU and launches its CUDA kernel when they lie on a CUDA device;
 there is no fallback from one to the other.  On the card each wrapper
 launches its narrow form at N <= NARROW_MAX_N = 128 and its wide form
-above (one block per problem: `csrc/ldl_wide.cu`); above 128 the refined
-solve has two forms, which its launcher chooses from N, R and the card's
-shared memory (`refine_form` asks it): L in shared memory where it fits
-("shared", N <= 233 at R = 1, N <= 226 at R = 2 on an H100), L read from
-device memory above ("streaming"); both run their residuals through
-kkt_residual's tiled body.  `LAUNCHES` counts kernel launches,
+above (one block per problem: `csrc/ldl_wide.cu`).  Above 128 the
+factor, the substitution and the refined solve each have two forms,
+which their launchers choose from N (and R) and the card's shared
+memory (`factor_form`, `solve_form` and `refine_form` ask them): the
+problem's triangle in shared memory where it fits ("shared"; on an H100
+the factor up to N = 220, the substitution up to 240, the refined solve
+up to 233 at R = 1 and 226 at R = 2), read from device memory above
+("streaming"); the refined solve runs its residuals through
+kkt_residual's tiled body.  The wrappers pass no form: the launcher's
+choice is the only one.  `LAUNCHES` counts kernel launches,
 keyed by "<name>/r<R>" for a narrow form and "<name>_wide/r<R>" for a
 wide one, and `PLAIN_CALLS` calls of the plain versions, keyed by
 "<name>/r<R>" at every N, so a run can show which path it took; both
@@ -219,16 +223,43 @@ def wide(N) -> bool:
     return N > NARROW_MAX_N
 
 
+def _form(fn, what, *args):
+    rc = getattr(_build.load(), fn)(*args)
+    if rc < 0:
+        raise RuntimeError(f"{what}: CUDA error {-rc}")
+    return "shared" if rc else "streaming"
+
+
+def factor_form(N, dtype=torch.float64):
+    """The form of the wide factor (f64, or f32: ldl_f32) that its
+    launcher picks at N (above NARROW_MAX_N) on the current CUDA device:
+    "shared", K's triangle factored in shared memory (the narrow
+    factor's blocked body), where its layout fits what one block may
+    have; "streaming", the trailing triangle kept in L's rows in device
+    memory, above."""
+    word = torch.empty((), dtype=dtype).element_size()
+    return _form("cc_factor_form_wide", f"factor_form({N}, {dtype})", N,
+                 word)
+
+
+def solve_form(N, R=1, dtype=torch.float64):
+    """The form of the wide substitution that its launcher picks at N
+    (above NARROW_MAX_N), R on the current CUDA device: "shared", L
+    copied into shared memory panel by panel and swept there by one
+    warp, where it fits; "streaming", L read from device memory by the
+    block's panels, above."""
+    word = torch.empty((), dtype=dtype).element_size()
+    return _form("cc_solve_form_wide", f"solve_form({N}, {R}, {dtype})", N,
+                 R, word)
+
+
 def refine_form(N, R):
     """The form of the wide refined solve that its launcher picks at N
     (above NARROW_MAX_N), R on the current CUDA device: "shared", L
     copied once into shared memory and read there by every sweep, where
     it fits what one block may have; "streaming", L read from device
     memory by each sweep, above."""
-    rc = _build.load().cc_refine_form_wide(N, R)
-    if rc < 0:
-        raise RuntimeError(f"refine_form({N}, {R}): CUDA error {-rc}")
-    return "shared" if rc else "streaming"
+    return _form("cc_refine_form_wide", f"refine_form({N}, {R})", N, R)
 
 
 def launch_key(name, N, R):

@@ -18,7 +18,10 @@ with zeros on and above the diagonal (the reference leaves junk there),
 and Dinv holds D^-1.  On CPU tensors the plain versions run; on CUDA
 tensors the kernels launch, with no fallback from one to the other: the
 narrow forms at N <= 128, the wide ones above (the f64 wide bodies at
-T = float, without regularisation).  Launches are counted in
+T = float, without regularisation; the triangle in shared memory up to
+N = 320 for the factor and N = 256 for the substitution on an H100,
+`ldl.factor_form(N, torch.float32)` and `ldl.solve_form(N, 1,
+torch.float32)` name the form).  Launches are counted in
 `ldl.LAUNCHES` under "ldl_factor_batched/r1" and "ldl_solve_batched/r1"
 (narrow) or "ldl_factor_batched_wide/r1" and "ldl_solve_batched_wide/r1"
 (wide), plain calls in `ldl.PLAIN_CALLS` under the narrow keys.

@@ -2,13 +2,13 @@
 per pass and warm problems/s of the portfolio SOCP, and the wide refined
 solve's and residual's device times.
 
-    python3 -m cuclarabel_torch.pass_cost [--wide-kernels]
+    python3 -m cuclarabel_torch.pass_cost [--wide-batch] [--wide-kernels]
 
 prints one JSON line per measurement.  The script imports the package by
 its absolute name, so that it can measure another checkout of the port
 too, in the same process setup and on the same card:
 
-    PYTHONPATH=<checkout> python3 <this file> [--wide-kernels]
+    PYTHONPATH=<checkout> python3 <this file> [--wide-batch] [--wide-kernels]
 
 Batches (`BATCHES`): nass = 32 (N = 76) at B = 256 and 4096 under
 "pallas" (B = 256 runs unstaged, so that its launches per pass are those
@@ -20,7 +20,9 @@ launches are divided by the solve's passes, the largest IPM iteration
 count of the batch (the loop runs until its last problem stops), with
 its device busy ms (the union of the kernels' intervals) and the
 kernels that take the most device time.  The profiler may drop a
-session's events: launches are then not measured.
+session's events: launches are then not measured.  With --wide-batch,
+the nass = 64 batch under "pallas" alone (WIDE_BATCH), and no segment
+sums.
 Then the host's microseconds per call of the SOC segment sum at the
 nass = 32 batch's shape (one cone of 9 entries), by
 `cones/segsum.segment_sum` where the checkout has it and by the
@@ -45,6 +47,7 @@ from cuclarabel_torch.problems import portfolio_socp
 
 BATCHES = ((32, 256, "pallas", 0.0), (32, 4096, "pallas", None),
            (64, 4096, "pallas", None), (64, 4096, "lu", None))
+WIDE_BATCH = BATCHES[2]  # the one the wide kernels run on (N = 148)
 WARM_REPS = 7
 TOP_KERNELS = 8
 SEG_CALLS = 2000
@@ -145,10 +148,11 @@ def main(argv=()):
         return 1
     card = kt.card_line()
     tree = ct.__file__
-    for nass, B, method, quorum in BATCHES:
+    wide = "--wide-batch" in argv
+    for nass, B, method, quorum in (WIDE_BATCH,) if wide else BATCHES:
         rec = batch_cost(nass, B, method, quorum)
         print(json.dumps(dict(rec, card=card, package=tree)), flush=True)
-    for B in (256, 4096):
+    for B in () if wide else (256, 4096):
         print(json.dumps(dict(seg_sum_host(B), card=card, package=tree)),
               flush=True)
     if "--wide-kernels" in argv:

@@ -14,7 +14,9 @@ the substitution's 32-row panels and around the factor's 8-pivot panels
 and 4 x 4 tiles, and a pivot that cancels to exactly zero; the residual
 bit for bit with the refined solve's.  The same for the wide forms that
 run above N = 128 (csrc/ldl_wide.cu), at N from 129 to 292, with both
-forms of the wide refined solve, a 2-RHS residual and refined solve
+forms of the wide factor, substitution and refined solve (the triangle
+in shared memory, or streamed) on either side of each form's edge and
+the launchers' choice of form by N, a 2-RHS residual and refined solve
 bit for bit two 1-RHS ones, a problem alone bit for bit what it is in
 a batch of 4096, and three solves of the nass = 64 batch giving one
 digest under "pallas" and under "lu" (ROADMAP F14).  The issue-rate probes' kernels
@@ -259,11 +261,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
 
 # the wide forms (csrc/ldl_wide.cu, N > 128): around the first N they
 # take, the portfolio's N = 148, the 32-row panels of the substitution
-# (160, 169), the largest N at which the refined solve keeps L in shared
-# memory and the next (226, 227 at R = 2; 233, 234 at R = 1: its
-# launcher's refine_form), where one triangle stops fitting in 227 KB of
-# shared memory (237, 238), and the nass = 128 portfolio's N = 292
-WIDE_N = (129, 148, 160, 169, 226, 227, 233, 234, 237, 238, 292)
+# (160, 169), the largest N at which each kernel keeps its triangle in
+# shared memory on an H100 and the next (its launcher's form: the factor
+# 220, 221; the refined solve 226, 227 at R = 2 and 233, 234 at R = 1;
+# the substitution 240, 241), around 237, 238, and the nass = 128
+# portfolio's N = 292
+WIDE_N = (129, 148, 160, 169, 220, 221, 226, 227, 233, 234, 237, 238, 240,
+          241, 292)
 
 
 @pytest.mark.parametrize("N", WIDE_N)
@@ -336,6 +340,49 @@ def test_wide_refine_form_by_n(dev, R):
         assert ldl.refine_form(N, R) == "shared"
     for N in (top + 1, 237, 256, 292, 600):
         assert ldl.refine_form(N, R) == "streaming"
+
+
+# the largest N at which the wide factor and the wide substitution keep
+# the problem's triangle in shared memory on an H100 (227 KB a block): the
+# factor's blocked layout to N = 220 in f64 and its block of 10 warps to
+# N = 320 in f32; the substitution's packed triangle to N = 240 in f64
+# and its instantiations (8 register slots) to N = 256 in f32
+LARGEST_SHARED_FACTOR = {"f64": 220, "f32": 320}
+LARGEST_SHARED_SOLVE = {"f64": 240, "f32": 256}
+DTYPES = {"f64": torch.float64, "f32": torch.float32}
+
+
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+def test_wide_factor_form_by_n(dev, dtype):
+    """The factor's launcher keeps K's triangle in shared memory from
+    N = 129 up to the largest N whose layout fits one block's shared
+    memory, and streams the trailing triangle through L's rows above, at
+    N = 292 too in f64 (test_wide_kernels_match_plain and
+    test_f32_kernels_match_plain hold both forms against plain on each
+    side of the edge)."""
+    from cuclarabel_torch.kkt import ldl
+
+    top, t = LARGEST_SHARED_FACTOR[dtype], DTYPES[dtype]
+    for N in (129, 148, top):
+        assert ldl.factor_form(N, t) == "shared"
+    for N in (top + 1, top + 40, 600):
+        assert ldl.factor_form(N, t) == "streaming"
+    if dtype == "f64":
+        assert ldl.factor_form(292, t) == "streaming"
+
+
+@pytest.mark.parametrize("dtype,R", [("f64", 1), ("f64", 2), ("f32", 1)])
+def test_wide_solve_form_by_n(dev, dtype, R):
+    """The substitution's launcher keeps L in shared memory from N = 129
+    up to the largest N that fits, whatever R (x lives in registers),
+    and streams L above, at N = 292 too."""
+    from cuclarabel_torch.kkt import ldl
+
+    top, t = LARGEST_SHARED_SOLVE[dtype], DTYPES[dtype]
+    for N in (129, 148, top):
+        assert ldl.solve_form(N, R, t) == "shared"
+    for N in (top + 1, 292, 600):
+        assert ldl.solve_form(N, R, t) == "streaming"
 
 
 @pytest.mark.parametrize("B", [1, 5, 4096])
@@ -562,11 +609,14 @@ def test_batch_solver_on_card_matches_cpu(dev):
 
 
 @pytest.mark.parametrize("N,B", [(16, 5), (128, 37), (129, 5), (148, 37),
-                                 (292, 3)])
+                                 (256, 3), (257, 3), (292, 3), (320, 3),
+                                 (321, 3)])
 def test_f32_kernels_match_plain(dev, N, B):
     """ldl_factor_batched / ldl_solve_batched (csrc/ldl_f32.cu; above
-    N = 128 the wide forms of csrc/ldl_wide.cu) on quasidefinite K as
-    tests/test_pallas_ldl.py builds them."""
+    N = 128 the wide forms of csrc/ldl_wide.cu, on both sides of the
+    substitution's shared-memory edge, 256 / 257, and the factor's,
+    320 / 321) on quasidefinite K as tests/test_pallas_ldl.py builds
+    them."""
     from cuclarabel_torch.kkt import ldl, ldl_f32
 
     rng = np.random.default_rng(N + B)
